@@ -5,18 +5,33 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the CUDA device, and the card's name and power limit from nvidia-smi;
-  2. the closest-hit kernel built with nvcc from the checkout's sources;
-  3. kernel against its plain PyTorch version on the card: a random triangle
-     soup with dead rays and a ragged tail, and Cornell wavefronts at bounce 0
-     and bounce 3 (65,536 rays x 972 triangles, the main path's shape), with
-     both times;
-  4. the same uniforms through `trace_paths` on the card and on the CPU;
-  5. the main path: `renderer.render_from_config` on a master file for the
-     Cornell box with spheres at 512x512, 8 spp, level 8, hittable_pdf_weight
-     0.5; its launch count, seconds and rays/s, and its image mean against
-     a CPU render of the same scene.
-The line before the last is the per-kernel JSON record; the last line is
-{"ok": true, "device": {...}}.
+  2. both closest-hit kernels built with nvcc from the checkout's sources
+     (one nvcc per source, started together), with their ptxas lines;
+  3. the plain-load kernel (`closest_hit`) against its plain PyTorch version
+     on the card: a random triangle soup with dead rays and a ragged tail,
+     and Cornell wavefronts at bounce 0 and bounce 3 (65,536 rays x 972
+     triangles, the Cornell main path's shape), with both times;
+  4. the double-buffered kernel (`closest_hit_pipe`) on wavefronts of the
+     327,684-triangle mesh at bounce 0 and bounce 2: against its plain
+     version on a 16,384-ray subset, bit-equal to `closest_hit` on the full
+     65,536 rays (and on a ragged tail), the per-block fetched/scanned tile
+     counts, the times of both kernels, of the plain version and of the
+     host-side preparation of a launch;
+  5. the same uniforms through `trace_paths` on the card and on the CPU;
+  6. the Cornell main path: `renderer.render_from_config` on a master file
+     for the Cornell box with spheres at 512x512, 8 spp, level 8,
+     hittable_pdf_weight 0.5; its launch count, seconds and rays/s, and its
+     image mean against a CPU render of the same scene;
+  7. the mesh main path: `build_scene(make_mesh_scene_host(subdiv=7))` and
+     `render_image` at the same widths, which must run on `closest_hit_pipe`
+     alone; its image against the same render forced onto `closest_hit` and
+     against a CPU plain-path render of the mesh at subdiv=5;
+  8. the gradient: the L2 loss of a 512x512, 2 spp, level 8 Cornell render
+     against the main path's image, differentiated to the emission table
+     `ke` by path replay; seconds, grad-rays/s and peak memory; the gradient
+     against a central finite difference at 64x64; three `optimize` steps.
+The line before the card's line is the per-kernel JSON record; the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -30,8 +45,17 @@ import time
 
 HERE = pathlib.Path(__file__).resolve().parent
 MAIN = dict(width=512, height=512, spp=8, level=8, weight=0.5)
+CORNELL_CAM = dict(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0), fovy_deg=40.0)
+MESH_CAM = dict(eye=(0.5, 0.8, 2.2), center=(0.5, 0.45, 0.5), up=(0, 1, 0), fovy_deg=45.0)
+WAVE_RAYS = 65536  # one wavefront of the main paths
+MESH_SUBDIV, MESH_TRIS = 7, 327684  # the large-mesh configuration
+MESH_CPU_SUBDIV = 5  # the mesh that the CPU plain path renders as the reference
 TOL_RTOL = 1e-6  # t where slots agree: same float32 ops, no FMA on either side
 MIN_SLOT_AGREE = 0.999
+PLAIN_SUBSET = 16384  # rays of a mesh wavefront that the plain version also answers
+FLOPS_PER_PAIR = 42  # fp32 operations of one (ray, triangle) Woop test, t included
+PEAK_FP32 = 67e12  # H100 SXM, FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM, HBM bytes/s
 
 
 def log(msg: str) -> None:
@@ -67,39 +91,124 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def compare(name, rays, tiles, aabb, stats, time_it=False):
-    """Kernel vs plain version on the same prepared rays; records agreement
-    and, when asked, both times."""
+def agreement(name, t, slot, rt, rslot, stats):
+    """Checks slots (>= 99.9%) and t (rtol 1e-6 where slots agree) of a
+    kernel against a plain version; records the largest |dt|."""
     import torch
-    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
 
-    order = ch.block_tile_order(rays, aabb, rays.shape[0] // ch.RAY_BLOCK)
-    t, slot = ch.launch_closest_hit(rays, tiles, aabb, order)
-    torch.cuda.synchronize()
-    rt, rslot = ch.closest_hit_rays_reference(rays, tiles)
     same = slot == rslot
     agree = float(same.float().mean())
     hit = same & (slot >= 0)
     err = float((t[hit] - rt[hit]).abs().max()) if bool(hit.any()) else 0.0
     close = bool(torch.all((t[hit] - rt[hit]).abs() <= TOL_RTOL * rt[hit].abs()))
-    live = float((rays[:, 6] > 0).float().mean())
-    log(f"{name}: {rays.shape[0]} rays x {tiles.shape[0] * tiles.shape[2]} tri slots, "
-        f"live {live:.3f}, hits {float((slot >= 0).float().mean()):.3f}, "
+    log(f"{name}: {t.shape[0]} rays, hits {float((slot >= 0).float().mean()):.3f}, "
         f"slot agreement {agree:.6f}, max |dt| {err:.3e}")
     check(agree >= MIN_SLOT_AGREE, f"{name}: slot agreement {agree} < {MIN_SLOT_AGREE}")
     check(close, f"{name}: t differs beyond rtol {TOL_RTOL} where slots agree")
     stats["max_abs_err"] = max(stats["max_abs_err"], err)
-    if time_it:
-        ms = cuda_ms(lambda: ch.launch_closest_hit(rays, tiles, aabb, order), 20)
-        plain_ms = cuda_ms(lambda: ch.closest_hit_rays_reference(rays, tiles), 3)
-        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        return ms, plain_ms
-    return None
+
+
+def bound_ms(rays, tiles, counts):
+    """The least time the card could take for one launch's work, from the
+    launch's own per-block counts: the fp32 pair tests of the tiles that
+    were scanned at the fp32 peak, against the bytes that must move (rays
+    in, results out, each scanned tile once, the walked part of the order
+    table and of the tile boxes) at the memory rate."""
+    n_tiles, rows, tile = tiles.shape
+    steps, _, scanned = (int(x) for x in counts.sum(dim=0))
+    flops = scanned * 128 * tile * FLOPS_PER_PAIR
+    nbytes = (rays.numel() * 4 + rays.shape[0] * 8 + min(scanned, n_tiles) * rows * tile * 4
+              + steps * (4 + 32))
+    by_ops, by_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+
+
+def compare_plain_load(name, rays, tiles, aabb, stats, time_it=False):
+    """`closest_hit` vs its plain version on the same prepared rays; when
+    asked, both times and the launch's bound."""
+    import torch
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+
+    order = ch.block_tile_order(rays, aabb, rays.shape[0] // ch.RAY_BLOCK)
+    t, slot, counts = ch.launch_closest_hit(rays, tiles, aabb, order, counts=True)
+    torch.cuda.synchronize()
+    rt, rslot = ch.closest_hit_rays_reference(rays, tiles)
+    live = float((rays[:, 6] > 0).float().mean())
+    agreement(f"{name} ({tiles.shape[0] * tiles.shape[2]} tri slots, live {live:.3f})",
+              t, slot, rt, rslot, stats)
+    if not time_it:
+        return None
+    ms = cuda_ms(lambda: ch.launch_closest_hit(rays, tiles, aabb, order), 20)
+    plain_ms = cuda_ms(lambda: ch.closest_hit_rays_reference(rays, tiles), 3)
+    bound, by = bound_ms(rays, tiles, counts)
+    log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
+
+def compare_pipe(name, rays, tiles, aabb, stats, pipe_stats, time_it=False):
+    """`closest_hit_pipe` on prepared rays: bit-equal to `closest_hit` on all
+    of them, against its plain version on a subset of whole ray blocks spread
+    over the batch, and the lagging-prefetch counts."""
+    import torch
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+
+    n_blocks = rays.shape[0] // ch.RAY_BLOCK
+    order = ch.block_tile_order(rays, aabb, n_blocks)
+    t1, slot1, c1 = ch.launch_closest_hit(rays, tiles, aabb, order, counts=True)
+    t2, slot2, c2 = ch.launch_closest_hit_pipe(rays, tiles, aabb, order, counts=True)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(t1, t2)) and bool(torch.equal(slot1, slot2))
+    steps, fetched, scanned = (c2[:, i].long() for i in range(3))
+    extra = fetched - scanned
+    log(f"{name}: {rays.shape[0]} rays x {tiles.shape[0]} tiles; closest_hit_pipe == closest_hit "
+        f"bit for bit: {equal}; per block: steps {float(steps.float().mean()):.1f}, fetched "
+        f"{float(fetched.float().mean()):.2f}, scanned {float(scanned.float().mean()):.2f} "
+        f"(closest_hit scans {float(c1[:, 2].float().mean()):.2f}); fetched but not scanned: "
+        f"{int(extra.sum())} tiles in {n_blocks} blocks")
+    check(equal, f"{name}: closest_hit_pipe and closest_hit differ")
+    check(bool(torch.equal(c1[:, 0], c2[:, 0])), f"{name}: the two kernels walk different steps")
+    check(bool((extra >= 0).all()) and bool((extra <= 1).all()),
+          f"{name}: a block fetched {int(extra.max())} tiles more than it scanned")
+    check(bool((c2[:, 2] >= c1[:, 2]).all()), f"{name}: closest_hit_pipe scanned fewer tiles")
+
+    # the plain version on every k-th block
+    stride = max(1, rays.shape[0] // PLAIN_SUBSET)
+    blocks = torch.arange(0, n_blocks, stride, device=rays.device)
+    rows = (blocks[:, None] * ch.RAY_BLOCK
+            + torch.arange(ch.RAY_BLOCK, device=rays.device)[None, :]).reshape(-1)
+    sub_rays, sub_order = rays[rows].contiguous(), order[blocks].contiguous()
+    t0 = time.perf_counter()
+    rt, rslot, rc = ch.closest_hit_pipe_reference(sub_rays, tiles, aabb, sub_order)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    agreement(f"{name}, plain version on {sub_rays.shape[0]} rays", t2[rows], slot2[rows],
+              rt, rslot, stats)
+    same_counts = float((rc == c2[blocks]).all(dim=1).float().mean())
+    log(f"{name}: plain version's counts equal the kernel's on {same_counts:.4f} of the "
+        f"subset's blocks")
+    check(same_counts >= MIN_SLOT_AGREE, f"{name}: fetched/scanned counts differ from the plain "
+          f"version's on {1 - same_counts:.4f} of the blocks")
+    if not time_it:
+        return
+    # kernels in turns, on the same wavefront
+    ms1a = cuda_ms(lambda: ch.launch_closest_hit(rays, tiles, aabb, order), 20)
+    ms2a = cuda_ms(lambda: ch.launch_closest_hit_pipe(rays, tiles, aabb, order), 20)
+    ms2b = cuda_ms(lambda: ch.launch_closest_hit_pipe(rays, tiles, aabb, order), 20)
+    ms1b = cuda_ms(lambda: ch.launch_closest_hit(rays, tiles, aabb, order), 20)
+    order_ms = cuda_ms(lambda: ch.block_tile_order(rays, aabb, n_blocks), 20)
+    bound, by = bound_ms(rays, tiles, c2)
+    log(f"{name}: closest_hit_pipe {ms2a:.4f} / {ms2b:.4f} ms, closest_hit {ms1a:.4f} / "
+        f"{ms1b:.4f} ms (20 launches each, in turns), plain version {plain_s * 1e3:.1f} ms "
+        f"(one launch, {sub_rays.shape[0]} rays), block_tile_order {order_ms:.4f} ms, "
+        f"bound {bound:.5f} ms ({by})")
+    pipe_stats.update(ms=min(ms2a, ms2b), plain_ms=plain_s * 1e3, plain_rays=sub_rays.shape[0],
+                      plain_load_ms=min(ms1a, ms1b), order_ms=order_ms, bound_ms=bound,
+                      bound_by=by)
 
 
 def wavefronts(scene, camera, n_rays: int, bounces: int, seed: int):
     """(origin, direction, live) of each closest-hit call of `trace_paths`
-    for camera rays of the Cornell view, bounce by bounce."""
+    for camera rays of the given view, bounce by bounce."""
     import torch
     from gpu_pathtracer_tpu_torch.ops import trace
     from gpu_pathtracer_tpu_torch.render.integrator import trace_paths
@@ -129,6 +238,26 @@ def wavefronts(scene, camera, n_rays: int, bounces: int, seed: int):
     return captured
 
 
+def sorted_rays(g, wave, drop_tail: int = 0):
+    """The main path's query for one captured wavefront: dead rays get a
+    budget of -1, the rays are coherence-sorted and prepared."""
+    import torch
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.ops import trace
+
+    wo, wd, live = wave
+    tm = torch.where(live, float("inf"), -1.0)
+    perm = trace.coherence_perm(g, wo, wd, live)
+    if drop_tail:
+        perm = perm[:-drop_tail]
+    return ch.prepare_rays(g.tile_aabb, wo[perm], wd[perm], tm[perm])
+
+
+def reset_launches(ch) -> None:
+    ch.launch_closest_hit.launches = 0
+    ch.launch_closest_hit_pipe.launches = 0
+
+
 def main() -> int:
     if not (HERE / "gpu_pathtracer_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout holding gpu_pathtracer_tpu_torch/",
@@ -138,14 +267,21 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from gpu_pathtracer_tpu_torch import host, renderer
+    from gpu_pathtracer_tpu_torch import optim, renderer
     from gpu_pathtracer_tpu_torch.device import require_cuda
     from gpu_pathtracer_tpu_torch.models.camera import Camera
     from gpu_pathtracer_tpu_torch.models.scene import build_scene
     from gpu_pathtracer_tpu_torch.ops import _build, intersect, trace
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
-    from gpu_pathtracer_tpu_torch.render.integrator import N_UNIFORMS, trace_paths
+    from gpu_pathtracer_tpu_torch.render.integrator import (
+        N_UNIFORMS,
+        render_image,
+        render_image_value_and_grad,
+        trace_paths,
+    )
+    from gpu_pathtracer_tpu_torch.utils import config, obj_io, testscenes
 
+    t_start = time.perf_counter()
     # ---- 1. device --------------------------------------------------------
     dev = require_cuda()
     card = nvidia_smi()
@@ -156,16 +292,20 @@ def main() -> int:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
 
     # ---- 2. build -----------------------------------------------------------
+    kernels = ("closest_hit", "closest_hit_pipe")
     t0 = time.perf_counter()
-    lib_path = _build.build("closest_hit")
-    _build.load("closest_hit")
-    log(f"built {lib_path.relative_to(HERE)} in {time.perf_counter() - t0:.2f}s")
-    for line in (lib_path.parent / "nvcc.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+    libs = _build.build_many(kernels)
+    log(f"built {', '.join(str(p.relative_to(HERE)) for p in libs)} in "
+        f"{time.perf_counter() - t0:.2f}s (both compilers started together)")
+    for name, lib_path in zip(kernels, libs):
+        _build.load(name)
+        for line in (lib_path.parent / "nvcc.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
 
-    # ---- 3. kernel vs plain -------------------------------------------------
+    # ---- 3. closest_hit vs plain ------------------------------------------
     stats = {"max_abs_err": 0.0}
+    pipe_err = {"max_abs_err": 0.0}
     rng = np.random.default_rng(0)
     n_tri, n_ray = 3000, 20000  # 20000 % 128 != 0: a padded ragged tail
     base = rng.uniform(-2, 2, (n_tri, 1, 3))
@@ -178,32 +318,56 @@ def main() -> int:
     d = torch.as_tensor(rng.normal(size=(n_ray, 3)), dtype=torch.float32, device=dev)
     d = d / d.norm(dim=-1, keepdim=True)
     t_max = torch.where(torch.arange(n_ray, device=dev) % 5 == 0, -1.0, float("inf"))
-    compare("soup", ch.prepare_rays(aabb, o, d, t_max), tiles, aabb, stats)
+    soup = ch.prepare_rays(aabb, o, d, t_max)
+    compare_plain_load("soup", soup, tiles, aabb, stats)
+    compare_pipe("soup", soup, tiles, aabb, pipe_err, {})
 
     folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    host.make_cornell_box(folder, spheres=True, sphere_subdiv=2)
-    scene = build_scene(host.load_scene(folder, "box.obj"), dev)
+    testscenes.make_cornell_box(folder, spheres=True, sphere_subdiv=2)
+    scene = build_scene(obj_io.load_scene(folder, "box.obj"), dev)
     check(scene.geom.num_tris == 972, f"Cornell has {scene.geom.num_tris} triangles, not 972")
-    camera = Camera.create(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0),
-                           fovy_deg=40.0, width=MAIN["width"], height=MAIN["height"], device=dev)
-    waves = wavefronts(scene, camera, 65536, 4, seed=1)
-    times = {}
+    camera = Camera.create(**CORNELL_CAM, width=MAIN["width"], height=MAIN["height"], device=dev)
+    waves = wavefronts(scene, camera, WAVE_RAYS, 4, seed=1)
     g = scene.geom
     for bounce in (0, 3):
-        wo, wd, live = waves[bounce]
-        # the main path's query: dead rays get a budget of -1, coherence sort
-        tm = torch.where(live, float("inf"), -1.0)
-        perm = trace.coherence_perm(g, wo, wd, live)
-        rays = ch.prepare_rays(g.tile_aabb, wo[perm], wd[perm], tm[perm])
-        ragged = ch.prepare_rays(g.tile_aabb, wo[perm][:-100], wd[perm][:-100], tm[perm][:-100])
-        compare(f"cornell bounce {bounce} (ragged)", ragged, g.tiles, g.tile_aabb, stats)
-        times[bounce] = compare(f"cornell bounce {bounce}", rays, g.tiles, g.tile_aabb, stats,
-                                time_it=True)
+        compare_plain_load(f"cornell bounce {bounce} (ragged)", sorted_rays(g, waves[bounce], 100),
+                           g.tiles, g.tile_aabb, stats)
+        b1 = compare_plain_load(f"cornell bounce {bounce}", sorted_rays(g, waves[bounce]),
+                                g.tiles, g.tile_aabb, stats, time_it=True)
 
-    # ---- 4. same uniforms, card vs CPU -------------------------------------
-    scene_cpu = build_scene(host.load_scene(folder, "box.obj"), "cpu")
-    cam32 = Camera.create(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0),
-                          fovy_deg=40.0, width=32, height=32)
+    # ---- 4. closest_hit_pipe on the mesh ----------------------------------
+    t0 = time.perf_counter()
+    mesh_host = testscenes.make_mesh_scene_host(subdiv=MESH_SUBDIV)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = build_scene(mesh_host, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mg = mesh.geom
+    log(f"mesh: {mg.num_tris} triangles, {mg.tiles.shape[0]} tiles of {mg.tiles.shape[2]} "
+        f"({mg.tiles.numel() * 4 / 1e6:.1f} MB); host arrays {host_s:.2f}s, build_scene on the "
+        f"card {build_s:.2f}s")
+    check(mg.num_tris == MESH_TRIS, f"the mesh has {mg.num_tris} triangles, not {MESH_TRIS}")
+    check(trace.pallas_big(mg), "the mesh is not above PALLAS_MAX")
+    mcam = Camera.create(**MESH_CAM, width=MAIN["width"], height=MAIN["height"], device=dev)
+    reset_launches(ch)
+    mwaves = wavefronts(mesh, mcam, WAVE_RAYS, 3, seed=2)
+    check(ch.launch_closest_hit_pipe.launches == 3 and ch.launch_closest_hit.launches == 0,
+          "the mesh wavefronts did not run on closest_hit_pipe alone")
+    b2 = {}
+    for bounce in (0, 2):
+        compare_pipe(f"mesh bounce {bounce} (ragged)", sorted_rays(mg, mwaves[bounce], 100),
+                     mg.tiles, mg.tile_aabb, pipe_err, {})
+        compare_pipe(f"mesh bounce {bounce}", sorted_rays(mg, mwaves[bounce]),
+                     mg.tiles, mg.tile_aabb, pipe_err, b2, time_it=True)
+    prep_ms = cuda_ms(lambda: sorted_rays(mg, mwaves[2]), 10)
+    log(f"mesh bounce 2: coherence sort + prepare_rays {prep_ms:.4f} ms per launch "
+        f"(block_tile_order apart, above)")
+    b2["prep_ms"] = prep_ms
+
+    # ---- 5. same uniforms, card vs CPU -------------------------------------
+    scene_cpu = build_scene(obj_io.load_scene(folder, "box.obj"), "cpu")
+    cam32 = Camera.create(**CORNELL_CAM, width=32, height=32)
     ii, jj = torch.meshgrid(torch.arange(32.0), torch.arange(32.0), indexing="ij")
     o32, d32 = cam32.generate_rays(ii.reshape(-1) + 0.5, jj.reshape(-1) + 0.5,
                                    torch.zeros(1024), torch.zeros(1024))
@@ -219,8 +383,8 @@ def main() -> int:
         f"means {float(col_gpu.mean()):.6f} / {float(col_cpu.mean()):.6f}")
     check(share >= 0.99, f"same uniforms: only {share:.4f} of rays match")
 
-    # ---- 5. main path ---------------------------------------------------------
-    cfg = host.RenderConfig(
+    # ---- 6. Cornell main path -------------------------------------------------
+    cfg = config.RenderConfig(
         input_folder_path=f"{folder}/", obj_filename="box.obj",
         image_output_path=str(folder / "out.ppm"),
         image_width=MAIN["width"], image_height=MAIN["height"], render_mode=1,
@@ -230,19 +394,21 @@ def main() -> int:
         fovy=40.0,
     )
     master = folder / "master.txt"
-    host.write_master_file(cfg, master)
-    cfg = host.parse_master_file(master)
-    ch.closest_hit_tiles.launches = 0
+    config.write_master_file(cfg, master)
+    cfg = config.parse_master_file(master)
+    reset_launches(ch)
     t0 = time.perf_counter()
     img = renderer.render_from_config(cfg)
     seconds = time.perf_counter() - t0
-    launches = ch.closest_hit_tiles.launches
+    launches = ch.launch_closest_hit.launches
     rays = MAIN["width"] * MAIN["height"] * MAIN["spp"] * MAIN["level"]
-    chunks = -(-MAIN["width"] * MAIN["height"] // 65536)
+    chunks = -(-MAIN["width"] * MAIN["height"] // WAVE_RAYS)
     expected = chunks * MAIN["spp"] * MAIN["level"]
     log(f"main path: {MAIN['width']}x{MAIN['height']} spp {MAIN['spp']} level {MAIN['level']} "
-        f"Cornell (972 tris): {launches} kernel launches (expected {expected})")
+        f"Cornell (972 tris): {launches} closest_hit launches (expected {expected}), "
+        f"{ch.launch_closest_hit_pipe.launches} closest_hit_pipe launches")
     check(launches == expected, f"main path: {launches} kernel launches, expected {expected}")
+    check(ch.launch_closest_hit_pipe.launches == 0, "Cornell ran on closest_hit_pipe")
     check(img.shape == (MAIN["height"], MAIN["width"], 3), f"image shape {img.shape}")
     check(bool(np.isfinite(img).all()) and img.mean() > 0, "image not finite or all zero")
 
@@ -251,7 +417,7 @@ def main() -> int:
 
     # the same master file at 64x64, 32 spp: the plain path on the CPU, and
     # the card at the same pixel centres
-    cfg64 = host.parse_master_file(master)
+    cfg64 = config.parse_master_file(master)
     cfg64.image_width = cfg64.image_height = 64
     cfg64.pathtracing_sample_size = 32
     t0 = time.perf_counter()
@@ -267,16 +433,160 @@ def main() -> int:
     check(rel < 0.05, f"main-path image mean off the CPU plain path by {rel:.4f}")
     check(rel64 < 0.02, f"64x64 card image mean off the CPU plain path by {rel64:.4f}")
 
-    record = {"kernels": [{
-        "name": "closest_hit",
-        "route": "cuda",
-        "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit.cu",
-        "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:519",
-        "launches": launches,
-        "max_abs_err": stats["max_abs_err"],
-        "ms": times[3][0],
-        "plain_ms": times[3][1],
-    }]}
+    # ---- 7. mesh main path ------------------------------------------------------
+    kw = dict(width=MAIN["width"], height=MAIN["height"], sample_size=MAIN["spp"],
+              level=MAIN["level"], hittable_pdf_weight=MAIN["weight"])
+
+    def render_mesh():
+        reset_launches(ch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = render_image(mesh, mcam, generator=torch.Generator(device=dev).manual_seed(12),
+                               **kw)
+        torch.cuda.synchronize()
+        return out.cpu().numpy(), time.perf_counter() - t0
+
+    mimg, mesh_s = render_mesh()
+    pipe_launches, plain_load_launches = (ch.launch_closest_hit_pipe.launches,
+                                          ch.launch_closest_hit.launches)
+    log(f"mesh main path: {MAIN['width']}x{MAIN['height']} spp {MAIN['spp']} level {MAIN['level']}, {mg.num_tris} triangles: {pipe_launches} "
+        f"closest_hit_pipe launches (expected {expected}), {plain_load_launches} closest_hit "
+        f"launches; render {mesh_s:.3f}s, {rays / mesh_s:.0f} rays/s; card: {card}")
+    check(pipe_launches == expected and plain_load_launches == 0,
+          f"mesh main path: {pipe_launches} closest_hit_pipe / {plain_load_launches} closest_hit "
+          f"launches, expected {expected} / 0")
+    check(mimg.shape == (MAIN["height"], MAIN["width"], 3), f"mesh image shape {mimg.shape}")
+    check(bool(np.isfinite(mimg).all()) and mimg.mean() > 1e-3, "mesh image not finite or black")
+
+    # the same render with every query forced onto closest_hit
+    pallas_max = trace.PALLAS_MAX
+    trace.PALLAS_MAX = mg.p.shape[0]
+    try:
+        mimg_b1, mesh_b1_s = render_mesh()
+    finally:
+        trace.PALLAS_MAX = pallas_max
+    check(ch.launch_closest_hit.launches == expected and ch.launch_closest_hit_pipe.launches == 0,
+          "the forced render did not run on closest_hit alone")
+    rel_b1 = abs(float(mimg.mean()) - float(mimg_b1.mean())) / float(mimg_b1.mean())
+    log(f"mesh through closest_hit (forced): render {mesh_b1_s:.3f}s, {rays / mesh_b1_s:.0f} "
+        f"rays/s; image mean {mimg_b1.mean():.6f} against {mimg.mean():.6f}; images equal: "
+        f"{bool(np.array_equal(mimg, mimg_b1))}")
+    check(rel_b1 < 0.05, f"mesh image mean off the closest_hit render by {rel_b1:.4f}")
+
+    # CPU plain path: the mesh at subdiv=5 (20,484 triangles), 64x64
+    cpu_spp = 4  # ~13 s per sample on the CPU: every ray against all 161 tiles
+    cpu_kw = dict(kw, width=64, height=64, sample_size=cpu_spp)
+    mesh5_host = testscenes.make_mesh_scene_host(subdiv=MESH_CPU_SUBDIV)
+    cam64 = Camera.create(**MESH_CAM, width=64, height=64)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        mimg_cpu = render_image(build_scene(mesh5_host, "cpu"), cam64,
+                                generator=torch.Generator().manual_seed(12), **cpu_kw).numpy()
+    mcpu_s = time.perf_counter() - t0
+    mref = float(mimg_cpu.mean())
+    mrel = abs(float(mimg.mean()) - mref) / mref
+    log(f"mesh image mean: card main path {mimg.mean():.6f}; CPU plain path, the mesh at "
+        f"subdiv={MESH_CPU_SUBDIV}, 64x64 spp {cpu_spp}: {mref:.6f} ({mcpu_s:.1f}s); rel diff {mrel:.4f}")
+    check(mrel < 0.05, f"mesh image mean off the CPU plain path by {mrel:.4f}")
+
+    # ---- 8. gradient ------------------------------------------------------------
+    bw_spp = max(1, MAIN["spp"] // 4)
+    target = torch.as_tensor(img, device=dev)
+
+    def ke_loss_and_grad(scn, cam, tgt, size, ke, seed):
+        return render_image_value_and_grad(
+            optim._substitute(scn, {"ke": ke}), cam, size, size,
+            lambda im: torch.mean((im - tgt) ** 2), [ke], sample_size=bw_spp,
+            level=MAIN["level"], hittable_pdf_weight=MAIN["weight"],
+            generator=torch.Generator(device=dev).manual_seed(seed))
+
+    ke = (scene.materials.ke * 1.01).requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ch)
+    t0 = time.perf_counter()
+    loss, _, (grad,) = ke_loss_and_grad(scene, camera, target, MAIN["width"], ke, 2)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grad_rays = MAIN["width"] * MAIN["height"] * bw_spp * MAIN["level"]
+    light = scene.materials.ke.amax(dim=-1) > 0
+    log(f"gradient: Cornell 512x512 spp {bw_spp} level {MAIN['level']}, L2 loss {float(loss):.6e} "
+        f"to ke by path replay: {grad_s:.3f}s, {grad_rays / grad_s:.0f} grad-rays/s, peak memory "
+        f"{peak_gb:.3f} GB, {ch.launch_closest_hit.launches} closest_hit launches; d loss / d ke "
+        f"on the light's row {grad[light].flatten().tolist()}; card: {card}")
+    check(bool(torch.isfinite(grad).all()), "the gradient is not finite")
+    check(int(light.sum()) == 1 and bool((grad[light] != 0).all()),
+          "the gradient is zero on the light's row")
+    check(ch.launch_closest_hit.launches == 2 * chunks * bw_spp * MAIN["level"],
+          f"gradient: {ch.launch_closest_hit.launches} closest_hit launches")
+
+    # 64x64: against a central finite difference on one component of ke.  The
+    # paths are fixed by the seed and the image is linear in ke, so the loss is
+    # quadratic in it and the central difference exact up to rounding
+    cam64c = Camera.create(**CORNELL_CAM, width=64, height=64, device=dev)
+    tgt64 = torch.as_tensor(img_card64, device=dev)
+    row = int(torch.nonzero(light)[0, 0])
+    ke0 = scene.materials.ke.clone()
+    _, _, (g64,) = ke_loss_and_grad(scene, cam64c, tgt64, 64, (ke0 * 0.9).requires_grad_(True), 5)
+    eps = 0.05 * float(ke0[row, 0])
+    side = []
+    for sign in (1.0, -1.0):
+        kp = ke0 * 0.9
+        kp[row, 0] += sign * eps
+        side.append(float(ke_loss_and_grad(scene, cam64c, tgt64, 64, kp.requires_grad_(True), 5)[0]))
+    fd = (side[0] - side[1]) / (2 * eps)
+    an = float(g64[row, 0])
+    log(f"gradient 64x64: d loss / d ke[{row}, 0] = {an:.6e} by autograd, {fd:.6e} by central "
+        f"finite difference")
+    check(abs(an - fd) < 0.05 * max(abs(fd), abs(an), 1e-3), f"gradient {an} vs difference {fd}")
+
+    dim = optim._substitute(scene, {"ke": ke0 * 0.3})
+    params, losses = optim.optimize(dim, cam64c, tgt64, param_names=("ke",), steps=3, lr=0.5,
+                                    seed=1, sample_size=bw_spp, level=MAIN["level"],
+                                    hittable_pdf_weight=MAIN["weight"])
+    log(f"optimize, 3 steps at 64x64 from 0.3 ke: losses {losses}; ke on the light's row "
+        f"{params['ke'][light].flatten().tolist()} (true {ke0[light].flatten().tolist()})")
+    check(bool(np.isfinite(losses).all()) and len(losses) == 3, f"optimize losses {losses}")
+    check(bool((params["ke"] >= 0).all()) and bool(torch.isfinite(params["ke"]).all()),
+          "optimize left a negative or non-finite parameter")
+
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
+    record = {"kernels": [
+        {
+            "name": "closest_hit",
+            "route": "cuda",
+            "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit.cu",
+            "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:519",
+            "launches": launches,
+            "max_abs_err": stats["max_abs_err"],
+            "ms": b1["ms"],
+            "plain_ms": b1["plain_ms"],
+            "bound_ms": b1["bound_ms"],
+            "bound_by": b1["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a closest hit
+            "shape": "65,536 rays x 972 triangles, Cornell bounce 3",
+        },
+        {
+            "name": "closest_hit_pipe",
+            "route": "cuda",
+            "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit_pipe.cu",
+            "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:609",
+            "launches": pipe_launches,
+            "max_abs_err": pipe_err["max_abs_err"],
+            "ms": b2["ms"],
+            "plain_ms": b2["plain_ms"],
+            "bound_ms": b2["bound_ms"],
+            "bound_by": b2["bound_by"],
+            "library_ms": None,
+            "shape": "65,536 rays x 327,684 triangles, mesh bounce 2; plain_ms on "
+                     f"{b2['plain_rays']} of the rays",
+            "closest_hit_ms_same_rays": b2["plain_load_ms"],
+            "block_tile_order_ms": b2["order_ms"],
+            "sort_and_prepare_ms": b2["prep_ms"],
+        },
+    ]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

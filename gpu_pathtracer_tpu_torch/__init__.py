@@ -3,12 +3,13 @@
 The JAX package `gpu_pathtracer_tpu` is the reference; this package mirrors
 its layout (`ops/`, `models/`, `render/`, `renderer.py`, `cli.py`) so every
 module has an obvious counterpart.  Plain tensor code is PyTorch; the
-closest-hit tile kernel, a Pallas kernel in the reference, is a hand-written
-CUDA kernel for Hopper (`csrc/closest_hit.cu`), built at first use.
+closest-hit tile kernels, Pallas kernels in the reference, are hand-written
+CUDA kernels for Hopper (`csrc/closest_hit.cu`, `csrc/closest_hit_pipe.cu`),
+built at first use.
 
-The package imports `torch` and never `jax`.  Host-side parsing (OBJ/MTL,
-master files, images, test scenes) is reused from the JAX package's
-JAX-free modules `gpu_pathtracer_tpu.utils.*` and `gpu_pathtracer_tpu.constants`.
+The package imports `torch`, never `jax`, and nothing of `gpu_pathtracer_tpu`:
+host-side parsing (OBJ/MTL, master files, images, test scenes) and the
+constants are its own copies (`utils/`, `constants.py`).
 """
 
 __version__ = "0.1.0"

@@ -4,13 +4,8 @@
 // (gpu_pathtracer_tpu/ops/pallas_trace.py): for every ray, the closest
 // watertight-Woop hit among the scene's triangles, returned as (t, slot)
 // with slot a row of the Morton-sorted triangle SoA (-1 on a miss).
-//
-// Layout (packed by gpu_pathtracer_tpu_torch/ops/closest_hit.py):
-//   rays  (R, 8)            f32  [ox oy oz dx dy dz t_cap t_near], R % 128 == 0
-//   tris  (NT, 10, TILE)    f32  rows v1xyz v2xyz v3xyz tol; empty rows are
-//                                zero with tol = +inf (det == 0 -> miss)
-//   aabb  (NT, 8)           f32  [min xyz, max xyz, 0, 0]; empty tiles inverted
-//   order (R / 128, NT)     i32  each block's front-to-back tile order
+// Layouts and the pair arithmetic are in closest_hit_common.cuh, shared with
+// the double-buffered kernel of closest_hit_pipe.cu.
 //
 // One thread per ray, 128 rays per block.  A block reduces its rays' origin
 // box and max |d|_inf once, then walks its row of `order`: per tile it
@@ -18,9 +13,7 @@
 // stops once lb * (1 - 1e-6) >= max(best_t) * dmax (no later tile can
 // improve any ray); it votes on the per-ray slab test against best_t and,
 // if any ray's slab reaches the tile, stages the tile's 10 rows in shared
-// memory and every thread scans its triangles in order.  Strict `<` in the
-// scan keeps the first triangle at the minimum t within a tile, and across
-// tiles keeps the earlier-visited tile, as the TPU kernel does.
+// memory and every thread scans its triangles in order.
 //
 // What bounds it on this card: fp32 ALU work per (ray, triangle) pair
 // (~50 flops plus a division for pairs that pass the edge tests); the tiles
@@ -29,192 +22,81 @@
 // budget only where it can matter: the tile cull skips tiles no ray of the
 // block can reach, and the front-to-back early exit stops the walk once
 // the block's hits are closer than every remaining tile.
-//
-// Arithmetic: built with -fmad=false and without fast math, so the edge
-// functions e = a*b - c*d are not contracted into FMAs and the divisions
-// (sx, sy, sz, 1/det) are IEEE-rounded; the plain PyTorch version
-// (closest_hit_tiles_reference) computes the same expressions in the same
-// order.
 
-#include <cuda_runtime.h>
+#include "closest_hit_common.cuh"
+
+using namespace gpt;
 
 namespace {
 
-constexpr int kBlock = 128;
-constexpr int kWarps = kBlock / 32;
 constexpr int kMaxTile = 1024;  // 10 rows * 1024 * 4 B = 40 KB of shared memory
-constexpr float kInf = 3.4e38f;
-constexpr float kLbSlack = 0.999999f;  // 1 - 1e-6
-constexpr unsigned kFull = 0xffffffffu;
-
-// dominant-axis permutation; k = 2 (z dominant), 1 (y), 0 (x); ties go to
-// z, then y, as in the TPU kernel's _ray_ctx
-__device__ __forceinline__ void permute(int k, float vx, float vy, float vz,
-                                        float& x, float& y, float& z) {
-  x = (k == 0) ? vy : ((k == 1) ? vz : vx);
-  y = (k == 0) ? vz : ((k == 1) ? vx : vy);
-  z = (k == 0) ? vx : ((k == 1) ? vy : vz);
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
 
 __global__ void __launch_bounds__(kBlock)
 closest_hit_kernel(const float* __restrict__ rays, const float* __restrict__ tris,
                    const float* __restrict__ aabb, const int* __restrict__ order,
                    float* __restrict__ out_t, int* __restrict__ out_slot,
-                   int n_tiles, int tile) {
+                   int* __restrict__ out_counts, int n_tiles, int tile) {
   extern __shared__ float s_tile[];  // (10, tile)
   __shared__ float s_box[7][kWarps];
   __shared__ float s_best[kWarps];
   __shared__ int s_any[kWarps];
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const long long ray = (long long)blockIdx.x * kBlock + tid;
+  const Ray q = load_ray(rays + ray * 8);
+  const BlockBox bb = block_box(q, s_box);
 
-  const float* r = rays + ray * 8;
-  const float ox = r[0], oy = r[1], oz = r[2];
-  const float dx = r[3], dy = r[4], dz = r[5];
-  const float t_cap = r[6];
-
-  // per-ray Woop constants
-  const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
-  const bool is2 = (az >= ax) && (az >= ay);
-  const bool is1 = !is2 && (ay >= ax);
-  const int k = is2 ? 2 : (is1 ? 1 : 0);
-  float pdx, pdy, pdz;
-  permute(k, dx, dy, dz, pdx, pdy, pdz);
-  const float sx = -pdx / pdz;
-  const float sy = -pdy / pdz;
-  const float sz = 1.0f / pdz;
-
-  // slab-test constants (1e-20 clamp, sign dropped, as the TPU kernel)
-  const float inv_dx = 1.0f / (fabsf(dx) < 1e-20f ? 1e-20f : dx);
-  const float inv_dy = 1.0f / (fabsf(dy) < 1e-20f ? 1e-20f : dy);
-  const float inv_dz = 1.0f / (fabsf(dz) < 1e-20f ? 1e-20f : dz);
-
-  // block origin box and max |d|_inf: one reduction
-  float red[7] = {ox, oy, oz, ox, oy, oz, fmaxf(fmaxf(ax, ay), az)};
-  for (int i = 0; i < 3; ++i) red[i] = warp_min(red[i]);
-  for (int i = 3; i < 7; ++i) red[i] = warp_max(red[i]);
-  if (lane == 0)
-    for (int i = 0; i < 7; ++i) s_box[i][warp] = red[i];
-  __syncthreads();
-  float blo_x = s_box[0][0], blo_y = s_box[1][0], blo_z = s_box[2][0];
-  float bhi_x = s_box[3][0], bhi_y = s_box[4][0], bhi_z = s_box[5][0];
-  float dmax = s_box[6][0];
-  for (int w = 1; w < kWarps; ++w) {
-    blo_x = fminf(blo_x, s_box[0][w]);
-    blo_y = fminf(blo_y, s_box[1][w]);
-    blo_z = fminf(blo_z, s_box[2][w]);
-    bhi_x = fmaxf(bhi_x, s_box[3][w]);
-    bhi_y = fmaxf(bhi_y, s_box[4][w]);
-    bhi_z = fmaxf(bhi_z, s_box[5][w]);
-    dmax = fmaxf(dmax, s_box[6][w]);
-  }
-
-  float best_t = fminf(kInf, t_cap);
+  float best_t = fminf(kInf, q.t_cap);
   int best_slot = -1;
   const int* my_order = order + (long long)blockIdx.x * n_tiles;
+  int n_steps = 0, n_computed = 0;
 
   for (int j = 0; j < n_tiles; ++j) {
+    ++n_steps;
     const int ti = my_order[j];
     const float* b = aabb + (long long)ti * 8;
-    const float bmin_x = b[0], bmin_y = b[1], bmin_z = b[2];
-    const float bmax_x = b[3], bmax_y = b[4], bmax_z = b[5];
-
-    // Chebyshev lower bound (the host sorted `order` by the same formula)
-    const float lb = fmaxf(
-        fmaxf(fmaxf(bmin_x - bhi_x, blo_x - bmax_x), fmaxf(bmin_y - bhi_y, blo_y - bmax_y)),
-        fmaxf(fmaxf(bmin_z - bhi_z, blo_z - bmax_z), 0.0f));
-
-    // per-ray slab test within the ray's current best t; max(tlo, 0) makes
-    // a dead ray's budget of -1 (or a padding ray's 0) cull every box
-    const float t0x = (bmin_x - ox) * inv_dx, t1x = (bmax_x - ox) * inv_dx;
-    const float t0y = (bmin_y - oy) * inv_dy, t1y = (bmax_y - oy) * inv_dy;
-    const float t0z = (bmin_z - oz) * inv_dz, t1z = (bmax_z - oz) * inv_dz;
-    const float tlo = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-    const float thi = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-    const bool slab = (thi >= tlo) && (thi > 0.0f) && (fmaxf(tlo, 0.0f) < best_t);
-
-    // block max(best_t) and the block vote, in one pass through shared memory
-    const float m = warp_max(best_t);
-    const unsigned vote = __any_sync(kFull, slab);
-    if (lane == 0) {
-      s_best[warp] = m;
-      s_any[warp] = (int)vote;
-    }
-    __syncthreads();
-    float block_best = s_best[0];
-    int any = s_any[0];
-    for (int w = 1; w < kWarps; ++w) {
-      block_best = fmaxf(block_best, s_best[w]);
-      any |= s_any[w];
-    }
+    const float lb = tile_lb(b, bb);
+    float block_best;
+    bool any;
+    block_max_any(best_t, slab_hit(b, q, best_t), s_best, s_any, block_best, any);
     // uniform across the block: every value in it is block-wide
-    if (!(lb * kLbSlack < block_best * dmax)) break;
+    if (!(lb * kLbSlack < block_best * bb.dmax)) break;
 
     if (any) {
-      const float* src = tris + (long long)ti * 10 * tile;
-      for (int i = tid; i < 10 * tile; i += kBlock) s_tile[i] = src[i];
+      const float* src = tris + (long long)ti * kTileRows * tile;
+      for (int i = tid; i < kTileRows * tile; i += kBlock) s_tile[i] = src[i];
       __syncthreads();
-      const int base = ti * tile;
-      for (int q = 0; q < tile; ++q) {
-        float x[3], y[3], z[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float vx = s_tile[(3 * c + 0) * tile + q] - ox;
-          const float vy = s_tile[(3 * c + 1) * tile + q] - oy;
-          const float vz = s_tile[(3 * c + 2) * tile + q] - oz;
-          float px, py, pz;
-          permute(k, vx, vy, vz, px, py, pz);
-          x[c] = px + sx * pz;
-          y[c] = py + sy * pz;
-          z[c] = pz * sz;
-        }
-        const float e1 = x[1] * y[2] - y[1] * x[2];
-        const float e2 = x[2] * y[0] - y[2] * x[0];
-        const float e3 = x[0] * y[1] - y[0] * x[1];
-        const bool mixed = (e1 < 0.0f || e2 < 0.0f || e3 < 0.0f) &&
-                           (e1 > 0.0f || e2 > 0.0f || e3 > 0.0f);
-        const float det = e1 + e2 + e3;
-        if (mixed || det == 0.0f) continue;
-        const float ts = e1 * z[0] + e2 * z[1] + e3 * z[2];
-        const float t = ts * (1.0f / det);
-        if (t >= s_tile[9 * tile + q] && t < best_t && t <= t_cap) {
-          best_t = t;
-          best_slot = base + q;
-        }
-      }
+      scan_tile(s_tile, tile, ti * tile, q, best_t, best_slot);
+      ++n_computed;
     }
     __syncthreads();  // s_tile / s_best / s_any are rewritten next tile
   }
 
   out_t[ray] = best_t;
   out_slot[ray] = best_slot;
+  if (out_counts != nullptr && tid == 0) {
+    int* c = out_counts + (long long)blockIdx.x * 3;
+    c[0] = n_steps;
+    c[1] = n_computed;  // every staged tile is scanned
+    c[2] = n_computed;
+  }
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes.  Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// cudaGetLastError() (0 = launched).  `out_counts` is null or (n_rays / 128, 3)
+// int32: per block the tile steps walked, the tiles staged and the tiles
+// scanned.
 extern "C" int gpt_closest_hit(const float* rays, const float* tris, const float* aabb,
                                const int* order, float* out_t, int* out_slot,
-                               int n_rays, int n_tiles, int tile, void* stream) {
+                               int* out_counts, int n_rays, int n_tiles, int tile,
+                               void* stream) {
   if (n_rays < 0 || n_rays % kBlock != 0 || n_tiles <= 0 || tile <= 0 || tile > kMaxTile)
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  const size_t smem = (size_t)10 * tile * sizeof(float);
+  const size_t smem = (size_t)kTileRows * tile * sizeof(float);
   closest_hit_kernel<<<n_rays / kBlock, kBlock, smem, (cudaStream_t)stream>>>(
-      rays, tris, aabb, order, out_t, out_slot, n_tiles, tile);
+      rays, tris, aabb, order, out_t, out_slot, out_counts, n_tiles, tile);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,9 @@ driven with the identical scene.  The closest-hit tiles are the port's own
 packing and are rebuilt from "geom.p", "geom.tol" and "geom.valid"; fields
 the port does not hold (the reference's TPU tile columns, the transparent
 subset) are ignored.  `scene_to_numpy` flattens a port scene the same way.
+Every tensor made here is a leaf, so a material or atlas field can be asked
+for gradients (`requires_grad_`); `params_from_numpy` / `params_to_numpy`
+carry the optimizer's parameter dict (`optim.optimize`) across both ways.
 """
 
 from __future__ import annotations
@@ -124,3 +127,14 @@ def scene_to_numpy(obj, prefix: str = "") -> dict[str, np.ndarray]:
         else:
             out[key] = np.asarray(v)
     return out
+
+
+def params_from_numpy(params: dict[str, np.ndarray], device, requires_grad: bool = False):
+    """An optimizer parameter dict ({"ke": ..., "atlas_rgb": ...}) as leaf
+    tensors on `device`."""
+    return {k: _t(v, device).requires_grad_(requires_grad) for k, v in params.items()}
+
+
+def params_to_numpy(params: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The way back: detached copies on the host."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

@@ -20,9 +20,9 @@ import torch
 
 from gpu_pathtracer_tpu_torch.device import as_f32 as _f32
 from gpu_pathtracer_tpu_torch.device import as_i32 as _i32
-from gpu_pathtracer_tpu_torch.host import HostScene
 from gpu_pathtracer_tpu_torch.ops import bvh as bvh_mod
 from gpu_pathtracer_tpu_torch.ops import closest_hit, intersect, lights, materials
+from gpu_pathtracer_tpu_torch.utils.obj_io import HostScene
 
 
 @dataclasses.dataclass

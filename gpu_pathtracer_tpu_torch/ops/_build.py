@@ -4,9 +4,10 @@ Each `csrc/<name>.cu` exposes a plain C entry point and is compiled with
 `nvcc` into a shared library that `ctypes` loads (no PyTorch headers, so a
 build takes seconds).  The library lands in
 `build/torch_kernels/<content-hash>/lib<name>.so` inside the checkout, keyed
-by a hash of the source and the flags, so a changed source rebuilds and an
-unchanged one is reused.  A missing `nvcc` or a failed build raises: there is
-no fallback.
+by a hash of the source, of every header of `csrc/` it includes (directly or
+through another header) and of the flags, so a changed source or header
+rebuilds and an unchanged one is reused.  A missing `nvcc` or a failed build
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -50,35 +52,63 @@ def find_nvcc() -> str:
     )
 
 
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[pathlib.Path]:
+    """csrc/<name>.cu and every file of csrc/ it includes with quotes,
+    transitively, in first-seen order."""
+    seen: list[pathlib.Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend(path.parent / inc for inc in _LOCAL_INCLUDE.findall(path.read_text()))
+    return seen
+
+
 def library_path(name: str) -> pathlib.Path:
     """Where the build of csrc/<name>.cu goes (content-addressed)."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_ROOT / digest[:16] / f"lib{name}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
+
+
+def build_many(names) -> list[pathlib.Path]:
+    """Compile each csrc/<name>.cu whose build does not exist yet, one `nvcc`
+    per source, all started together; returns the libraries in order.  Each
+    compiler's output (ptxas register/shared-memory report) is kept in
+    `nvcc.log` beside its library."""
+    libs = [library_path(name) for name in names]
+    running = []
+    for name, lib in zip(names, libs):
+        if lib.exists():
+            continue
+        nvcc = find_nvcc()
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, lib, tmp, cmd, proc))
+    failed = []
+    for name, lib, tmp, cmd, proc in running:
+        out, _ = proc.communicate()
+        (lib.parent / "nvcc.log").write_text(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 def build(name: str) -> pathlib.Path:
-    """Compile csrc/<name>.cu unless its build exists; returns the library.
-    The compiler's output (ptxas register/shared-memory report) is kept in
-    `nvcc.log` beside the library."""
-    lib = library_path(name)
-    if lib.exists():
-        return lib
-    nvcc = find_nvcc()
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (lib.parent / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib
+    """Compile csrc/<name>.cu unless its build exists; returns the library."""
+    return build_many([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,9 +9,16 @@ miss), and every tile has an AABB, inverted for empty tiles so that no slab
 test ever passes.  A slot (the kernel's output) is `tile * TILE + column`,
 i.e. a row of the sorted SoA.
 
-`closest_hit_tiles` launches `csrc/closest_hit.cu` for CUDA tensors and runs
-`closest_hit_tiles_reference` (same packed tiles, same Woop arithmetic) for
-CPU tensors.  Geometry on the card: 128-triangle tiles (5 KB of shared memory,
+Two kernels answer the query on CUDA tensors, over the same packed tiles and
+with the same arithmetic (`csrc/closest_hit_common.cuh`), so their results
+are bit-equal: `csrc/closest_hit.cu` stages each tile with plain loads, and
+`csrc/closest_hit_pipe.cu` (`big=True`, the route of scenes above
+`ops.trace.PALLAS_MAX` triangles) stages tiles through two shared-memory
+buffers with `cp.async`, tile j+1 in flight while tile j computes.  CPU
+tensors run the plain PyTorch versions: `closest_hit_rays_reference` and,
+for `big=True`, `closest_hit_pipe_reference`, which walks each block's tiles
+in the block's order with the kernel's cull, early exit and lagging prefetch
+decision.  Geometry on the card: 128-triangle tiles (5 KB of shared memory,
 fine-grained enough that the tile cull prunes within a 972-triangle scene)
 and 128-ray blocks (one thread per ray, four warps: enough blocks in flight
 on 132 SMs at the 65,536-ray wavefront).
@@ -26,6 +33,7 @@ import torch
 TILE = 128  # triangles per tile (kernel maximum: 1024)
 RAY_BLOCK = 128  # rays per CUDA block (fixed in the kernel)
 _INF = 3.4e38
+_LB_SLACK = 0.999999  # 1 - 1e-6, the kernels' kLbSlack
 _TILE_ROWS = 10
 _REFERENCE_CHUNK = 8192  # rays per step of the plain version (chunk x TILE temporaries)
 
@@ -108,7 +116,7 @@ def block_tile_order(rays: torch.Tensor, tile_aabb: torch.Tensor, n_blocks: int)
 
 
 # ---------------------------------------------------------------------------
-# The kernel (CUDA tensors)
+# The kernels (CUDA tensors)
 # ---------------------------------------------------------------------------
 
 def _check(name, x, dtype, shape, device):
@@ -122,46 +130,125 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def launch_closest_hit(rays, tiles, tile_aabb, order):
-    """Launch the CUDA kernel on prepared rays; returns (best_t, slot), each
-    (R_pad,).  Raises on any input the kernel does not take and on a refused
-    launch."""
+def _launch(kernel: str, max_tile: int, rays, tiles, tile_aabb, order, counts: bool):
+    """Check the inputs (`max_tile` is the kernel's kMaxTile), launch
+    `csrc/<kernel>.cu` on the current stream and return (best_t, slot, counts
+    or None)."""
     from gpu_pathtracer_tpu_torch.ops import _build
 
     dev = rays.device
     if dev.type != "cuda":
-        raise ValueError(f"launch_closest_hit needs CUDA tensors, got {dev}")
+        raise ValueError(f"the {kernel} kernel needs CUDA tensors, got {dev}")
     n_rays = rays.shape[0]
     n_tiles, rows, tile = tiles.shape
-    if n_rays % RAY_BLOCK or rows != _TILE_ROWS or not 0 < tile <= 1024 or n_tiles == 0:
+    if n_rays % RAY_BLOCK or rows != _TILE_ROWS or not 0 < tile <= max_tile or n_tiles == 0:
         raise ValueError(
             f"bad shapes: rays {tuple(rays.shape)} (multiple of {RAY_BLOCK}), "
-            f"tiles {tuple(tiles.shape)} (NT, 10, tile <= 1024)"
+            f"tiles {tuple(tiles.shape)} (NT, 10, tile <= {max_tile})"
         )
     _check("rays", rays, torch.float32, (n_rays, 8), dev)
     _check("tiles", tiles, torch.float32, (n_tiles, _TILE_ROWS, tile), dev)
     _check("tile_aabb", tile_aabb, torch.float32, (n_tiles, 8), dev)
     _check("order", order, torch.int32, (n_rays // RAY_BLOCK, n_tiles), dev)
 
-    lib = _build.load("closest_hit")
-    fn = lib.gpt_closest_hit
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = getattr(_build.load(kernel), f"gpt_{kernel}")
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out_t = torch.empty((n_rays,), dtype=torch.float32, device=dev)
     out_slot = torch.empty((n_rays,), dtype=torch.int32, device=dev)
+    out_counts = (torch.empty((n_rays // RAY_BLOCK, 3), dtype=torch.int32, device=dev)
+                  if counts else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(rays.data_ptr(), tiles.data_ptr(), tile_aabb.data_ptr(), order.data_ptr(),
-                 out_t.data_ptr(), out_slot.data_ptr(), n_rays, n_tiles, tile, stream)
+                 out_t.data_ptr(), out_slot.data_ptr(),
+                 out_counts.data_ptr() if counts else None, n_rays, n_tiles, tile, stream)
     if err != 0:
-        raise RuntimeError(f"closest_hit kernel launch failed: cudaError {err}")
-    closest_hit_tiles.launches += 1
-    return out_t, out_slot
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
+    return out_t, out_slot, out_counts
+
+
+def launch_closest_hit(rays, tiles, tile_aabb, order, counts: bool = False):
+    """Launch `csrc/closest_hit.cu` on prepared rays; returns (best_t, slot),
+    each (R_pad,), and with `counts` also the (R_pad / 128, 3) int32 per-block
+    [tile steps walked, tiles staged, tiles scanned].  Raises on any input the
+    kernel does not take and on a refused launch."""
+    t, slot, c = _launch("closest_hit", 1024, rays, tiles, tile_aabb, order, counts)
+    launch_closest_hit.launches += 1
+    return (t, slot, c) if counts else (t, slot)
+
+
+def launch_closest_hit_pipe(rays, tiles, tile_aabb, order, counts: bool = False):
+    """Launch `csrc/closest_hit_pipe.cu` (the double-buffered kernel); same
+    inputs and outputs as `launch_closest_hit`, the same values bit for bit.
+    It also refuses a tile width that is not a multiple of 4 and tiles that
+    are not 16-byte aligned (its async copies move 16-byte chunks)."""
+    if tiles.dim() == 3 and (tiles.shape[2] % 4 or tiles.data_ptr() % 16):
+        raise ValueError(
+            f"the 16-byte async tile copies need tile % 4 == 0 and 16-byte-aligned tiles, "
+            f"got tile {tiles.shape[2]}, address % 16 = {tiles.data_ptr() % 16}"
+        )
+    t, slot, c = _launch("closest_hit_pipe", 512, rays, tiles, tile_aabb, order, counts)
+    launch_closest_hit_pipe.launches += 1
+    return (t, slot, c) if counts else (t, slot)
+
+
+# kernel launches; set to 0 by callers that count
+launch_closest_hit.launches = 0
+launch_closest_hit_pipe.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The plain version (any device)
+# The plain versions (any device)
 # ---------------------------------------------------------------------------
+
+def _woop_ctx(rays: torch.Tensor):
+    """Per-ray constants of the pair test, each (..., 1) for rays (..., 8)."""
+    ox, oy, oz = rays[..., 0:1], rays[..., 1:2], rays[..., 2:3]
+    dx_, dy_, dz_ = rays[..., 3:4], rays[..., 4:5], rays[..., 5:6]
+    ax, ay, az = torch.abs(dx_), torch.abs(dy_), torch.abs(dz_)
+    is2 = (az >= ax) & (az >= ay)
+    is1 = (~is2) & (ay >= ax)
+    is0 = ~(is1 | is2)
+
+    def perm(vx, vy, vz):
+        x = torch.where(is0, vy, torch.where(is1, vz, vx))
+        y = torch.where(is0, vz, torch.where(is1, vx, vy))
+        z = torch.where(is0, vx, torch.where(is1, vy, vz))
+        return x, y, z
+
+    dx, dy, dz = perm(dx_, dy_, dz_)
+    return (ox, oy, oz), perm, (-dx / dz, -dy / dz, 1.0 / dz), rays[..., 6:7]
+
+
+def _scan_tile(ctx, tv, base, lane, best_t, best_slot):
+    """One tile against every ray: `tv` is the tile's ten rows, each
+    broadcastable against the rays' (..., 1) to (..., tile); `base` the slot
+    of its first column.  The kernels' Woop arithmetic and axis permutation;
+    strict `<` against best_t and the first column at the minimum."""
+    (ox, oy, oz), perm, (sx, sy, sz), t_cap = ctx
+
+    def corner(c):
+        px, py, pz = perm(tv[3 * c + 0] - ox, tv[3 * c + 1] - oy, tv[3 * c + 2] - oz)
+        return px + sx * pz, py + sy * pz, pz * sz
+
+    x1, y1, z1 = corner(0)
+    x2, y2, z2 = corner(1)
+    x3, y3, z3 = corner(2)
+    e1 = x2 * y3 - y2 * x3
+    e2 = x3 * y1 - y3 * x1
+    e3 = x1 * y2 - y1 * x2
+    mixed = ((e1 < 0) | (e2 < 0) | (e3 < 0)) & ((e1 > 0) | (e2 > 0) | (e3 > 0))
+    det = e1 + e2 + e3
+    ts = e1 * z1 + e2 * z2 + e3 * z3
+    t = ts * (1.0 / torch.where(det == 0.0, 1.0, det))
+    hit = (~mixed) & (det != 0.0) & (t >= tv[9]) & (t < best_t) & (t <= t_cap)
+    t = torch.where(hit, t, _INF)
+    t_min = torch.amin(t, dim=-1, keepdim=True)
+    k = torch.amin(torch.where(t == t_min, lane, 2**30), dim=-1, keepdim=True)
+    better = t_min < best_t
+    return torch.where(better, t_min, best_t), torch.where(better, base + k, best_slot)
+
 
 def closest_hit_rays_reference(rays: torch.Tensor, tiles: torch.Tensor):
     """Plain PyTorch closest hit over the packed tiles for prepared rays:
@@ -173,56 +260,91 @@ def closest_hit_rays_reference(rays: torch.Tensor, tiles: torch.Tensor):
     out_t, out_slot = [], []
     lane = torch.arange(tile, dtype=torch.int32, device=rays.device)
     for r0 in range(0, rays.shape[0], _REFERENCE_CHUNK):
-        rc = rays[r0:r0 + _REFERENCE_CHUNK]
-        ox, oy, oz = rc[:, 0:1], rc[:, 1:2], rc[:, 2:3]
-        dx_, dy_, dz_ = rc[:, 3:4], rc[:, 4:5], rc[:, 5:6]
-        t_cap = rc[:, 6:7]
-        ax, ay, az = torch.abs(dx_), torch.abs(dy_), torch.abs(dz_)
-        is2 = (az >= ax) & (az >= ay)
-        is1 = (~is2) & (ay >= ax)
-        is0 = ~(is1 | is2)
-
-        def perm(vx, vy, vz):
-            x = torch.where(is0, vy, torch.where(is1, vz, vx))
-            y = torch.where(is0, vz, torch.where(is1, vx, vy))
-            z = torch.where(is0, vx, torch.where(is1, vy, vz))
-            return x, y, z
-
-        dx, dy, dz = perm(dx_, dy_, dz_)
-        sx, sy, sz = -dx / dz, -dy / dz, 1.0 / dz
-
-        best_t = torch.clamp(t_cap, max=_INF)
-        best_slot = torch.full_like(t_cap, -1, dtype=torch.int32)
+        ctx = _woop_ctx(rays[r0:r0 + _REFERENCE_CHUNK])
+        best_t = torch.clamp(ctx[3], max=_INF)
+        best_slot = torch.full_like(best_t, -1, dtype=torch.int32)
         for ti in range(n_tiles):
-            tv = tiles[ti]
-
-            def corner(c):
-                vx = tv[3 * c + 0][None, :] - ox
-                vy = tv[3 * c + 1][None, :] - oy
-                vz = tv[3 * c + 2][None, :] - oz
-                px, py, pz = perm(vx, vy, vz)
-                return px + sx * pz, py + sy * pz, pz * sz
-
-            x1, y1, z1 = corner(0)
-            x2, y2, z2 = corner(1)
-            x3, y3, z3 = corner(2)
-            e1 = x2 * y3 - y2 * x3
-            e2 = x3 * y1 - y3 * x1
-            e3 = x1 * y2 - y1 * x2
-            mixed = ((e1 < 0) | (e2 < 0) | (e3 < 0)) & ((e1 > 0) | (e2 > 0) | (e3 > 0))
-            det = e1 + e2 + e3
-            ts = e1 * z1 + e2 * z2 + e3 * z3
-            t = ts * (1.0 / torch.where(det == 0.0, 1.0, det))
-            hit = (~mixed) & (det != 0.0) & (t >= tv[9][None, :]) & (t < best_t) & (t <= t_cap)
-            t = torch.where(hit, t, _INF)
-            t_min = torch.amin(t, dim=1, keepdim=True)
-            k = torch.amin(torch.where(t == t_min, lane, 2**30), dim=1, keepdim=True)
-            better = t_min < best_t
-            best_t = torch.where(better, t_min, best_t)
-            best_slot = torch.where(better, ti * tile + k, best_slot)
+            tv = [row[None, :] for row in tiles[ti]]
+            best_t, best_slot = _scan_tile(ctx, tv, ti * tile, lane, best_t, best_slot)
         out_t.append(best_t[:, 0])
         out_slot.append(best_slot[:, 0])
     return torch.cat(out_t), torch.cat(out_slot)
+
+
+_PIPE_REFERENCE_BLOCKS = 64  # ray blocks per pair step of the pipelined plain version
+
+
+def closest_hit_pipe_reference(rays, tiles, tile_aabb, order):
+    """Plain PyTorch version of the double-buffered kernel: every ray block
+    walks its own row of `order` with the Chebyshev early exit, the block
+    slab vote and the lagging prefetch decision (tile j+1 is "fetched" on the
+    best_t from before tile j's pairs; tile j is scanned only if it was
+    fetched and the walk still goes on).  All blocks advance one tile step
+    together; pair work is done only for the blocks that scan at that step.
+    Returns (best_t, slot, counts): (R_pad,), (R_pad,) and (R_pad / 128, 3)
+    int32 per-block [tile steps walked, tiles fetched, tiles scanned]."""
+    n_blocks, n_tiles = order.shape
+    tile = tiles.shape[2]
+    dev = rays.device
+    rb = rays.reshape(n_blocks, RAY_BLOCK, 8)
+    o, d = rb[..., 0:3], rb[..., 3:6]
+    b_lo, b_hi = torch.amin(o, dim=1), torch.amax(o, dim=1)
+    dmax = torch.amax(torch.abs(d), dim=(1, 2))
+    inv_d = 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
+    lane = torch.arange(tile, dtype=torch.int32, device=dev)
+    order = order.long()
+
+    best_t = torch.clamp(rb[..., 6:7], max=_INF)  # (B, 128, 1)
+    best_slot = torch.full_like(best_t, -1, dtype=torch.int32)
+
+    def lower_bound(ti):
+        box = tile_aabb[ti]
+        gap = torch.maximum(box[:, 0:3] - b_hi, b_lo - box[:, 3:6])
+        return torch.clamp(torch.amax(gap, dim=-1), min=0.0)
+
+    def slab_vote(ti):
+        box = tile_aabb[ti][:, None, :]
+        t0 = (box[..., 0:3] - o) * inv_d
+        t1 = (box[..., 3:6] - o) * inv_d
+        tlo = torch.amax(torch.minimum(t0, t1), dim=-1)
+        thi = torch.amin(torch.maximum(t0, t1), dim=-1)
+        ok = (thi >= tlo) & (thi > 0.0) & (torch.clamp(tlo, min=0.0) < best_t[..., 0])
+        return torch.any(ok, dim=1)
+
+    ti_cur = order[:, 0]
+    reach = torch.amax(best_t, dim=(1, 2)) * dmax
+    fetched_cur = (lower_bound(ti_cur) * _LB_SLACK < reach) & slab_vote(ti_cur)
+    walking = torch.ones((n_blocks,), dtype=torch.bool, device=dev)
+    counts = torch.zeros((n_blocks, 3), dtype=torch.int32, device=dev)
+    counts[:, 1] += fetched_cur
+    for j in range(n_tiles):
+        if not bool(walking.any()):
+            break
+        counts[:, 0] += walking
+        has_next = j + 1 < n_tiles
+        ti_next = order[:, j + 1] if has_next else ti_cur
+        reach = torch.amax(best_t, dim=(1, 2)) * dmax
+        improve = lower_bound(ti_cur) * _LB_SLACK < reach
+        if has_next:
+            fetched_next = (walking & improve & (lower_bound(ti_next) * _LB_SLACK < reach)
+                            & slab_vote(ti_next))
+        else:
+            fetched_next = torch.zeros_like(walking)
+        counts[:, 1] += fetched_next
+
+        scan = torch.nonzero(walking & fetched_cur & improve)[:, 0]
+        counts[scan, 2] += 1
+        for c0 in range(0, scan.shape[0], _PIPE_REFERENCE_BLOCKS):
+            blk = scan[c0:c0 + _PIPE_REFERENCE_BLOCKS]
+            ti = ti_cur[blk]
+            tv = [tiles[ti, row][:, None, :] for row in range(_TILE_ROWS)]
+            base = (ti * tile).to(torch.int32)[:, None, None]
+            best_t[blk], best_slot[blk] = _scan_tile(
+                _woop_ctx(rb[blk]), tv, base, lane, best_t[blk], best_slot[blk])
+
+        walking = walking & improve
+        fetched_cur, ti_cur = fetched_next, ti_next
+    return best_t.reshape(-1), best_slot.reshape(-1), counts
 
 
 # ---------------------------------------------------------------------------
@@ -235,10 +357,11 @@ def _finish(t, slot, r):
     return torch.where(hit, t, float("inf")), slot, hit
 
 
-def closest_hit_tiles(tiles, tile_aabb, origin, direction, t_max=float("inf")):
+def closest_hit_tiles(tiles, tile_aabb, origin, direction, t_max=float("inf"), big=False):
     """Closest hit for a ray batch: (t, slot, hit), slot a row of the sorted
-    SoA and -1 on a miss, t = +inf on a miss.  CUDA tensors go through the
-    kernel (one launch per call); CPU tensors through the plain version.
+    SoA and -1 on a miss, t = +inf on a miss.  CUDA tensors go through a
+    kernel (one launch per call): the double-buffered one with `big`, else
+    the plain-load one; CPU tensors through the matching plain version.
     Not differentiable: recompute winner attributes outside
     (`ops.trace.winner_bary`)."""
     r = origin.shape[0]
@@ -246,21 +369,27 @@ def closest_hit_tiles(tiles, tile_aabb, origin, direction, t_max=float("inf")):
         rays = prepare_rays(tile_aabb, origin, direction, t_max)
         if rays.device.type == "cuda":
             order = block_tile_order(rays, tile_aabb, rays.shape[0] // RAY_BLOCK)
-            t, slot = launch_closest_hit(rays, tiles, tile_aabb, order)
+            launch = launch_closest_hit_pipe if big else launch_closest_hit
+            t, slot = launch(rays, tiles, tile_aabb, order)
         elif rays.device.type == "cpu":
-            t, slot = closest_hit_rays_reference(rays, tiles)
+            t, slot = _reference(rays, tiles, tile_aabb, big)
         else:
             raise ValueError(f"closest_hit_tiles runs on cuda or cpu, got {rays.device}")
     return _finish(t, slot, r)
 
 
-closest_hit_tiles.launches = 0  # kernel launches; reset by callers that count
+def _reference(rays, tiles, tile_aabb, big):
+    if not big:
+        return closest_hit_rays_reference(rays, tiles)
+    order = block_tile_order(rays, tile_aabb, rays.shape[0] // RAY_BLOCK)
+    return closest_hit_pipe_reference(rays, tiles, tile_aabb, order)[:2]
 
 
-def closest_hit_tiles_reference(tiles, tile_aabb, origin, direction, t_max=float("inf")):
+def closest_hit_tiles_reference(tiles, tile_aabb, origin, direction, t_max=float("inf"),
+                                big=False):
     """The plain version of `closest_hit_tiles` on any device (no kernel)."""
     r = origin.shape[0]
     with torch.no_grad():
         rays = prepare_rays(tile_aabb, origin, direction, t_max)
-        t, slot = closest_hit_rays_reference(rays, tiles)
+        t, slot = _reference(rays, tiles, tile_aabb, big)
     return _finish(t, slot, r)

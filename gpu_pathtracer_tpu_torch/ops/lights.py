@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from gpu_pathtracer_tpu.constants import LIGHT_TREE_DENSE_MAX, SMALL_EPS
+from gpu_pathtracer_tpu_torch.constants import LIGHT_TREE_DENSE_MAX, SMALL_EPS
 from gpu_pathtracer_tpu_torch.ops import bvh as bvh_mod
 from gpu_pathtracer_tpu_torch.ops import intersect, linalg
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from gpu_pathtracer_tpu.constants import SMALL_EPS
+from gpu_pathtracer_tpu_torch.constants import SMALL_EPS
 
 
 def dot(a: torch.Tensor, b: torch.Tensor, keepdims: bool = False) -> torch.Tensor:

@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from gpu_pathtracer_tpu.constants import (
+from gpu_pathtracer_tpu_torch.constants import (
     MAX_PHONG_N_S,
     SMALL_EPS,
     VACUUM_IOR,

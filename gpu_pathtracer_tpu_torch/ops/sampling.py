@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from gpu_pathtracer_tpu.constants import MAX_PHONG_N_S, SMALL_EPS
+from gpu_pathtracer_tpu_torch.constants import MAX_PHONG_N_S, SMALL_EPS
 from gpu_pathtracer_tpu_torch.ops import linalg
 
 _PI = math.pi

@@ -1,11 +1,14 @@
 """Ray-scene intersection dispatch (port of `gpu_pathtracer_tpu.ops.trace`).
 
 Every closest-hit query goes through the tile query of `ops/closest_hit.py`:
-on a CUDA device that is the hand-written kernel, whatever the triangle
-count; on the CPU it is the kernel's plain version.  Large wavefronts are
-first sorted for coherence so that the kernel's per-block tile cull and
-early exit fire.  Hits are reported in sorted-SoA slots (rows of
-`GeometrySet.p`), with barycentrics recomputed differentiably for the winner.
+on a CUDA device that is a hand-written kernel, on the CPU the kernel's
+plain version.  Scenes above `PALLAS_MAX` triangle rows take the
+double-buffered kernel (`csrc/closest_hit_pipe.cu`), as they take the
+HBM-resident kernel in the reference package; smaller scenes take
+`csrc/closest_hit.cu`.  Large wavefronts are first sorted for coherence so
+that the kernels' per-block tile cull and early exit fire.  Hits are
+reported in sorted-SoA slots (rows of `GeometrySet.p`), with barycentrics
+recomputed differentiably for the winner.
 """
 
 from __future__ import annotations
@@ -15,6 +18,10 @@ import torch
 from gpu_pathtracer_tpu_torch.ops import intersect, morton
 from gpu_pathtracer_tpu_torch.ops.closest_hit import closest_hit_tiles
 
+# triangle rows (of the sorted, padded SoA) above which a scene's queries run
+# on the double-buffered kernel; the reference package's cap of its
+# VMEM-resident kernel, kept as the dispatch rule
+PALLAS_MAX = 131072
 # sort rays for coherence at and above this batch size ...
 RAY_SORT_MIN = 8192
 # ... when the scene has at least this many tiles
@@ -45,19 +52,25 @@ def coherence_perm(g, origin, direction, live=None) -> torch.Tensor:
     return torch.sort(key, stable=True).indices
 
 
+def pallas_big(g) -> bool:
+    """Whether the scene's closest-hit queries take the double-buffered kernel."""
+    return g.p.shape[0] > PALLAS_MAX
+
+
 def closest_hit_sorted(g, origin, direction, t_max=float("inf"), live=None):
     """Closest hit with coherence-sorted rays.  `live` marks rays whose
     result is used: the others get a budget of -1 and miss without work.
     Returns (t, slot, hit) in the caller's ray order."""
     r = origin.shape[0]
+    big = pallas_big(g)
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device).expand(r)
     if live is not None:
         t_max = torch.where(live, t_max, -1.0)
     if r < RAY_SORT_MIN or g.tiles.shape[0] < RAY_SORT_MIN_TILES:
-        return closest_hit_tiles(g.tiles, g.tile_aabb, origin, direction, t_max)
+        return closest_hit_tiles(g.tiles, g.tile_aabb, origin, direction, t_max, big=big)
     perm = coherence_perm(g, origin, direction, live)
     t, slot, hit = closest_hit_tiles(
-        g.tiles, g.tile_aabb, origin[perm], direction[perm], t_max[perm]
+        g.tiles, g.tile_aabb, origin[perm], direction[perm], t_max[perm], big=big
     )
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(r, dtype=perm.dtype, device=perm.device)

@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from gpu_pathtracer_tpu.constants import MATERIAL_STACK_SIZE, SMALL_EPS
+from gpu_pathtracer_tpu_torch.constants import MATERIAL_STACK_SIZE, SMALL_EPS
 from gpu_pathtracer_tpu_torch.models.scene import Scene
 from gpu_pathtracer_tpu_torch.ops import lights as lights_mod
 from gpu_pathtracer_tpu_torch.ops import linalg, materials, sampling, texture, trace
@@ -178,6 +178,39 @@ def trace_paths(
     return linalg.de_nan(acc)
 
 
+def _pixel_chunks(width: int, height: int, ray_chunk: int, dev):
+    """Pixel centres of the frame as (n_chunks, chunk) rows and columns,
+    padded with pixel (0, 0) to whole chunks; also the pixel count."""
+    ii, jj = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=dev),
+        torch.arange(width, dtype=torch.float32, device=dev),
+        indexing="ij",
+    )
+    pix_i = ii.reshape(-1) + 0.5
+    pix_j = jj.reshape(-1) + 0.5
+    n_pix = pix_i.shape[0]
+    chunk = min(ray_chunk, n_pix)
+    pad = (-n_pix) % chunk
+    if pad:
+        zeros = torch.zeros((pad,), dtype=torch.float32, device=dev)
+        pix_i = torch.cat([pix_i, zeros])
+        pix_j = torch.cat([pix_j, zeros])
+    return pix_i.reshape(-1, chunk), pix_j.reshape(-1, chunk), n_pix
+
+
+def _chunk_sample(scene, camera, pix_i, pix_j, level, hittable_pdf_weight, stack_size,
+                  generator) -> torch.Tensor:
+    """One sample of one chunk of pixels: a fresh lens/pixel jitter, then the
+    paths.  (chunk, 3) radiance."""
+    u = torch.rand((2, pix_i.shape[0]), generator=generator, device=pix_i.device)
+    o, d = camera.generate_rays(pix_i, pix_j, u[0], u[1])
+    col = trace_paths(
+        scene, o, d, level=level, hittable_pdf_weight=hittable_pdf_weight,
+        stack_size=stack_size, generator=generator,
+    )
+    return linalg.de_nan(col)
+
+
 def render_image(
     scene: Scene,
     camera,
@@ -194,36 +227,91 @@ def render_image(
     """Full-frame render: `ray_chunk`-ray wavefronts, samples in sequence,
     every one of the sample_size * dof_sample_size samples with a fresh lens
     sample.  Traces width * height * sample_size * dof_sample_size * level
-    ray segments.  Returns (H, W, 3) linear radiance."""
-    dev = scene.geom.p.device
-    ii, jj = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=dev),
-        torch.arange(width, dtype=torch.float32, device=dev),
-        indexing="ij",
-    )
-    pix_i = ii.reshape(-1) + 0.5
-    pix_j = jj.reshape(-1) + 0.5
-    n_pix = pix_i.shape[0]
-    chunk = min(ray_chunk, n_pix)
-    pad = (-n_pix) % chunk
-    if pad:
-        zeros = torch.zeros((pad,), dtype=torch.float32, device=dev)
-        pix_i = torch.cat([pix_i, zeros])
-        pix_j = torch.cat([pix_j, zeros])
-    n_chunks = (n_pix + pad) // chunk
-    pix_i = pix_i.reshape(n_chunks, chunk)
-    pix_j = pix_j.reshape(n_chunks, chunk)
+    ray segments.  Returns (H, W, 3) linear radiance.
 
-    total = torch.zeros((n_chunks, chunk, 3), dtype=torch.float32, device=dev)
+    Differentiable as it stands (one autograd graph over every chunk and
+    sample); `render_image_value_and_grad` is the form whose memory does not
+    grow with the frame."""
+    dev = scene.geom.p.device
+    pix_i, pix_j, n_pix = _pixel_chunks(width, height, ray_chunk, dev)
     n_samples = sample_size * dof_sample_size
+    totals = [0.0] * pix_i.shape[0]
+    for _ in range(n_samples):
+        for c in range(pix_i.shape[0]):
+            totals[c] = totals[c] + _chunk_sample(
+                scene, camera, pix_i[c], pix_j[c], level, hittable_pdf_weight, stack_size,
+                generator)
+    img = torch.cat(totals)[:n_pix] / n_samples
+    return img.reshape(height, width, 3)
+
+
+def render_image_value_and_grad(
+    scene: Scene,
+    camera,
+    width: int,
+    height: int,
+    image_loss,
+    wrt,
+    sample_size: int = 16,
+    dof_sample_size: int = 1,
+    level: int = 8,
+    hittable_pdf_weight: float = 0.0,
+    stack_size: int = MATERIAL_STACK_SIZE,
+    ray_chunk: int = 65536,
+    generator: torch.Generator | None = None,
+):
+    """Loss of the rendered image and its gradient to the tensors `wrt`
+    (tensors of `scene` that require grad), with the memory of one chunk's
+    autograd graph whatever the frame and sample count.
+
+    `image_loss` maps the (H, W, 3) image to a scalar.  The loss needs the
+    finished image before any chunk's upstream gradient is known, so the
+    render runs twice from the same generator states: first without a graph,
+    recording the generator's state before every chunk-sample, which yields
+    the image, the loss and dloss/dimage; then each chunk-sample again with a
+    graph, backpropagated at once with its pixels' share of dloss/dimage.
+    The paths of both passes are the same (path replay), and the generator
+    ends where one render would leave it.  Returns (loss, image, grads), the
+    loss and image detached, grads a tuple like `wrt` (zeros where the image
+    does not depend on a tensor)."""
+    if generator is None:
+        raise ValueError("render_image_value_and_grad replays the paths and needs a generator")
+    wrt = tuple(wrt)
+    dev = scene.geom.p.device
+    pix_i, pix_j, n_pix = _pixel_chunks(width, height, ray_chunk, dev)
+    n_chunks, chunk = pix_i.shape
+    n_samples = sample_size * dof_sample_size
+    args = (level, hittable_pdf_weight, stack_size, generator)
+
+    states = []
+    total = torch.zeros((n_chunks, chunk, 3), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for _ in range(n_samples):
+            for c in range(n_chunks):
+                states.append(generator.get_state())
+                total[c] += _chunk_sample(scene, camera, pix_i[c], pix_j[c], *args)
+    end_state = generator.get_state()
+    img = (total.reshape(-1, 3)[:n_pix] / n_samples).reshape(height, width, 3)
+    img.requires_grad_(True)
+    with torch.enable_grad():
+        loss = image_loss(img)
+    (d_img,) = torch.autograd.grad(loss, img)
+    d_total = torch.zeros((n_chunks * chunk, 3), dtype=torch.float32, device=dev)
+    d_total[:n_pix] = d_img.reshape(-1, 3) / n_samples
+    d_total = d_total.reshape(n_chunks, chunk, 3)
+
+    grads = [torch.zeros_like(p) for p in wrt]
+    replay = iter(states)
     for _ in range(n_samples):
         for c in range(n_chunks):
-            u = torch.rand((2, chunk), generator=generator, device=dev)
-            o, d = camera.generate_rays(pix_i[c], pix_j[c], u[0], u[1])
-            col = trace_paths(
-                scene, o, d, level=level, hittable_pdf_weight=hittable_pdf_weight,
-                stack_size=stack_size, generator=generator,
-            )
-            total[c] += linalg.de_nan(col)
-    img = total.reshape(-1, 3)[:n_pix] / n_samples
-    return img.reshape(height, width, 3)
+            generator.set_state(next(replay))
+            with torch.enable_grad():
+                col = _chunk_sample(scene, camera, pix_i[c], pix_j[c], *args)
+            if not col.requires_grad:
+                continue
+            part = torch.autograd.grad(col, wrt, grad_outputs=d_total[c], allow_unused=True)
+            for acc, g in zip(grads, part):
+                if g is not None:
+                    acc += g
+    generator.set_state(end_state)
+    return loss.detach(), img.detach(), tuple(grads)

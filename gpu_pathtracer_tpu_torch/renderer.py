@@ -21,16 +21,12 @@ import numpy as np
 import torch
 
 from gpu_pathtracer_tpu_torch.device import resolve_device
-from gpu_pathtracer_tpu_torch.host import (
-    RenderConfig,
-    load_image_rgb,
-    load_scene,
-    parse_master_file,
-    save_png,
-    save_ppm,
-)
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import Scene, build_scene
+from gpu_pathtracer_tpu_torch.utils.config import RenderConfig, parse_master_file
+from gpu_pathtracer_tpu_torch.utils.image import save_png, save_ppm
+from gpu_pathtracer_tpu_torch.utils.obj_io import _load_image_rgb as load_image_rgb
+from gpu_pathtracer_tpu_torch.utils.obj_io import load_scene
 
 
 class _Stage:

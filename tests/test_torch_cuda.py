@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card (tests marked `cuda`; they skip
+"""The port's CUDA kernels on the card (tests marked `cuda`; they skip
 without an NVIDIA GPU).
 
 This file imports no JAX, so it also runs on a machine that has only the
@@ -11,6 +11,8 @@ package's tests.)  Tolerances: the kernel and its plain version compute the
 same float32 expressions without FMA contraction, so where slots agree t
 agrees to rtol 1e-6; slots agree on >= 99.9% of rays (a ray may split only
 at an exact tie between triangles that the two visit in another order).
+The two kernels share their arithmetic and each block's tile order, so the
+double-buffered one equals the plain-load one bit for bit.
 """
 
 import numpy as np
@@ -18,10 +20,10 @@ import pytest
 import torch
 
 import torch_parity
-from gpu_pathtracer_tpu_torch import host
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
 from gpu_pathtracer_tpu_torch.ops import closest_hit, intersect, trace
+from gpu_pathtracer_tpu_torch.utils import obj_io, testscenes
 
 pytestmark = pytest.mark.cuda
 
@@ -51,10 +53,10 @@ def test_kernel_matches_plain_on_cuda(cuda):
     valid[3] = False
     tiles, taabb = closest_hit.pack_tiles(tris, intersect.triangle_tolerance(tris), valid)
     t_max = torch.where(torch.arange(5000, device=cuda) % 7 == 0, -1.0, float("inf"))
-    before = closest_hit.closest_hit_tiles.launches
+    before = closest_hit.launch_closest_hit.launches
     t, slot, _ = closest_hit.closest_hit_tiles(tiles, taabb, o, d, t_max)
     torch.cuda.synchronize()
-    assert closest_hit.closest_hit_tiles.launches == before + 1
+    assert closest_hit.launch_closest_hit.launches == before + 1
     rt, rslot, _ = closest_hit.closest_hit_tiles_reference(tiles, taabb, o, d, t_max)
     _assert_agree(t, slot, rt, rslot)
     slot = slot.cpu().numpy()
@@ -80,11 +82,81 @@ def test_launch_refuses_what_the_kernel_does_not_take(cuda):
             closest_hit.launch_closest_hit(*args)
 
 
+def _mesh_query(cuda, n_rays):
+    """The displaced icosphere at subdiv=5 (20,484 triangles, 161 tiles) and
+    rays from the bench's eye, every 6th dead, a ragged count."""
+    g = build_scene(testscenes.make_mesh_scene_host(subdiv=5), cuda).geom
+    rng = np.random.default_rng(31)
+    o = torch.tensor([[0.5, 0.8, 2.2]], device=cuda).repeat(n_rays, 1)
+    target = torch.from_numpy(rng.uniform([0, 0, 0], [1, 1.2, 1], (n_rays, 3)).astype(np.float32))
+    d = target.to(cuda) - o
+    d = d / d.norm(dim=-1, keepdim=True)
+    t_max = torch.where(torch.arange(n_rays, device=cuda) % 6 == 0, -1.0, float("inf"))
+    return g, o, d, t_max
+
+
+def test_pipe_kernel_matches_plain_and_plain_load_kernel(cuda):
+    g, o, d, t_max = _mesh_query(cuda, 3000)
+    before = (closest_hit.launch_closest_hit_pipe.launches, closest_hit.launch_closest_hit.launches)
+    t, slot, hit = closest_hit.closest_hit_tiles(g.tiles, g.tile_aabb, o, d, t_max, big=True)
+    t1, slot1, _ = closest_hit.closest_hit_tiles(g.tiles, g.tile_aabb, o, d, t_max)
+    torch.cuda.synchronize()
+    assert closest_hit.launch_closest_hit_pipe.launches == before[0] + 1
+    assert closest_hit.launch_closest_hit.launches == before[1] + 1
+    assert torch.equal(t, t1) and torch.equal(slot, slot1)
+    rt, rslot, _ = closest_hit.closest_hit_tiles_reference(g.tiles, g.tile_aabb, o, d, t_max,
+                                                           big=True)
+    _assert_agree(t, slot, rt, rslot)
+    assert not hit[::6].any() and 0.3 < float(hit.float().mean()) < 0.9
+
+
+def test_pipe_kernel_counts_match_plain(cuda):
+    g, o, d, t_max = _mesh_query(cuda, 2048)
+    rays = closest_hit.prepare_rays(g.tile_aabb, o, d, t_max)
+    order = closest_hit.block_tile_order(rays, g.tile_aabb, 16)
+    t, slot, counts = closest_hit.launch_closest_hit_pipe(rays, g.tiles, g.tile_aabb, order,
+                                                          counts=True)
+    rt, rslot, rcounts = closest_hit.closest_hit_pipe_reference(rays, g.tiles, g.tile_aabb, order)
+    same = slot == rslot
+    assert float(same.float().mean()) >= 0.999
+    hit = same & (slot >= 0)
+    torch.testing.assert_close(t[hit], rt[hit], rtol=1e-6, atol=0.0)
+    assert torch.equal(counts, rcounts)
+    extra = (counts[:, 1] - counts[:, 2]).cpu().numpy()
+    assert ((extra >= 0) & (extra <= 1)).all() and (counts[:, 2] < 161).all()
+
+
+def test_pipe_launch_refuses_what_the_kernel_does_not_take(cuda):
+    tris = torch.rand((300, 3, 3), device=cuda)
+    tiles, aabb = closest_hit.pack_tiles(tris, intersect.triangle_tolerance(tris),
+                                         torch.ones(300, dtype=torch.bool, device=cuda))
+    rays = closest_hit.prepare_rays(aabb, torch.zeros((256, 3), device=cuda),
+                                    torch.ones((256, 3), device=cuda))
+    order = closest_hit.block_tile_order(rays, aabb, 2)
+    closest_hit.launch_closest_hit_pipe(rays, tiles, aabb, order)  # the good call goes through
+    shifted = torch.empty((tiles.numel() + 1,), device=cuda)[1:].view_as(tiles).copy_(tiles)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    narrow = tiles[:, :, :126].contiguous()  # 126 % 4 != 0
+    wide = torch.zeros((1, 10, 1024), device=cuda)  # above the kernel's 512
+    bad = [
+        (rays, shifted, aabb, order),  # not 16-byte aligned
+        (rays, narrow, aabb, order),
+        (rays, wide, aabb[:1], order[:, :1].contiguous()),
+        (rays.double(), tiles, aabb, order),
+        (rays[:200], tiles, aabb, order),
+        (rays, tiles, aabb, order[:1]),
+        (rays, tiles.cpu(), aabb, order),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            closest_hit.launch_closest_hit_pipe(*args)
+
+
 def test_closest_hit_on_cuda_matches_cpu(cuda, tmp_path):
     """`trace.closest_hit` on the Cornell box with spheres: the card (kernel,
     coherence-sorted, one launch) against the CPU (plain version)."""
-    host.make_cornell_box(tmp_path, spheres=True, sphere_subdiv=2)
-    hs = host.load_scene(tmp_path, "box.obj")
+    testscenes.make_cornell_box(tmp_path, spheres=True, sphere_subdiv=2)
+    hs = obj_io.load_scene(tmp_path, "box.obj")
     rng = np.random.default_rng(5)
     r = 20000  # above trace.RAY_SORT_MIN: the sorted path
     cam = Camera.create(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0),
@@ -96,10 +168,10 @@ def test_closest_hit_on_cuda_matches_cpu(cuda, tmp_path):
     out = {}
     for dev in ("cpu", cuda):
         g = build_scene(hs, dev).geom
-        before = closest_hit.closest_hit_tiles.launches
+        before = closest_hit.launch_closest_hit.launches
         out[str(dev)] = [x.cpu() for x in trace.closest_hit(g, o.to(dev), d.to(dev),
                                                            live=live.to(dev))]
-        launched = closest_hit.closest_hit_tiles.launches - before
+        launched = closest_hit.launch_closest_hit.launches - before
         assert launched == (1 if dev == cuda else 0), launched
     (t, slot, bary, hit), (rt, rslot, rbary, rhit) = out[str(cuda)], out["cpu"]
     _assert_agree(t, slot, rt, rslot)

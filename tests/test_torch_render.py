@@ -35,7 +35,7 @@ from gpu_pathtracer_tpu.render import integrator as jint
 from gpu_pathtracer_tpu.utils import testscenes
 from gpu_pathtracer_tpu.utils.image import load_ppm
 from gpu_pathtracer_tpu_torch import renderer
-from gpu_pathtracer_tpu_torch.host import parse_master_file
+from gpu_pathtracer_tpu_torch.utils.config import parse_master_file
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.convert import scene_from_numpy
 from gpu_pathtracer_tpu_torch.render import integrator
@@ -50,23 +50,6 @@ def cornell():
     _, jscene, _ = torch_parity.cornell_scenes()
     # the port gets the JAX scene's own arrays
     return jscene, scene_from_numpy(torch_parity.flatten(jscene), "cpu")
-
-
-def _uniforms_from_key(key, level: int, r: int) -> np.ndarray:
-    """(level, 8, R): per bounce i, fold_in(key, i); BSDF uniforms from
-    fold_in(., 17) sub-keys 0-3, NEE uniforms from fold_in(., 23) sub-keys
-    0-3 with sub-key 1 drawn as (R, 1) (integrator.py, materials.py,
-    lights.py)."""
-    out = np.empty((level, 8, r), np.float32)
-    for i in range(level):
-        bkey = jax.random.fold_in(key, i)
-        for base, row0 in ((17, 0), (23, 4)):
-            skey = jax.random.fold_in(bkey, base)
-            for j in range(4):
-                shape = (r, 1) if (base == 23 and j == 1) else (r,)
-                u = jax.random.uniform(jax.random.fold_in(skey, j), shape)
-                out[i, row0 + j] = np.asarray(u).reshape(r)
-    return out
 
 
 @pytest.mark.parametrize("jitted,min_frac", [(False, 0.99), (True, 0.98)])
@@ -86,7 +69,7 @@ def test_trace_paths_per_ray_matches_jax(cornell, jitted, min_frac):
     with torch.no_grad():
         got = integrator.trace_paths(
             scene, torch.from_numpy(o), torch.from_numpy(d), level=level, hittable_pdf_weight=0.5,
-            uniforms=torch.from_numpy(_uniforms_from_key(key, level, w * h)),
+            uniforms=torch.from_numpy(torch_parity.uniforms_from_key(key, level, w * h)),
         ).numpy()
     close = np.isclose(got, ref, rtol=1e-4, atol=1e-5).all(axis=-1)
     assert close.mean() >= min_frac, (close.mean(), np.nonzero(~close)[0][:10])

@@ -57,3 +57,22 @@ def random_rays(rng: np.random.Generator, r: int, spread: float = 3.0):
     d = rng.normal(size=(r, 3))
     d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
     return o, d
+
+
+def uniforms_from_key(key, level: int, r: int) -> np.ndarray:
+    """(level, 8, R): per bounce i, fold_in(key, i); BSDF uniforms from
+    fold_in(., 17) sub-keys 0-3, NEE uniforms from fold_in(., 23) sub-keys
+    0-3 with sub-key 1 drawn as (R, 1) (integrator.py, materials.py,
+    lights.py)."""
+    import jax
+
+    out = np.empty((level, 8, r), np.float32)
+    for i in range(level):
+        bkey = jax.random.fold_in(key, i)
+        for base, row0 in ((17, 0), (23, 4)):
+            skey = jax.random.fold_in(bkey, base)
+            for j in range(4):
+                shape = (r, 1) if (base == 23 and j == 1) else (r,)
+                u = jax.random.uniform(jax.random.fold_in(skey, j), shape)
+                out[i, row0 + j] = np.asarray(u).reshape(r)
+    return out

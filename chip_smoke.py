@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the CUDA device, and the card's name and power limit from nvidia-smi;
-  2. both closest-hit kernels built with nvcc from the checkout's sources
+  2. the four kernels (closest hit and windowed any hit, each with plain
+     loads and double-buffered) built with nvcc from the checkout's sources
      (one nvcc per source, started together), with their ptxas lines;
   3. the plain-load kernel (`closest_hit`) against its plain PyTorch version
      on the card: a random triangle soup with dead rays and a ragged tail,
@@ -29,7 +30,26 @@ Phases (any failure exits non-zero; nothing is caught):
   8. the gradient: the L2 loss of a 512x512, 2 spp, level 8 Cornell render
      against the main path's image, differentiated to the emission table
      `ke` by path replay; seconds, grad-rays/s and peak memory; the gradient
-     against a central finite difference at 64x64; three `optimize` steps.
+     against a central finite difference at 64x64; three `optimize` steps;
+  9. the SPPM main path: `renderer.render_from_config` with render_mode 2 on
+     the bench's SPPM box (72 triangles) at 512x512, 50,000 photons a pass,
+     ppm_max_bounce 8, 4 passes: it must take the hash-grid gathers and run
+     their visibility checks on `anyhit` alone; per-pass seconds, photons/s,
+     launches and host synchronizations; its direct component against a CPU
+     render at 64x64 with the photons scaled to the pixels; one pass on the
+     same inputs (photon pass, eye pass, both gathers), card against CPU;
+ 10. both any-hit kernels on a soup with dead rays and a ragged tail and on
+     the fullest gather wavefront recorded in phase 9: bits and per-block
+     counts against the plain versions, `anyhit_pipe` bit-equal to `anyhit`,
+     both against the bits derived from `closest_hit`, and their times; the
+     same on a query of that shape in which every ray is live (hit point to
+     hit point), since few slots of the recorded one hold a photon;
+ 11. the fog configuration at the same size, one pass after the init pass:
+     volume photons deposited, the hash-grid beam gather taken;
+ 12. the mesh configuration: SPPM on the 327,684-triangle mesh, one pass
+     after the init pass through `render_sppm`, whose gathers must run on
+     `anyhit_pipe` alone; the kernels compared as in phase 10 on its fullest
+     gather wavefront.
 The line before the card's line is the per-kernel JSON record; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -45,6 +65,10 @@ import time
 
 HERE = pathlib.Path(__file__).resolve().parent
 MAIN = dict(width=512, height=512, spp=8, level=8, weight=0.5)
+SPPM = dict(width=512, height=512, photons=50000, max_bounce=8, passes=4)  # the bench's SPPM leg
+SPPM_CPU_SIDE = 64  # the CPU render that the SPPM render is held against
+SPPM_SAME_PHOTONS = 4096  # photons of the same-inputs pass, card against CPU
+GATHER_CHUNK = 16384  # pixels per chunk of the grid gather: one any-hit query is this x k_nearest
 CORNELL_CAM = dict(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0), fovy_deg=40.0)
 MESH_CAM = dict(eye=(0.5, 0.8, 2.2), center=(0.5, 0.45, 0.5), up=(0, 1, 0), fovy_deg=45.0)
 WAVE_RAYS = 65536  # one wavefront of the main paths
@@ -108,8 +132,9 @@ def agreement(name, t, slot, rt, rslot, stats):
     stats["max_abs_err"] = max(stats["max_abs_err"], err)
 
 
-def bound_ms(rays, tiles, counts):
-    """The least time the card could take for one launch's work, from the
+def bound_ms(rays, tiles, counts, out_bytes: int = 8):
+    """The least time the card could take for one launch's work (`out_bytes`
+    of results per ray: 8 for a closest hit, 2 for the any-hit bits), from the
     launch's own per-block counts: the fp32 pair tests of the tiles that
     were scanned at the fp32 peak, against the bytes that must move (rays
     in, results out, each scanned tile once, the walked part of the order
@@ -117,7 +142,7 @@ def bound_ms(rays, tiles, counts):
     n_tiles, rows, tile = tiles.shape
     steps, _, scanned = (int(x) for x in counts.sum(dim=0))
     flops = scanned * 128 * tile * FLOPS_PER_PAIR
-    nbytes = (rays.numel() * 4 + rays.shape[0] * 8 + min(scanned, n_tiles) * rows * tile * 4
+    nbytes = (rays.numel() * 4 + rays.shape[0] * out_bytes + min(scanned, n_tiles) * rows * tile * 4
               + steps * (4 + 32))
     by_ops, by_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
@@ -206,6 +231,262 @@ def compare_pipe(name, rays, tiles, aabb, stats, pipe_stats, time_it=False):
                       bound_by=by)
 
 
+def compare_anyhit(name, rays, tiles, aabb, err, out, plain_subset, time_it=False):
+    """Both any-hit kernels on prepared window rays: `anyhit_pipe` bit-equal
+    to `anyhit` on all of them, each against its plain version (bits and
+    per-block counts) on a subset of whole ray blocks spread over the batch,
+    and both bits against those derived from `closest_hit` on the same rays
+    (hit & t < t_near, hit within t_far), coplanar ties aside.  `err` counts
+    the rays whose bits differ from the plain versions'."""
+    import torch
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+
+    n_blocks = rays.shape[0] // ch.RAY_BLOCK
+    order = ch.block_tile_order(rays, aabb, n_blocks)
+    n3, f3, c3 = ah.launch_anyhit(rays, tiles, aabb, order, counts=True)
+    n4, f4, c4 = ah.launch_anyhit_pipe(rays, tiles, aabb, order, counts=True)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(n3, n4)) and bool(torch.equal(f3, f4))
+    extra = c4[:, 1].long() - c4[:, 2].long()
+    live = float((rays[:, 6] > 0).float().mean())
+    log(f"{name}: {rays.shape[0]} rays (live {live:.3f}) x {tiles.shape[0]} tiles; far {float(f3.float().mean()):.3f}, "
+        f"near {float(n3.float().mean()):.3f}; anyhit_pipe == anyhit on every ray: {equal}; per block: "
+        f"steps {float(c3[:, 0].float().mean()):.1f}, anyhit scans {float(c3[:, 2].float().mean()):.2f}, "
+        f"anyhit_pipe fetches {float(c4[:, 1].float().mean()):.2f} and scans "
+        f"{float(c4[:, 2].float().mean()):.2f}")
+    check(equal, f"{name}: anyhit_pipe and anyhit differ")
+    check(bool(torch.equal(c3[:, 0], c4[:, 0])), f"{name}: the two kernels walk different steps")
+    check(bool((extra >= 0).all()) and bool((extra <= 1).all()),
+          f"{name}: a block fetched {int(extra.max())} tiles more than it scanned")
+    check(bool((c4[:, 2] >= c3[:, 2]).all()), f"{name}: anyhit_pipe scanned fewer tiles")
+
+    # the plain versions on every k-th block
+    stride = max(1, rays.shape[0] // plain_subset)
+    blocks = torch.arange(0, n_blocks, stride, device=rays.device)
+    rows = (blocks[:, None] * ch.RAY_BLOCK
+            + torch.arange(ch.RAY_BLOCK, device=rays.device)[None, :]).reshape(-1)
+    sub_rays, sub_order = rays[rows].contiguous(), order[blocks].contiguous()
+    plain_s = {}
+    for kernel, reference, (kn, kf, kc) in (("anyhit", ah.anyhit_reference, (n3, f3, c3)),
+                                            ("anyhit_pipe", ah.anyhit_pipe_reference, (n4, f4, c4))):
+        t0 = time.perf_counter()
+        rn, rf, rc = reference(sub_rays, tiles, aabb, sub_order)
+        torch.cuda.synchronize()
+        plain_s[kernel] = time.perf_counter() - t0
+        differ = int(((kn[rows] != rn) | (kf[rows] != rf)).sum())
+        same_counts = bool(torch.equal(rc, kc[blocks]))
+        log(f"{name}: {kernel} against its plain version on {sub_rays.shape[0]} rays: "
+            f"{differ} rays differ, per-block counts equal: {same_counts}")
+        check(differ == 0, f"{name}: {kernel} differs from its plain version on {differ} rays")
+        check(same_counts, f"{name}: {kernel}'s per-block counts differ from the plain version's")
+        err[kernel] = max(err[kernel], differ)
+
+    # the bits derived from the closest-hit kernel: the same rays with the
+    # far cap as the closest hit's budget
+    as_closest = rays.clone()
+    as_closest[:, 7] = 0.0
+    t, slot = ch.launch_closest_hit(as_closest, tiles, aabb, order)
+    hit = slot >= 0
+    agree = float(((n3 == (hit & (t < rays[:, 7]))) & (f3 == hit)).float().mean())
+    log(f"{name}: bits equal those derived from closest_hit on {agree:.6f} of the rays")
+    check(agree >= MIN_SLOT_AGREE, f"{name}: any-hit bits off the closest hit's on {1 - agree:.6f}")
+    if not time_it:
+        return
+    ms3a = cuda_ms(lambda: ah.launch_anyhit(rays, tiles, aabb, order), 20)
+    ms4a = cuda_ms(lambda: ah.launch_anyhit_pipe(rays, tiles, aabb, order), 20)
+    ms4b = cuda_ms(lambda: ah.launch_anyhit_pipe(rays, tiles, aabb, order), 20)
+    ms3b = cuda_ms(lambda: ah.launch_anyhit(rays, tiles, aabb, order), 20)
+    ms1 = cuda_ms(lambda: ch.launch_closest_hit(as_closest, tiles, aabb, order), 20)
+    order_ms = cuda_ms(lambda: ch.block_tile_order(rays, aabb, n_blocks), 20)
+    b3, by3 = bound_ms(rays, tiles, c3, out_bytes=2)
+    b4, by4 = bound_ms(rays, tiles, c4, out_bytes=2)
+    log(f"{name}: anyhit {ms3a:.4f} / {ms3b:.4f} ms, anyhit_pipe {ms4a:.4f} / {ms4b:.4f} ms, "
+        f"closest_hit on the same rays {ms1:.4f} ms (20 launches each, in turns); plain versions "
+        f"{plain_s['anyhit'] * 1e3:.1f} / {plain_s['anyhit_pipe'] * 1e3:.1f} ms (one call, "
+        f"{sub_rays.shape[0]} rays); block_tile_order {order_ms:.4f} ms; bounds {b3:.5f} ms ({by3}) / "
+        f"{b4:.5f} ms ({by4})")
+    out["anyhit"] = dict(ms=min(ms3a, ms3b), plain_ms=plain_s["anyhit"] * 1e3, bound_ms=b3,
+                         bound_by=by3)
+    out["anyhit_pipe"] = dict(ms=min(ms4a, ms4b), plain_ms=plain_s["anyhit_pipe"] * 1e3,
+                              bound_ms=b4, bound_by=by4)
+    out.update(plain_rays=sub_rays.shape[0], rays=rays.shape[0], closest_ms=ms1, order_ms=order_ms)
+
+
+class RecordedGather:
+    """While installed, keeps the arguments of the any-hit query with the most
+    live rays that `ops.trace` makes (the rays as the kernel's launcher gets
+    them: dead rays parked, coherence-sorted) and counts the queries.  It
+    launches nothing itself."""
+
+    def __init__(self, trace):
+        self.trace, self.inner = trace, trace.occluded_window_tiles
+        self.calls, self.live, self.args, self.big = 0, -1, None, None
+
+    def __enter__(self):
+        def spy(tiles, aabb, origin, direction, t_near, t_far=float("inf"), big=False):
+            self.calls += 1
+            live = int((t_far > 0).sum())
+            if live > self.live:
+                self.live, self.big = live, big
+                self.args = tuple(x.clone() for x in (origin, direction, t_near, t_far))
+            return self.inner(tiles, aabb, origin, direction, t_near, t_far, big=big)
+
+        self.trace.occluded_window_tiles = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.trace.occluded_window_tiles = self.inner
+
+    def rays(self, aabb, drop_tail: int = 0):
+        from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+
+        o, d, t_near, t_far = (x[: x.shape[0] - drop_tail] for x in self.args)
+        return ah.prepare_rays_window(aabb, o, d, t_near, t_far)
+
+
+def log_passes(name, pass_log, photons):
+    for p in pass_log:
+        per = p["gather_s"] * 1e3 / max(p["anyhit_launches"], 1)
+        log(f"{name} pass {p['it'] + 1}: photon pass {p['photon_s']:.3f}s ({photons / p['photon_s']:.0f} "
+            f"photons/s; {p['surface_photons']} surface, {p['volume_photons']} volume deposits), eye pass "
+            f"{p['eye_s']:.3f}s, gather + update {p['gather_s']:.3f}s ({p['anyhit_launches']} any-hit "
+            f"launches, {per:.2f} ms of gather per launch), {p['host_syncs']} host syncs, k_nearest "
+            f"{p['k_nearest']}, k_per_cell {p['k_per_cell']}, dropped {p['dropped']}, grid {p['grid']}")
+
+
+def sppm_box_master(folder, fog, config, testscenes, **overrides):
+    """The bench's SPPM box (Cornell box with octahedron spheres, the light
+    given a diffuse component; `fog` adds the medium) and a master file for
+    the SPPM render of it; returns the parsed config."""
+    testscenes.make_cornell_box(folder, spheres=True, sphere_subdiv=0, fog=fog)
+    mtl = folder / "box.mtl"
+    mtl.write_text(mtl.read_text().replace("newmtl light\nKd 0 0 0",
+                                           "newmtl light\nKd 0.78 0.78 0.78"))
+    kw = dict(
+        input_folder_path=f"{folder}/", obj_filename="box.obj",
+        image_output_path=str(folder / "sppm.ppm"), image_width=SPPM["width"],
+        image_height=SPPM["height"], render_mode=2, ppm_num_photon_per_pass=SPPM["photons"],
+        ppm_num_pass=SPPM["passes"], ppm_max_bounce=SPPM["max_bounce"],
+        eye_x=0.5, eye_y=0.5, eye_z=2.4, center_x=0.5, center_y=0.5, center_z=0.0, fovy=40.0,
+    )
+    kw.update(overrides)
+    master = folder / "sppm_master.txt"
+    config.write_master_file(config.RenderConfig(**kw), master)
+    return config.parse_master_file(master)
+
+
+def visibility_rays(scene, camera, side: int, n_pixels: int, k: int, seed: int):
+    """A gather-shaped any-hit query in which every ray is live: from the hit
+    points of `n_pixels` neighbouring pixels of the SPPM eye pass, `k` rays
+    each toward other hit points (the gathers' rays run from a hit point
+    toward a photon's previous location, another surface point), the window's
+    near cap just short of the target as in `_visible_flux`; sorted and
+    prepared as `ops.trace.occluded_window` does."""
+    import torch
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+    from gpu_pathtracer_tpu_torch.ops import linalg, trace
+    from gpu_pathtracer_tpu_torch.render import sppm
+
+    g = scene.geom
+    dev = g.p.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ii, jj = torch.meshgrid(torch.arange(side, dtype=torch.float32, device=dev),
+                            torch.arange(side, dtype=torch.float32, device=dev), indexing="ij")
+    r = side * side
+    with torch.no_grad():
+        outs = sppm.eye_pass(scene, camera, ii.reshape(-1) + 0.5, jj.reshape(-1) + 0.5, None,
+                             torch.full((r,), float("inf"), device=dev), init=True, generator=gen)
+    pts = outs[0][outs[5]]
+    check(pts.shape[0] >= n_pixels, f"visibility rays: only {pts.shape[0]} hit points")
+    first = (pts.shape[0] - n_pixels) // 2
+    origin = pts[first:first + n_pixels].repeat_interleave(k, dim=0)
+    target = pts[torch.randint(pts.shape[0], (n_pixels * k,), generator=gen, device=dev)]
+    vec = target - origin
+    length = linalg.length(vec)
+    direction = linalg.normalize(vec, 1e-6)
+    perm = trace.coherence_perm(g, origin, direction)
+    return ah.prepare_rays_window(g.tile_aabb, origin[perm], direction[perm],
+                                  (length * (1.0 - 1e-3))[perm])
+
+
+def sppm_same_inputs(folder, dev, side: int, n_photons: int, max_bounce: int):
+    """One SPPM pass on the same inputs on the card and on the CPU's plain
+    path: the photon pass and the eye pass from the same explicit uniforms,
+    then both surface gathers on the card from the CPU's photons and hit
+    points.  Returns the shares of photons, pixels and gathered pixels that
+    agree and whether the grid gather's overflow counts are equal."""
+    import dataclasses
+
+    import torch
+    from gpu_pathtracer_tpu_torch.models.camera import Camera
+    from gpu_pathtracer_tpu_torch.models.scene import build_scene
+    from gpu_pathtracer_tpu_torch.render import sppm
+    from gpu_pathtracer_tpu_torch.utils import obj_io
+
+    host = obj_io.load_scene(folder, "box.obj")
+    scenes = {"cpu": build_scene(host, "cpu"), "card": build_scene(host, dev)}
+    cams = {"cpu": Camera.create(**CORNELL_CAM, width=side, height=side),
+            "card": Camera.create(**CORNELL_CAM, width=side, height=side, device=dev)}
+    gen = torch.Generator().manual_seed(9)
+    r, p = side * side, n_photons
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen)
+
+    u_photon = {"emit": rand(5, p), "stack": rand(sppm.STACK_PROBE_STEPS, 4, p),
+                "steps": rand(4 * max_bounce + 32, sppm.PHOTON_STEP_UNIFORMS, p)}
+    u_eye = {"lens": rand(2, r), "stack": rand(sppm.STACK_PROBE_STEPS, 4, r),
+             "bounce": rand(64, 4, r), "direct_bsdf": rand(4, r), "direct_pick": rand(r),
+             "direct_light": rand(2, r), "direct_chain": rand(sppm.DIRECT_CHAIN_STEPS, 4, r)}
+    ii, jj = torch.meshgrid(torch.arange(side, dtype=torch.float32),
+                            torch.arange(side, dtype=torch.float32), indexing="ij")
+    pix_i, pix_j = ii.reshape(-1) + 0.5, jj.reshape(-1) + 0.5
+
+    def on_cpu(obj):
+        return {f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)}
+
+    photons, eyes = {}, {}
+    with torch.no_grad():
+        for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            photons[name] = sppm.photon_pass(scenes[name], p, max_bounce=max_bounce, uniforms=u_photon)
+            eyes[name] = sppm.eye_pass(
+                scenes[name], cams[name], pix_i.to(d), pix_j.to(d), None,
+                torch.full((r,), float("inf"), device=d), init=False, uniforms=u_eye)
+        pc, pg = on_cpu(photons["cpu"]), on_cpu(photons["card"])
+        both = pc["valid"] & pg["valid"]
+        photon_share = float(((pc["valid"] == pg["valid"]) & (pc["on_surface"] == pg["on_surface"])
+                              & (~both | torch.isclose(pc["pos"], pg["pos"], rtol=1e-4, atol=1e-5)
+                                 .all(dim=-1))).float().mean())
+        ec, eg = eyes["cpu"], [x.cpu() for x in eyes["card"]]
+        found = ec[5] & eg[5]
+        eye_share = float(((ec[5] == eg[5]) & (~found | (
+            torch.isclose(ec[0], eg[0], rtol=1e-4, atol=1e-5).all(dim=-1)
+            & torch.isclose(ec[3], eg[3], rtol=1e-4, atol=1e-5).all(dim=-1)))).float().mean())
+
+        # the gathers: the CPU's photons and hit points on both devices
+        radius = torch.full((r,), 0.05)
+        gather_share, overflow_equal = 1.0, True
+        card_photons = sppm.Photons(**{k: v.to(dev) for k, v in pc.items()})
+        for grid in (False, True):
+            res = {}
+            for name, ph, d in (("cpu", photons["cpu"], torch.device("cpu")),
+                                ("card", card_photons, dev)):
+                args = (scenes[name], ph, ec[0].to(d), ec[1].to(d), radius.to(d), ec[5].to(d))
+                if grid:
+                    res[name] = sppm.surface_gather_grid(*args, return_overflow=True)
+                else:
+                    res[name] = sppm.surface_gather(*args, return_overflow=True)
+            fc, cc, oc = res["cpu"]
+            fg, cg, og = (x.cpu() for x in res["card"])
+            same = (cc == cg) & torch.isclose(fc, fg, rtol=1e-4, atol=1e-6).all(dim=-1)
+            gather_share = min(gather_share, float(same.float().mean()))
+            overflow_equal = overflow_equal and int(oc) == int(og)
+    return dict(photons=photon_share, eye=eye_share, gather=gather_share,
+                overflow_equal=overflow_equal,
+                deposits=int(pc["valid"].sum()), gathered=int(res["cpu"][1].sum()))
+
+
 def wavefronts(scene, camera, n_rays: int, bounces: int, seed: int):
     """(origin, direction, live) of each closest-hit call of `trace_paths`
     for camera rays of the given view, bounce by bounce."""
@@ -240,13 +521,14 @@ def wavefronts(scene, camera, n_rays: int, bounces: int, seed: int):
 
 def sorted_rays(g, wave, drop_tail: int = 0):
     """The main path's query for one captured wavefront: dead rays get a
-    budget of -1, the rays are coherence-sorted and prepared."""
+    budget of -1 and are parked, the rays are coherence-sorted and prepared."""
     import torch
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
     from gpu_pathtracer_tpu_torch.ops import trace
 
     wo, wd, live = wave
     tm = torch.where(live, float("inf"), -1.0)
+    wo, wd = trace.park_dead(g, wo, wd, live)
     perm = trace.coherence_perm(g, wo, wd, live)
     if drop_tail:
         perm = perm[:-drop_tail]
@@ -254,8 +536,13 @@ def sorted_rays(g, wave, drop_tail: int = 0):
 
 
 def reset_launches(ch) -> None:
+    """Every kernel's launch count to 0."""
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+
     ch.launch_closest_hit.launches = 0
     ch.launch_closest_hit_pipe.launches = 0
+    ah.launch_anyhit.launches = 0
+    ah.launch_anyhit_pipe.launches = 0
 
 
 def main() -> int:
@@ -272,7 +559,9 @@ def main() -> int:
     from gpu_pathtracer_tpu_torch.models.camera import Camera
     from gpu_pathtracer_tpu_torch.models.scene import build_scene
     from gpu_pathtracer_tpu_torch.ops import _build, intersect, trace
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.render import sppm
     from gpu_pathtracer_tpu_torch.render.integrator import (
         N_UNIFORMS,
         render_image,
@@ -292,11 +581,11 @@ def main() -> int:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
 
     # ---- 2. build -----------------------------------------------------------
-    kernels = ("closest_hit", "closest_hit_pipe")
+    kernels = ("closest_hit", "closest_hit_pipe", "anyhit", "anyhit_pipe")
     t0 = time.perf_counter()
     libs = _build.build_many(kernels)
     log(f"built {', '.join(str(p.relative_to(HERE)) for p in libs)} in "
-        f"{time.perf_counter() - t0:.2f}s (both compilers started together)")
+        f"{time.perf_counter() - t0:.2f}s (all compilers started together)")
     for name, lib_path in zip(kernels, libs):
         _build.load(name)
         for line in (lib_path.parent / "nvcc.log").read_text().splitlines():
@@ -321,6 +610,15 @@ def main() -> int:
     soup = ch.prepare_rays(aabb, o, d, t_max)
     compare_plain_load("soup", soup, tiles, aabb, stats)
     compare_pipe("soup", soup, tiles, aabb, pipe_err, {})
+    # the same soup for the any-hit kernels (phase 10's first part): a window
+    # around typical hit distances, every 5th ray dead, the ragged tail
+    anyhit_err = {"anyhit": 0, "anyhit_pipe": 0}
+    t_near = torch.as_tensor(rng.uniform(0.3, 3.0, n_ray), dtype=torch.float32, device=dev)
+    t_far = t_near + torch.as_tensor(rng.uniform(0.0, 2.0, n_ray), dtype=torch.float32, device=dev)
+    dead = t_max < 0
+    soup_window = ah.prepare_rays_window(aabb, o, d, torch.where(dead, -1.0, t_near),
+                                         torch.where(dead, -1.0, t_far))
+    compare_anyhit("soup", soup_window, tiles, aabb, anyhit_err, {}, plain_subset=n_ray)
 
     folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     testscenes.make_cornell_box(folder, spheres=True, sphere_subdiv=2)
@@ -552,6 +850,148 @@ def main() -> int:
     check(bool((params["ke"] >= 0).all()) and bool(torch.isfinite(params["ke"]).all()),
           "optimize left a negative or non-finite parameter")
 
+    # ---- 9. SPPM main path ----------------------------------------------------------
+    sppm_folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sppm_"))
+    scfg = sppm_box_master(sppm_folder, False, config, testscenes)
+    reset_launches(ch)
+    sppm.host_syncs = 0
+    sppm_log = []
+    with RecordedGather(trace) as box_gather:
+        t0 = time.perf_counter()
+        simg = renderer.render_from_config(scfg, pass_log=sppm_log)
+        sppm_s = time.perf_counter() - t0
+    b3_launches, b4_on_box = ah.launch_anyhit.launches, ah.launch_anyhit_pipe.launches
+    total_photons = SPPM["photons"] * SPPM["passes"]
+    log(f"SPPM main path: {SPPM['width']}x{SPPM['height']}, {SPPM['photons']} photons x "
+        f"{SPPM['passes']} passes, ppm_max_bounce {SPPM['max_bounce']}, 72-triangle box: {sppm_s:.3f}s "
+        f"end to end (scene load, build and init pass included), {total_photons / sppm_s:.0f} "
+        f"photons/s end to end; {b3_launches} anyhit launches in {box_gather.calls} queries, "
+        f"{b4_on_box} anyhit_pipe launches, {ch.launch_closest_hit.launches} closest_hit launches, "
+        f"{sppm.host_syncs} host syncs; card: {card}")
+    log_passes("SPPM main path", sppm_log, SPPM["photons"])
+    check(len(sppm_log) == SPPM["passes"], f"{len(sppm_log)} passes logged")
+    check(b3_launches > 0 and b3_launches == box_gather.calls
+          and b3_launches == sum(p["anyhit_launches"] for p in sppm_log),
+          f"SPPM main path: {b3_launches} anyhit launches for {box_gather.calls} queries")
+    check(b4_on_box == 0 and ch.launch_closest_hit_pipe.launches == 0,
+          "the SPPM box ran on a double-buffered kernel")
+    check(all(p["grid"] for p in sppm_log), "the SPPM main path did not take the grid gathers")
+    check(simg.shape == (SPPM["height"], SPPM["width"], 3), f"SPPM image shape {simg.shape}")
+    check(bool(np.isfinite(simg).all()) and simg.mean() > 0, "SPPM image not finite or black")
+    for suffix in ("", "_hit_point", "_direct", "_indirect", "_surface_photon"):
+        check((sppm_folder / f"sppm{suffix}.ppm").stat().st_size > 0, f"sppm{suffix}.ppm missing")
+
+    # the same master file at 64x64 on the CPU's plain path, the photon count
+    # scaled to keep the photons per pixel.  The direct component must agree.
+    # The indirect one is printed, not compared: the gathers' caps depend on
+    # the size (the grid's cell is the largest gather radius, which a few
+    # pixels behind glass set to about the scene's size; at 512x512 and 50,000
+    # photons the 27 cells then hold far more photons than `k_per_cell`
+    # admits, at 64x64 and 781 they do not), and so does the truncation that
+    # the cap totals report.  What can be compared exactly is below: one pass
+    # on the same inputs.
+    scale = (SPPM_CPU_SIDE * SPPM_CPU_SIDE) / (SPPM["width"] * SPPM["height"])
+    scfg64 = sppm_box_master(sppm_folder, False, config, testscenes,
+                             image_width=SPPM_CPU_SIDE, image_height=SPPM_CPU_SIDE,
+                             ppm_num_photon_per_pass=int(SPPM["photons"] * scale),
+                             image_output_path=str(sppm_folder / "sppm_cpu.ppm"))
+    cpu_log = []
+    t0 = time.perf_counter()
+    simg_cpu = renderer.render_from_config(scfg64, device="cpu", pass_log=cpu_log)
+    scpu_s = time.perf_counter() - t0
+    direct_card, direct_cpu = sppm_log[-1]["direct_mean"], cpu_log[-1]["direct_mean"]
+    srel = abs(direct_card - direct_cpu) / direct_cpu
+    log(f"SPPM image mean: card main path {simg.mean():.6f} (direct {direct_card:.6f}); CPU plain "
+        f"path {SPPM_CPU_SIDE}x{SPPM_CPU_SIDE}, {scfg64.ppm_num_photon_per_pass} photons a pass: "
+        f"{simg_cpu.mean():.6f} (direct {direct_cpu:.6f}; {scpu_s:.1f}s); rel diff of the direct "
+        f"component {srel:.4f}; candidates dropped by the caps: {sum(p['dropped'] for p in sppm_log)} "
+        f"on the card, {sum(p['dropped'] for p in cpu_log)} on the CPU")
+    check(srel < 0.05, f"SPPM direct component off the CPU plain path by {srel:.4f}")
+
+    # one pass on the same inputs, card against the CPU's plain path
+    same = sppm_same_inputs(sppm_folder, dev, SPPM_CPU_SIDE, SPPM_SAME_PHOTONS, SPPM["max_bounce"])
+    log(f"SPPM same inputs, {SPPM_CPU_SIDE}x{SPPM_CPU_SIDE}, {SPPM_SAME_PHOTONS} photons: card vs "
+        f"CPU agree on {same['photons']:.4f} of the photons ({same['deposits']} deposits), "
+        f"{same['eye']:.4f} of the eye pass's pixels, {same['gather']:.4f} of the gathers' pixels "
+        f"({same['gathered']} photons gathered); grid overflow counts equal: {same['overflow_equal']}")
+    check(same["deposits"] > 0 and same["gathered"] > 0, "SPPM same inputs: nothing deposited or gathered")
+    check(same["photons"] >= 0.99, f"SPPM same inputs: {same['photons']:.4f} of the photons agree")
+    check(same["eye"] >= 0.99, f"SPPM same inputs: {same['eye']:.4f} of the pixels agree")
+    check(same["gather"] >= 0.999 and same["overflow_equal"],
+          f"SPPM same inputs: {same['gather']:.4f} of the gathered pixels agree")
+
+    # ---- 10. the any-hit kernels on the recorded gather wavefront ------------------
+    box_scene = build_scene(obj_io.load_scene(sppm_folder, "box.obj"), dev)
+    bg = box_scene.geom
+    check(not box_gather.big, "the box's gather went to the double-buffered kernel")
+    b34_box = {}
+    compare_anyhit("SPPM box gather (ragged)", box_gather.rays(bg.tile_aabb, 100), bg.tiles,
+                   bg.tile_aabb, anyhit_err, {}, plain_subset=PLAIN_SUBSET)
+    box_rays = box_gather.rays(bg.tile_aabb)
+    compare_anyhit("SPPM box gather", box_rays, bg.tiles, bg.tile_aabb, anyhit_err, b34_box,
+                   plain_subset=box_rays.shape[0], time_it=True)
+    # the recorded query is nearly all dead slots (few photons lie within a
+    # pixel-sized radius); the same shape with every ray live
+    box_cam = Camera.create(**CORNELL_CAM, width=SPPM["width"], height=SPPM["height"], device=dev)
+    box_live = visibility_rays(box_scene, box_cam, SPPM["width"], GATHER_CHUNK, sppm.K_NEAREST, 21)
+    b34_box_live = {}
+    compare_anyhit("SPPM box, live gather rays", box_live, bg.tiles, bg.tile_aabb, anyhit_err,
+                   b34_box_live, plain_subset=box_live.shape[0], time_it=True)
+
+    # ---- 11. the fog configuration -----------------------------------------------------
+    fog_folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_fog_"))
+    fcfg = sppm_box_master(fog_folder, True, config, testscenes, ppm_num_pass=1)
+    reset_launches(ch)
+    fog_log = []
+    t0 = time.perf_counter()
+    fimg = renderer.render_from_config(fcfg, pass_log=fog_log)
+    fog_s = time.perf_counter() - t0
+    log(f"fog configuration: init pass + 1 pass in {fog_s:.3f}s end to end, "
+        f"{ah.launch_anyhit.launches} anyhit launches; tmp_lm sum {fog_log[0]['tmp_lm_sum']:.4f}; "
+        f"image mean {fimg.mean():.6f}; card: {card}")
+    log_passes("fog", fog_log, SPPM["photons"])
+    check(fog_log[0]["volume_photons"] > 0, "the fog pass deposited no volume photons")
+    check(fog_log[0]["grid"], "the fog pass did not take the grid gathers")
+    check(fog_log[0]["tmp_lm_finite"] and fog_log[0]["tmp_lm_sum"] > 0,
+          "the fog's beam gather is not finite or is zero")
+    check(ah.launch_anyhit.launches > 0 and ah.launch_anyhit_pipe.launches == 0,
+          "the fog pass's gathers did not run on anyhit alone")
+    check(bool(np.isfinite(fimg).all()) and fimg.mean() > 0, "fog image not finite or black")
+
+    # ---- 12. the mesh configuration ----------------------------------------------------
+    mcfg = config.RenderConfig(image_width=SPPM["width"], image_height=SPPM["height"],
+                               ppm_num_photon_per_pass=SPPM["photons"], ppm_num_pass=1,
+                               ppm_max_bounce=SPPM["max_bounce"])
+    reset_launches(ch)
+    mesh_log = []
+    with RecordedGather(trace) as mesh_gather, torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        msimg = sppm.render_sppm(mesh, mcam, mcfg, 12, pass_log=mesh_log)
+        mesh_sppm_s = time.perf_counter() - t0
+    b4_launches = ah.launch_anyhit_pipe.launches
+    log(f"mesh configuration: SPPM on {mg.num_tris} triangles, init pass + 1 pass in "
+        f"{mesh_sppm_s:.3f}s; {b4_launches} anyhit_pipe launches in {mesh_gather.calls} queries, "
+        f"{ah.launch_anyhit.launches} anyhit launches, {ch.launch_closest_hit_pipe.launches} "
+        f"closest_hit_pipe launches; image mean {msimg.mean():.6f}; card: {card}")
+    log_passes("mesh", mesh_log, SPPM["photons"])
+    check(b4_launches > 0 and b4_launches == mesh_gather.calls and ah.launch_anyhit.launches == 0,
+          f"mesh SPPM: {b4_launches} anyhit_pipe / {ah.launch_anyhit.launches} anyhit launches")
+    check(ch.launch_closest_hit.launches == 0, "the mesh SPPM pass launched closest_hit")
+    check(mesh_log[0]["grid"], "the mesh pass did not take the grid gathers")
+    check(msimg.shape == (SPPM["height"], SPPM["width"], 3) and bool(np.isfinite(msimg).all())
+          and msimg.mean() > 0, "mesh SPPM image not finite or black")
+    check(mesh_gather.big, "the mesh's gather did not go to the double-buffered kernel")
+    b34_mesh = {}
+    compare_anyhit("mesh gather (ragged)", mesh_gather.rays(mg.tile_aabb, 100), mg.tiles,
+                   mg.tile_aabb, anyhit_err, {}, plain_subset=PLAIN_SUBSET)
+    compare_anyhit("mesh gather", mesh_gather.rays(mg.tile_aabb), mg.tiles, mg.tile_aabb,
+                   anyhit_err, b34_mesh, plain_subset=PLAIN_SUBSET, time_it=True)
+    mesh_live = visibility_rays(mesh, mcam, SPPM["width"], GATHER_CHUNK, sppm.K_NEAREST, 22)
+    b34_mesh_live = {}
+    compare_anyhit("mesh, live gather rays", mesh_live, mg.tiles, mg.tile_aabb, anyhit_err,
+                   b34_mesh_live, plain_subset=PLAIN_SUBSET, time_it=True)
+
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     record = {"kernels": [
         {
@@ -585,6 +1025,47 @@ def main() -> int:
             "closest_hit_ms_same_rays": b2["plain_load_ms"],
             "block_tile_order_ms": b2["order_ms"],
             "sort_and_prepare_ms": b2["prep_ms"],
+        },
+        {
+            "name": "anyhit",
+            "route": "cuda",
+            "source": "gpu_pathtracer_tpu_torch/csrc/anyhit.cu",
+            "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:788",
+            "launches": b3_launches,
+            "max_abs_err": anyhit_err["anyhit"],  # rays whose bits differ from the plain version's
+            **b34_box["anyhit"],
+            "library_ms": None,  # no single PyTorch call answers an any-hit window
+            "shape": f"{b34_box['rays']} rays x 72 triangles, the fullest gather query of the "
+                     "SPPM main path",
+            "anyhit_pipe_ms_same_rays": b34_box["anyhit_pipe"]["ms"],
+            "closest_hit_ms_same_rays": b34_box["closest_ms"],
+            "live_rays": {"shape": f"{b34_box_live['rays']} rays, every one live, between hit "
+                                   "points of the box's eye pass",
+                          **b34_box_live["anyhit"],
+                          "anyhit_pipe_ms_same_rays": b34_box_live["anyhit_pipe"]["ms"],
+                          "closest_hit_ms_same_rays": b34_box_live["closest_ms"]},
+        },
+        {
+            "name": "anyhit_pipe",
+            "route": "cuda",
+            "source": "gpu_pathtracer_tpu_torch/csrc/anyhit_pipe.cu",
+            "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:827",
+            "launches": b4_launches,
+            "max_abs_err": anyhit_err["anyhit_pipe"],
+            **b34_mesh["anyhit_pipe"],
+            "library_ms": None,
+            "shape": f"{b34_mesh['rays']} rays x {MESH_TRIS} triangles, the fullest gather query "
+                     f"of the mesh SPPM pass; plain_ms on {b34_mesh['plain_rays']} of the rays",
+            "anyhit_ms_same_rays": b34_mesh["anyhit"]["ms"],
+            "closest_hit_ms_same_rays": b34_mesh["closest_ms"],
+            "block_tile_order_ms": b34_mesh["order_ms"],
+            "live_rays": {"shape": f"{b34_mesh_live['rays']} rays, every one live, between hit "
+                                   f"points of the mesh's eye pass; plain_ms on "
+                                   f"{b34_mesh_live['plain_rays']} of the rays",
+                          **b34_mesh_live["anyhit_pipe"],
+                          "anyhit_ms_same_rays": b34_mesh_live["anyhit"]["ms"],
+                          "closest_hit_ms_same_rays": b34_mesh_live["closest_ms"],
+                          "block_tile_order_ms": b34_mesh_live["order_ms"]},
         },
     ]}
     print(json.dumps(record), flush=True)

@@ -3,9 +3,10 @@
 The JAX package `gpu_pathtracer_tpu` is the reference; this package mirrors
 its layout (`ops/`, `models/`, `render/`, `renderer.py`, `cli.py`) so every
 module has an obvious counterpart.  Plain tensor code is PyTorch; the
-closest-hit tile kernels, Pallas kernels in the reference, are hand-written
-CUDA kernels for Hopper (`csrc/closest_hit.cu`, `csrc/closest_hit_pipe.cu`),
-built at first use.
+closest-hit and windowed any-hit tile kernels, Pallas kernels in the
+reference, are hand-written CUDA kernels for Hopper (`csrc/closest_hit.cu`,
+`csrc/closest_hit_pipe.cu`, `csrc/anyhit.cu`, `csrc/anyhit_pipe.cu`), built
+at first use.
 
 The package imports `torch`, never `jax`, and nothing of `gpu_pathtracer_tpu`:
 host-side parsing (OBJ/MTL, master files, images, test scenes) and the

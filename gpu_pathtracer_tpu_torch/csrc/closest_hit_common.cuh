@@ -1,11 +1,15 @@
-// Shared arithmetic of the closest-hit tile kernels for Hopper (sm_90a):
-// closest_hit.cu (every tile staged with plain loads) and
-// closest_hit_pipe.cu (tiles staged through two cp.async buffers).  Both run
-// exactly the code below, so on the same rays, tiles and order their
-// (t, slot) are bit-equal.
+// Shared arithmetic of the tile kernels for Hopper (sm_90a): the closest-hit
+// kernels closest_hit.cu (every tile staged with plain loads) and
+// closest_hit_pipe.cu (tiles staged through two cp.async buffers), and the
+// windowed any-hit kernels anyhit.cu and anyhit_pipe.cu built the same two
+// ways.  All four run exactly the pair test below, so on the same rays,
+// tiles and order the two closest-hit kernels' (t, slot) are bit-equal, the
+// two any-hit kernels' bits are equal, and an any-hit bit agrees with the
+// closest hit's t on the same ray.
 //
 // Layout (packed by gpu_pathtracer_tpu_torch/ops/closest_hit.py):
-//   rays  (R, 8)            f32  [ox oy oz dx dy dz t_cap t_near], R % 128 == 0
+//   rays  (R, 8)            f32  [ox oy oz dx dy dz t_cap t_near], R % 128 == 0;
+//                                t_near is the any-hit kernels' and 0 for closest hit
 //   tris  (NT, 10, TILE)    f32  rows v1xyz v2xyz v3xyz tol; empty rows are
 //                                zero with tol = +inf (det == 0 -> miss)
 //   aabb  (NT, 8)           f32  [min xyz, max xyz, 0, 0]; empty tiles inverted
@@ -52,6 +56,7 @@ __device__ __forceinline__ float warp_max(float v) {
 struct Ray {
   float ox, oy, oz;
   float t_cap;
+  float t_near;                  // the any-hit window's near cap (0 in closest-hit rays)
   int k;                         // dominant axis
   float sx, sy, sz;              // Woop shear
   float inv_dx, inv_dy, inv_dz;  // slab test (1e-20 clamp, sign dropped, as the TPU kernel)
@@ -65,6 +70,7 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ r) {
   q.oz = r[2];
   const float dx = r[3], dy = r[4], dz = r[5];
   q.t_cap = r[6];
+  q.t_near = r[7];
   const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
   const bool is2 = (az >= ax) && (az >= ay);
   const bool is1 = !is2 && (ay >= ax);
@@ -152,37 +158,76 @@ __device__ __forceinline__ void block_max_any(float v, bool p, float* s_best, in
   any = a != 0;
 }
 
-// Every triangle of one staged tile (s_tile: (10, tile) floats in shared
-// memory) against this thread's ray, in column order.  Strict `<` keeps the
-// first triangle at the minimum t within a tile and, across tiles, the
-// earlier-visited tile, as the TPU kernel does.
+// The watertight Woop test of column `c` of a staged tile (s_tile: (10, tile)
+// floats in shared memory) against this thread's ray.  True when the ray's
+// line meets the triangle at a t at or above the triangle's tolerance; the
+// caller applies its own window (best t, caps) to `t`.
+__device__ __forceinline__ bool woop_pair(const float* __restrict__ s_tile, int tile, int c,
+                                          const Ray& q, float& t) {
+  float x[3], y[3], z[3];
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    const float vx = s_tile[(3 * v + 0) * tile + c] - q.ox;
+    const float vy = s_tile[(3 * v + 1) * tile + c] - q.oy;
+    const float vz = s_tile[(3 * v + 2) * tile + c] - q.oz;
+    float px, py, pz;
+    permute(q.k, vx, vy, vz, px, py, pz);
+    x[v] = px + q.sx * pz;
+    y[v] = py + q.sy * pz;
+    z[v] = pz * q.sz;
+  }
+  const float e1 = x[1] * y[2] - y[1] * x[2];
+  const float e2 = x[2] * y[0] - y[2] * x[0];
+  const float e3 = x[0] * y[1] - y[0] * x[1];
+  const bool mixed = (e1 < 0.0f || e2 < 0.0f || e3 < 0.0f) &&
+                     (e1 > 0.0f || e2 > 0.0f || e3 > 0.0f);
+  const float det = e1 + e2 + e3;
+  if (mixed || det == 0.0f) return false;
+  const float ts = e1 * z[0] + e2 * z[1] + e3 * z[2];
+  t = ts * (1.0f / det);
+  return t >= s_tile[9 * tile + c];
+}
+
+// Every triangle of one staged tile against this thread's ray, in column
+// order.  Strict `<` keeps the first triangle at the minimum t within a tile
+// and, across tiles, the earlier-visited tile, as the TPU kernel does.
 __device__ __forceinline__ void scan_tile(const float* __restrict__ s_tile, int tile, int base,
                                           const Ray& q, float& best_t, int& best_slot) {
   for (int c = 0; c < tile; ++c) {
-    float x[3], y[3], z[3];
-#pragma unroll
-    for (int v = 0; v < 3; ++v) {
-      const float vx = s_tile[(3 * v + 0) * tile + c] - q.ox;
-      const float vy = s_tile[(3 * v + 1) * tile + c] - q.oy;
-      const float vz = s_tile[(3 * v + 2) * tile + c] - q.oz;
-      float px, py, pz;
-      permute(q.k, vx, vy, vz, px, py, pz);
-      x[v] = px + q.sx * pz;
-      y[v] = py + q.sy * pz;
-      z[v] = pz * q.sz;
-    }
-    const float e1 = x[1] * y[2] - y[1] * x[2];
-    const float e2 = x[2] * y[0] - y[2] * x[0];
-    const float e3 = x[0] * y[1] - y[0] * x[1];
-    const bool mixed = (e1 < 0.0f || e2 < 0.0f || e3 < 0.0f) &&
-                       (e1 > 0.0f || e2 > 0.0f || e3 > 0.0f);
-    const float det = e1 + e2 + e3;
-    if (mixed || det == 0.0f) continue;
-    const float ts = e1 * z[0] + e2 * z[1] + e3 * z[2];
-    const float t = ts * (1.0f / det);
-    if (t >= s_tile[9 * tile + c] && t < best_t && t <= q.t_cap) {
+    float t;
+    if (woop_pair(s_tile, tile, c, q, t) && t < best_t && t <= q.t_cap) {
       best_t = t;
       best_slot = base + c;
+    }
+  }
+}
+
+// ---- windowed any-hit (anyhit.cu, anyhit_pipe.cu) --------------------------
+// Per ray two bits: far = some accepted hit with t <= t_cap, near = some
+// accepted hit with t <= t_cap and t < t_near (strict).  near implies far.
+
+// What is left of a ray's window: nothing (-1) once near is set, [.., t_near)
+// once only far is set, else [.., t_cap].  Drives the tile culls only.
+__device__ __forceinline__ float anyhit_budget(const Ray& q, bool near, bool far) {
+  return near ? -1.0f : (far ? q.t_near : q.t_cap);
+}
+
+// One staged tile against this thread's ray.  A ray with nothing left of its
+// window (`budget` < 0: near set, a dead or padding ray, or far set and no
+// near window) does no pair test, and one that sets near stops there: no
+// later triangle can change its bits.
+__device__ __forceinline__ void scan_tile_anyhit(const float* __restrict__ s_tile, int tile,
+                                                 const Ray& q, float budget, bool& near,
+                                                 bool& far) {
+  if (budget < 0.0f) return;
+  for (int c = 0; c < tile; ++c) {
+    float t;
+    if (woop_pair(s_tile, tile, c, q, t) && t <= q.t_cap) {
+      far = true;
+      if (t < q.t_near) {
+        near = true;
+        return;
+      }
     }
   }
 }

@@ -1,8 +1,8 @@
 """Thin-lens / pinhole camera (port of `gpu_pathtracer_tpu.models.camera`).
 
 Look-at basis, per-pixel primary rays with a focus-plane target and a
-lens-circle offset for depth of field.  (`project`, used by the point-cloud
-splat images, comes with the SPPM/SSS slices.)
+lens-circle offset for depth of field, and the inverse projection used by
+the point-cloud splat images.
 """
 
 from __future__ import annotations
@@ -66,3 +66,16 @@ class Camera:
         origin = self.eye + offset
         direction = linalg.normalize(point - origin)
         return torch.broadcast_to(origin, d.shape), direction
+
+    def project(self, direction):
+        """Inverse projection of a view direction to integer pixel (i, j),
+        each int32; used by the point-cloud splat images."""
+        j = torch.floor(
+            self.width / 2.0
+            + self.width / 2.0 / self.tan_half_fovx * linalg.dot(direction + self.w, self.u)
+        ).to(torch.int32)
+        i = torch.floor(
+            self.height / 2.0
+            - self.height / 2.0 / self.tan_half_fovy * linalg.dot(direction + self.w, self.v)
+        ).to(torch.int32)
+        return i, j

@@ -4,13 +4,16 @@
 under dotted field names ("geom.p", "light_tree.anc", "materials.kd", ...;
 static fields such as "sky_h" or "geom.bvh.num_leaves" as 0-d arrays) and
 builds the port's `Scene` from exactly those arrays, so both packages can be
-driven with the identical scene.  The closest-hit tiles are the port's own
-packing and are rebuilt from "geom.p", "geom.tol" and "geom.valid"; fields
-the port does not hold (the reference's TPU tile columns, the transparent
-subset) are ignored.  `scene_to_numpy` flattens a port scene the same way.
-Every tensor made here is a leaf, so a material or atlas field can be asked
-for gradients (`requires_grad_`); `params_from_numpy` / `params_to_numpy`
-carry the optimizer's parameter dict (`optim.optimize`) across both ways.
+driven with the identical scene.  The tiles are the port's own packing and
+are rebuilt from "geom.p", "geom.tol" and "geom.valid" (likewise for the
+"transparent." subset, when the scene has one); fields the port does not
+hold (the reference's TPU tile columns) are ignored.  `scene_to_numpy`
+flattens a port scene the same way.  Every tensor made here is a leaf, so a
+material or atlas field can be asked for gradients (`requires_grad_`);
+`params_from_numpy` / `params_to_numpy` carry the optimizer's parameter dict
+(`optim.optimize`) across both ways, `photons_*` and `hit_points_*` the SPPM
+photon map and per-pixel state (dicts of numpy arrays under the dataclasses'
+field names).
 """
 
 from __future__ import annotations
@@ -50,15 +53,15 @@ def _bvh(flat, prefix, device) -> bvh_mod.BVH:
     )
 
 
-def _geometry(flat, device) -> GeometrySet:
-    g = {f: _t(flat[f"geom.{f}"], device)
+def _geometry(flat, device, prefix: str = "geom") -> GeometrySet:
+    g = {f: _t(flat[f"{prefix}.{f}"], device)
          for f in ("p", "n", "uv", "tangent", "tol", "mat_id", "obj_id", "valid", "attr")}
     tiles, tile_aabb = closest_hit.pack_tiles(g["p"], g["tol"], g["valid"])
     return GeometrySet(
-        bvh=_bvh(flat, "geom.bvh", device),
+        bvh=_bvh(flat, f"{prefix}.bvh", device),
         tiles=tiles,
         tile_aabb=tile_aabb,
-        num_tris=int(flat.get("geom.num_tris", int(np.sum(flat["geom.valid"])))),
+        num_tris=int(flat.get(f"{prefix}.num_tris", int(np.sum(flat[f"{prefix}.valid"])))),
         **g,
     )
 
@@ -99,7 +102,7 @@ def scene_from_numpy(flat: dict[str, np.ndarray], device) -> Scene:
     sky_rgb = flat["sky_rgb"]
     return Scene(
         geom=_geometry(flat, device),
-        transparent=None,
+        transparent=_geometry(flat, device, "transparent") if "transparent.p" in flat else None,
         light_tree=_light_tree(flat, device) if has_lights else None,
         materials=_materials(flat, device),
         sky_emission=_t(flat["sky_emission"], device),
@@ -138,3 +141,26 @@ def params_from_numpy(params: dict[str, np.ndarray], device, requires_grad: bool
 def params_to_numpy(params: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """The way back: detached copies on the host."""
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def _dataclass_from_numpy(cls, arrays, device):
+    return cls(**{f.name: _t(arrays[f.name], device) for f in dataclasses.fields(cls)})
+
+
+def photons_from_numpy(arrays: dict[str, np.ndarray], device):
+    """A photon map (`render.sppm.Photons`) from its fields as numpy arrays."""
+    from gpu_pathtracer_tpu_torch.render.sppm import Photons
+
+    return _dataclass_from_numpy(Photons, arrays, device)
+
+
+def hit_points_from_numpy(arrays: dict[str, np.ndarray], device):
+    """Per-pixel SPPM state (`render.sppm.HitPoints`) from numpy arrays."""
+    from gpu_pathtracer_tpu_torch.render.sppm import HitPoints
+
+    return _dataclass_from_numpy(HitPoints, arrays, device)
+
+
+# a photon map or the hit points back as {field name: numpy array}
+photons_to_numpy = scene_to_numpy
+hit_points_to_numpy = scene_to_numpy

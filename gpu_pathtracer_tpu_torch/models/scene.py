@@ -7,8 +7,9 @@ triangle [p(9) n(9) uv(6) tol(1) mat(1)] feeds both the winner barycentrics
 and the hit interpolation from a single gather.  Everything is float32 or
 int32 on the scene's device (host arrays may be float64; they are cast here).
 
-`Scene.transparent` (the transparent-subset BVH) is used only by SPPM and is
-left None until that slice; `Scene.sss` likewise waits for the SSS slice.
+`Scene.transparent` is the same structure over the transparent triangles
+alone (t_r > 0), with its own tiles; SPPM marches through it to find the
+media a camera or an emitter starts in.  `Scene.sss` waits for the SSS slice.
 """
 
 from __future__ import annotations
@@ -112,14 +113,23 @@ def build_scene(host: HostScene, device, sky_emission=(0.0, 0.0, 0.0),
     tri_p = _f32(host.tri_p, device)
     tri_n = _f32(host.tri_n, device)
     tri_uv = _f32(host.tri_uv, device)
-    geom = build_geometry_set(
-        tri_p, tri_n, tri_uv, _f32(host.tri_tangent, device),
-        _i32(host.mat_idx, device), _i32(host.object_idx, device),
-    )
+    tri_tangent = _f32(host.tri_tangent, device)
+    mat_idx = _i32(host.mat_idx, device)
+    object_idx = _i32(host.object_idx, device)
+    geom = build_geometry_set(tri_p, tri_n, tri_uv, tri_tangent, mat_idx, object_idx)
+
+    # transparent subset (t_r > 0)
+    transparent = None
+    trans_mask = np.asarray(host.materials.t_r)[np.asarray(host.mat_idx)] > 0
+    if trans_mask.any():
+        idx = torch.as_tensor(np.nonzero(trans_mask)[0], device=device)
+        transparent = build_geometry_set(
+            tri_p[idx], tri_n[idx], tri_uv[idx], tri_tangent[idx], mat_idx[idx], object_idx[idx]
+        )
 
     # emitters: any vertex with |Ke texture| above the triangle tolerance;
     # energy 2*pi*avg(Ke)*area (host numpy, as the reference package does)
-    mat_v = _i32(host.mat_idx, device)[:, None].expand(-1, 3)
+    mat_v = mat_idx[:, None].expand(-1, 3)
     ke_verts = table.emission_color(mat_v, tri_uv).cpu().numpy()
     tol_np = intersect.triangle_tolerance(tri_p).cpu().numpy()
     emissive = (np.linalg.norm(ke_verts, axis=-1) > tol_np[:, None]).any(axis=1)
@@ -151,7 +161,7 @@ def build_scene(host: HostScene, device, sky_emission=(0.0, 0.0, 0.0),
 
     return Scene(
         geom=geom,
-        transparent=None,
+        transparent=transparent,
         light_tree=light_tree,
         materials=table,
         sky_emission=_f32(sky_emission, device),

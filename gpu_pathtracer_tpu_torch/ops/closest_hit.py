@@ -130,10 +130,12 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _launch(kernel: str, max_tile: int, rays, tiles, tile_aabb, order, counts: bool):
+def launch_tile_kernel(kernel: str, max_tile: int, out_dtypes, rays, tiles, tile_aabb, order,
+                       counts: bool):
     """Check the inputs (`max_tile` is the kernel's kMaxTile), launch
-    `csrc/<kernel>.cu` on the current stream and return (best_t, slot, counts
-    or None)."""
+    `csrc/<kernel>.cu` on the current stream and return its two per-ray
+    outputs (of `out_dtypes`) and the per-block counts or None.  Every tile
+    kernel, closest-hit or any-hit, has this one C signature."""
     from gpu_pathtracer_tpu_torch.ops import _build
 
     dev = rays.device
@@ -154,18 +156,30 @@ def _launch(kernel: str, max_tile: int, rays, tiles, tile_aabb, order, counts: b
     fn = getattr(_build.load(kernel), f"gpt_{kernel}")
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out_t = torch.empty((n_rays,), dtype=torch.float32, device=dev)
-    out_slot = torch.empty((n_rays,), dtype=torch.int32, device=dev)
+    out_a = torch.empty((n_rays,), dtype=out_dtypes[0], device=dev)
+    out_b = torch.empty((n_rays,), dtype=out_dtypes[1], device=dev)
     out_counts = (torch.empty((n_rays // RAY_BLOCK, 3), dtype=torch.int32, device=dev)
                   if counts else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(rays.data_ptr(), tiles.data_ptr(), tile_aabb.data_ptr(), order.data_ptr(),
-                 out_t.data_ptr(), out_slot.data_ptr(),
+                 out_a.data_ptr(), out_b.data_ptr(),
                  out_counts.data_ptr() if counts else None, n_rays, n_tiles, tile, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
-    return out_t, out_slot, out_counts
+    return out_a, out_b, out_counts
+
+
+def check_async_tiles(tiles) -> None:
+    """What the double-buffered kernels' 16-byte async tile copies need."""
+    if tiles.dim() == 3 and (tiles.shape[2] % 4 or tiles.data_ptr() % 16):
+        raise ValueError(
+            f"the 16-byte async tile copies need tile % 4 == 0 and 16-byte-aligned tiles, "
+            f"got tile {tiles.shape[2]}, address % 16 = {tiles.data_ptr() % 16}"
+        )
+
+
+_CLOSEST_OUT = (torch.float32, torch.int32)
 
 
 def launch_closest_hit(rays, tiles, tile_aabb, order, counts: bool = False):
@@ -173,7 +187,8 @@ def launch_closest_hit(rays, tiles, tile_aabb, order, counts: bool = False):
     each (R_pad,), and with `counts` also the (R_pad / 128, 3) int32 per-block
     [tile steps walked, tiles staged, tiles scanned].  Raises on any input the
     kernel does not take and on a refused launch."""
-    t, slot, c = _launch("closest_hit", 1024, rays, tiles, tile_aabb, order, counts)
+    t, slot, c = launch_tile_kernel("closest_hit", 1024, _CLOSEST_OUT,
+                                    rays, tiles, tile_aabb, order, counts)
     launch_closest_hit.launches += 1
     return (t, slot, c) if counts else (t, slot)
 
@@ -183,12 +198,9 @@ def launch_closest_hit_pipe(rays, tiles, tile_aabb, order, counts: bool = False)
     inputs and outputs as `launch_closest_hit`, the same values bit for bit.
     It also refuses a tile width that is not a multiple of 4 and tiles that
     are not 16-byte aligned (its async copies move 16-byte chunks)."""
-    if tiles.dim() == 3 and (tiles.shape[2] % 4 or tiles.data_ptr() % 16):
-        raise ValueError(
-            f"the 16-byte async tile copies need tile % 4 == 0 and 16-byte-aligned tiles, "
-            f"got tile {tiles.shape[2]}, address % 16 = {tiles.data_ptr() % 16}"
-        )
-    t, slot, c = _launch("closest_hit_pipe", 512, rays, tiles, tile_aabb, order, counts)
+    check_async_tiles(tiles)
+    t, slot, c = launch_tile_kernel("closest_hit_pipe", 512, _CLOSEST_OUT,
+                                    rays, tiles, tile_aabb, order, counts)
     launch_closest_hit_pipe.launches += 1
     return (t, slot, c) if counts else (t, slot)
 
@@ -202,7 +214,7 @@ launch_closest_hit_pipe.launches = 0
 # The plain versions (any device)
 # ---------------------------------------------------------------------------
 
-def _woop_ctx(rays: torch.Tensor):
+def woop_ctx(rays: torch.Tensor):
     """Per-ray constants of the pair test, each (..., 1) for rays (..., 8)."""
     ox, oy, oz = rays[..., 0:1], rays[..., 1:2], rays[..., 2:3]
     dx_, dy_, dz_ = rays[..., 3:4], rays[..., 4:5], rays[..., 5:6]
@@ -221,12 +233,13 @@ def _woop_ctx(rays: torch.Tensor):
     return (ox, oy, oz), perm, (-dx / dz, -dy / dz, 1.0 / dz), rays[..., 6:7]
 
 
-def _scan_tile(ctx, tv, base, lane, best_t, best_slot):
-    """One tile against every ray: `tv` is the tile's ten rows, each
-    broadcastable against the rays' (..., 1) to (..., tile); `base` the slot
-    of its first column.  The kernels' Woop arithmetic and axis permutation;
-    strict `<` against best_t and the first column at the minimum."""
-    (ox, oy, oz), perm, (sx, sy, sz), t_cap = ctx
+def pair_t(ctx, tv):
+    """The kernels' Woop pair test of one tile against every ray: `tv` is the
+    tile's ten rows, each broadcastable against the rays' (..., 1) to
+    (..., tile).  Returns (t, ok): the candidate t of every pair and whether
+    the ray's line meets the triangle at or above its tolerance, before the
+    caller's own window."""
+    (ox, oy, oz), perm, (sx, sy, sz), _ = ctx
 
     def corner(c):
         px, py, pz = perm(tv[3 * c + 0] - ox, tv[3 * c + 1] - oy, tv[3 * c + 2] - oz)
@@ -242,7 +255,15 @@ def _scan_tile(ctx, tv, base, lane, best_t, best_slot):
     det = e1 + e2 + e3
     ts = e1 * z1 + e2 * z2 + e3 * z3
     t = ts * (1.0 / torch.where(det == 0.0, 1.0, det))
-    hit = (~mixed) & (det != 0.0) & (t >= tv[9]) & (t < best_t) & (t <= t_cap)
+    return t, (~mixed) & (det != 0.0) & (t >= tv[9])
+
+
+def _scan_tile(ctx, tv, base, lane, best_t, best_slot):
+    """One tile against every ray for the closest hit; `base` is the slot of
+    the tile's first column.  Strict `<` against best_t and the first column
+    at the minimum."""
+    t, ok = pair_t(ctx, tv)
+    hit = ok & (t < best_t) & (t <= ctx[3])
     t = torch.where(hit, t, _INF)
     t_min = torch.amin(t, dim=-1, keepdim=True)
     k = torch.amin(torch.where(t == t_min, lane, 2**30), dim=-1, keepdim=True)
@@ -260,7 +281,7 @@ def closest_hit_rays_reference(rays: torch.Tensor, tiles: torch.Tensor):
     out_t, out_slot = [], []
     lane = torch.arange(tile, dtype=torch.int32, device=rays.device)
     for r0 in range(0, rays.shape[0], _REFERENCE_CHUNK):
-        ctx = _woop_ctx(rays[r0:r0 + _REFERENCE_CHUNK])
+        ctx = woop_ctx(rays[r0:r0 + _REFERENCE_CHUNK])
         best_t = torch.clamp(ctx[3], max=_INF)
         best_slot = torch.full_like(best_t, -1, dtype=torch.int32)
         for ti in range(n_tiles):
@@ -340,7 +361,7 @@ def closest_hit_pipe_reference(rays, tiles, tile_aabb, order):
             tv = [tiles[ti, row][:, None, :] for row in range(_TILE_ROWS)]
             base = (ti * tile).to(torch.int32)[:, None, None]
             best_t[blk], best_slot[blk] = _scan_tile(
-                _woop_ctx(rb[blk]), tv, base, lane, best_t[blk], best_slot[blk])
+                woop_ctx(rb[blk]), tv, base, lane, best_t[blk], best_slot[blk])
 
         walking = walking & improve
         fetched_cur, ti_cur = fetched_next, ti_next

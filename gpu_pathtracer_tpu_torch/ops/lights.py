@@ -12,6 +12,7 @@ is not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -132,6 +133,15 @@ def build_light_tree(tri_p, tri_n, tri_uv, energy, geom_slot) -> LightTree:
         depth=depth,
         dense=True,
     )
+
+
+def leaf_energies(lt: LightTree, table, mat_id_sorted: torch.Tensor) -> torch.Tensor:
+    """Per-emitter energy 2*pi*avg(Ke at the 3 vertices)*area, (E, 3), read
+    from the live material table (`build_scene` bakes the same values into
+    the leaves of `lt.node_energy`).  `mat_id_sorted` is `scene.geom.mat_id`."""
+    mat = mat_id_sorted[lt.geom_slot.long()]  # (E,)
+    ke_verts = table.emission_color(mat[:, None].expand(-1, 3), lt.tri_uv)  # (E, 3, 3)
+    return 2.0 * math.pi * torch.mean(ke_verts, dim=1) * lt.area[:, None]
 
 
 def pick_light_dense(lt: LightTree, node_pdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -270,10 +270,14 @@ def sample_bsdf(
     stack_ids: torch.Tensor,  # (R, S)
     stack_len: torch.Tensor,  # (R,)
     uniforms: torch.Tensor,  # (4, R): u_choice, u_pick, u_lobe1, u_lobe2
+    force_refract: bool = False,
 ) -> ReflectionRecord:
     """Batched, branch-free check_next_path: false-hit test -> refraction
     (Schlick + Snell + TIR with the nested-dielectric stack) -> diffuse /
-    specular pick; every ray evaluates every branch and blends by mask."""
+    specular pick; every ray evaluates every branch and blends by mask.
+    `force_refract` makes every transparent interface refract (no Fresnel
+    reflection, no total internal reflection): the SPPM stack probes and
+    shadow chains."""
     r_shape = mat_id.shape
     u_choice, u_pick, u_lobe1, u_lobe2 = uniforms[0], uniforms[1], uniforms[2], uniforms[3]
     ones = torch.ones(r_shape, dtype=v_in.dtype, device=v_in.device)
@@ -298,7 +302,7 @@ def sample_bsdf(
 
     cos1_in = -d_in_n
     rp_in = sampling.schlick_reflectance(cos1_in, hp_ior, n_i)
-    refract_in = u_choice >= rp_in
+    refract_in = (u_choice >= rp_in) | force_refract
     v_refr_in = _snell_out_dir(v_in, normal, cos1_in, hp_ior / n_i, -ones)
     v_refl_in = linalg.normalize(linalg.reflect(v_in, normal), SMALL_EPS)
 
@@ -306,7 +310,7 @@ def sample_bsdf(
     sin1_out = linalg.safe_sqrt(1.0 - cos1_out * cos1_out)
     sin1_max = shp_ior / n_i
     rp_out = sampling.schlick_reflectance(cos1_out, n_i, shp_ior)
-    reflect_out = (sin1_out >= sin1_max) | (u_choice <= rp_out)
+    reflect_out = ((sin1_out >= sin1_max) | (u_choice <= rp_out)) & (not force_refract)
     v_refr_out = _snell_out_dir(v_in, normal, cos1_out, n_i / shp_ior, ones)
     v_refl_out = linalg.normalize(linalg.reflect(v_in, -normal), SMALL_EPS)
 

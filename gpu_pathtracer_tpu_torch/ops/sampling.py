@@ -2,7 +2,7 @@
 `gpu_pathtracer_tpu.ops.sampling`).
 
 Every sampler takes explicit uniforms, so the same numbers can drive both
-packages.  The Henyey-Greenstein (media) functions come with the SPPM slice.
+packages.
 """
 
 from __future__ import annotations
@@ -20,6 +20,36 @@ _PI = math.pi
 def n_s_too_large(n: torch.Tensor) -> torch.Tensor:
     """Mirror-limit test for the Phong exponent."""
     return (torch.abs(n - MAX_PHONG_N_S) < SMALL_EPS) | (n >= MAX_PHONG_N_S)
+
+
+def silverman_biweight(x: torch.Tensor) -> torch.Tensor:
+    """Silverman biweight kernel 3/pi (1-x^2)^2."""
+    t = 1.0 - x * x
+    return (3.0 / _PI) * t * t
+
+
+# ---------------------------------------------------------------------------
+# Henyey-Greenstein phase function
+# ---------------------------------------------------------------------------
+
+def henyey_greenstein_pdf(g: torch.Tensor, dir_1: torch.Tensor, dir_2: torch.Tensor) -> torch.Tensor:
+    """HG phase function value between two directions."""
+    cos_theta = linalg.dot(linalg.normalize(dir_1, SMALL_EPS), linalg.normalize(dir_2, SMALL_EPS))
+    cos_theta = torch.where(torch.isnan(cos_theta), 0.0, cos_theta)
+    denom = linalg.safe_pow(torch.clamp(1.0 + g * g - 2.0 * g * cos_theta, min=1e-6), 1.5)
+    return (1.0 / (4.0 * _PI)) * (1.0 - g * g) / denom
+
+
+def henyey_greenstein_cos_theta(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF sample of the HG scattering angle, with the reference's
+    sign quirk kept: -1/|2g| where the textbook inversion has +1/(2g), so for
+    g > 0 the sampled distribution is HG(-g)."""
+    iso = 1.0 - 2.0 * u
+    small = torch.abs(g) < SMALL_EPS
+    g_safe = torch.where(small, 1.0, g)
+    frac = (1.0 - g_safe * g_safe) / (1.0 - g_safe + 2.0 * g_safe * u)
+    aniso = (-1.0 / torch.abs(2.0 * g_safe)) * (1.0 + g_safe * g_safe - frac * frac)
+    return torch.where(small, iso, aniso)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,11 @@ HBM-resident kernel in the reference package; smaller scenes take
 that the kernels' per-block tile cull and early exit fire.  Hits are
 reported in sorted-SoA slots (rows of `GeometrySet.p`), with barycentrics
 recomputed differentiably for the winner.
+
+The windowed any-hit query (`occluded_window`, the photon gathers'
+visibility re-check) goes through `ops/anyhit.py` by the same rules:
+`csrc/anyhit_pipe.cu` above `PALLAS_MAX`, `csrc/anyhit.cu` below, the plain
+versions on the CPU.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from gpu_pathtracer_tpu_torch.ops import intersect, morton
+from gpu_pathtracer_tpu_torch.ops.anyhit import occluded_window_tiles
 from gpu_pathtracer_tpu_torch.ops.closest_hit import closest_hit_tiles
 
 # triangle rows (of the sorted, padded SoA) above which a scene's queries run
@@ -53,8 +59,30 @@ def coherence_perm(g, origin, direction, live=None) -> torch.Tensor:
 
 
 def pallas_big(g) -> bool:
-    """Whether the scene's closest-hit queries take the double-buffered kernel."""
+    """Whether the scene's queries take the double-buffered kernels."""
     return g.p.shape[0] > PALLAS_MAX
+
+
+def park_dead(g, origin, direction, live):
+    """Dead rays moved to a corner of the scene's root box, pointing along z.
+    A dead ray's result is never used, but its origin and direction still
+    enter its block's origin box and |d| bound, and a stale NaN or infinity
+    there (an absorbed photon's direction, an invalid hit point) would cull
+    the block's live rays too."""
+    corner = torch.amin(g.tile_aabb[:, 0:3], dim=0)
+    z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=origin.device)
+    return (torch.where(live[:, None], origin, corner),
+            torch.where(live[:, None], direction, z_axis))
+
+
+def _sorts(g, r: int) -> bool:
+    return r >= RAY_SORT_MIN and g.tiles.shape[0] >= RAY_SORT_MIN_TILES
+
+
+def _inverse(perm):
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+    return inv
 
 
 def closest_hit_sorted(g, origin, direction, t_max=float("inf"), live=None):
@@ -66,14 +94,14 @@ def closest_hit_sorted(g, origin, direction, t_max=float("inf"), live=None):
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device).expand(r)
     if live is not None:
         t_max = torch.where(live, t_max, -1.0)
-    if r < RAY_SORT_MIN or g.tiles.shape[0] < RAY_SORT_MIN_TILES:
+        origin, direction = park_dead(g, origin, direction, live)
+    if not _sorts(g, r):
         return closest_hit_tiles(g.tiles, g.tile_aabb, origin, direction, t_max, big=big)
     perm = coherence_perm(g, origin, direction, live)
     t, slot, hit = closest_hit_tiles(
         g.tiles, g.tile_aabb, origin[perm], direction[perm], t_max[perm], big=big
     )
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(r, dtype=perm.dtype, device=perm.device)
+    inv = _inverse(perm)
     return t[inv], slot[inv], hit[inv]
 
 
@@ -99,3 +127,38 @@ def closest_hit(g, origin, direction, t_max=float("inf"), live=None):
     t, slot, hit = closest_hit_sorted(g, origin, direction, t_max, live)
     bary = winner_bary(g.p, g.tol, origin, direction, slot, hit, attr=g.attr)
     return t, slot, bary, hit
+
+
+def occluded_window_sorted(g, origin, direction, t_near, t_far=float("inf"), live=None):
+    """Windowed any-hit with coherence-sorted rays: first accepted hit, no
+    best-t refinement, a block leaves once every ray of it is settled.
+    Returns (occ_near, occ_far) in the caller's ray order; dead rays
+    (live False) get both caps -1 and report (False, False)."""
+    r = origin.shape[0]
+    dev = origin.device
+    big = pallas_big(g)
+    t_near = torch.as_tensor(t_near, dtype=torch.float32, device=dev).expand(r)
+    t_far = torch.as_tensor(t_far, dtype=torch.float32, device=dev).expand(r)
+    if live is not None:
+        t_far = torch.where(live, t_far, -1.0)
+        t_near = torch.where(live, t_near, -1.0)
+        origin, direction = park_dead(g, origin, direction, live)
+    if not _sorts(g, r):
+        return occluded_window_tiles(g.tiles, g.tile_aabb, origin, direction, t_near, t_far,
+                                     big=big)
+    perm = coherence_perm(g, origin, direction, live)
+    occ_n, occ_f = occluded_window_tiles(
+        g.tiles, g.tile_aabb, origin[perm], direction[perm], t_near[perm], t_far[perm], big=big
+    )
+    inv = _inverse(perm)
+    return occ_n[inv], occ_f[inv]
+
+
+def occluded_window(g, origin, direction, t_near, t_far=float("inf"), live=None):
+    """Windowed any-hit against a GeometrySet: (occ_near, occ_far) = ("some
+    hit with t < t_near", "some hit with t <= t_far").  The photon gathers'
+    visibility verdict is `occ_far & ~occ_near` with t_near = len * (1 - tol)
+    and t_far = inf.  On a CUDA device this is one launch of an any-hit
+    kernel, on the CPU the kernel's plain version; the bits equal those
+    derived from the closest hit (hit & t < t_near, hit & t <= t_far)."""
+    return occluded_window_sorted(g, origin, direction, t_near, t_far, live)

@@ -1,5 +1,5 @@
 """Top-level renderer: master-file config -> image file (port of
-`gpu_pathtracer_tpu.renderer`, path tracing only).
+`gpu_pathtracer_tpu.renderer`: path tracing and SPPM).
 
 Usage:
 
@@ -7,7 +7,9 @@ Usage:
 
 The device is the CUDA device; `--device cpu` runs the kernels' plain
 versions on the CPU and exists for tests.  The renderer never picks the CPU
-on its own.  Not ported yet: render_mode 2 (SPPM), `shard_rays` and SSS
+on its own.  `render_mode` 2 in the master file selects the SPPM render
+(`render.sppm.render_sppm`), which writes its progress images beside the
+output image.  Not ported yet: `shard_rays` and SSS
 (`sss_pts_per_object > 0`); each raises NotImplementedError.
 """
 
@@ -67,19 +69,29 @@ def load_scene_from_config(cfg: RenderConfig, device: torch.device) -> tuple[Sce
     return scene, camera
 
 
-def render_from_config(cfg: RenderConfig, device=None) -> np.ndarray:
+def render_from_config(cfg: RenderConfig, device=None, pass_log=None) -> np.ndarray:
     """Render and return (H, W, 3) linear radiance as numpy.  `device`
-    None means the CUDA device (required)."""
+    None means the CUDA device (required).  `pass_log`, a list, receives the
+    SPPM render's per-pass records (`render_sppm`)."""
     from gpu_pathtracer_tpu_torch.render.integrator import render_image
 
-    if cfg.render_mode == 2:
-        raise NotImplementedError("render_mode 2 (SPPM) is not ported yet (ROADMAP queue A, item 9)")
     if cfg.shard_rays:
         raise NotImplementedError("shard_rays is not ported yet (ROADMAP queue A, item 11)")
     if cfg.sss_pts_per_object > 0:
         raise NotImplementedError("SSS (sss_pts_per_object > 0) is not ported yet (ROADMAP queue A, item 8)")
     dev = resolve_device(device)
     scene, camera = load_scene_from_config(cfg, dev)
+    if cfg.render_mode == 2:
+        from gpu_pathtracer_tpu_torch.render.sppm import render_sppm
+
+        out = pathlib.Path(cfg.image_output_path)
+        with torch.no_grad(), _Stage("SPPM render", dev) as st:
+            img = render_sppm(scene, camera, cfg, cfg.seed,
+                              output_prefix=str(out.with_suffix("")), pass_log=pass_log)
+        photons = cfg.ppm_num_photon_per_pass * cfg.ppm_num_pass
+        print(f"[gpu_pathtracer_tpu_torch] {photons} photons in {cfg.ppm_num_pass} passes on "
+              f"{dev}: {photons / st.seconds:.0f} photons/s", flush=True)
+        return img
     generator = torch.Generator(device=dev).manual_seed(cfg.seed)
     rays = (cfg.image_width * cfg.image_height * cfg.pathtracing_sample_size
             * cfg.dof_sample_size * cfg.pathtracing_level)

@@ -12,7 +12,10 @@ same float32 expressions without FMA contraction, so where slots agree t
 agrees to rtol 1e-6; slots agree on >= 99.9% of rays (a ray may split only
 at an exact tie between triangles that the two visit in another order).
 The two kernels share their arithmetic and each block's tile order, so the
-double-buffered one equals the plain-load one bit for bit.
+double-buffered one equals the plain-load one bit for bit.  The any-hit
+kernels return bits: both bits equal their plain versions', each other's and
+the bits derived from the closest-hit kernel on every ray, and the per-block
+counts equal the plain versions'.
 """
 
 import numpy as np
@@ -22,7 +25,7 @@ import torch
 import torch_parity
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
-from gpu_pathtracer_tpu_torch.ops import closest_hit, intersect, trace
+from gpu_pathtracer_tpu_torch.ops import anyhit, closest_hit, intersect, trace
 from gpu_pathtracer_tpu_torch.utils import obj_io, testscenes
 
 pytestmark = pytest.mark.cuda
@@ -178,3 +181,87 @@ def test_closest_hit_on_cuda_matches_cpu(cuda, tmp_path):
     assert not hit[~live].any() and hit[live].float().mean() > 0.9
     same = (slot == rslot) & hit
     np.testing.assert_allclose(bary[same].numpy(), rbary[same].numpy(), rtol=1e-5, atol=1e-6)
+
+
+def _window(rng, n_rays, cuda):
+    """Near and far caps around typical hit distances; every 6th ray dead."""
+    t_near = torch.from_numpy(rng.uniform(0.3, 3.0, n_rays).astype(np.float32)).to(cuda)
+    t_far = t_near + torch.from_numpy(rng.uniform(0.0, 2.0, n_rays).astype(np.float32)).to(cuda)
+    dead = torch.arange(n_rays, device=cuda) % 6 == 0
+    return torch.where(dead, -1.0, t_near), torch.where(dead, -1.0, t_far), dead
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_anyhit_kernels_match_plain_and_closest_hit(cuda, big):
+    """Soup (plain-load kernel) and the subdiv=5 mesh (both kernels): bits
+    and counts against the plain version, bits against the closest hit."""
+    rng = np.random.default_rng(41)
+    if big:
+        g, o, d, _ = _mesh_query(cuda, 3000)
+        tiles, aabb = g.tiles, g.tile_aabb
+    else:
+        tris = torch.from_numpy(torch_parity.random_tris(rng, 2000)).to(cuda)
+        o, d = (torch.from_numpy(a).to(cuda) for a in torch_parity.random_rays(rng, 3000))
+        tiles, aabb = closest_hit.pack_tiles(tris, intersect.triangle_tolerance(tris),
+                                             torch.ones(2000, dtype=torch.bool, device=cuda))
+    t_near, t_far, dead = _window(rng, 3000, cuda)
+    rays = anyhit.prepare_rays_window(aabb, o, d, t_near, t_far)
+    order = closest_hit.block_tile_order(rays, aabb, rays.shape[0] // closest_hit.RAY_BLOCK)
+    launch = anyhit.launch_anyhit_pipe if big else anyhit.launch_anyhit
+    reference = anyhit.anyhit_pipe_reference if big else anyhit.anyhit_reference
+    before = launch.launches
+    near, far, counts = launch(rays, tiles, aabb, order, counts=True)
+    torch.cuda.synchronize()
+    assert launch.launches == before + 1
+    rnear, rfar, rcounts = reference(rays, tiles, aabb, order)
+    assert torch.equal(near, rnear) and torch.equal(far, rfar)
+    assert torch.equal(counts, rcounts)
+    n1, f1 = anyhit.launch_anyhit(rays, tiles, aabb, order)
+    assert torch.equal(near, n1) and torch.equal(far, f1)
+    t, _, hit = closest_hit.closest_hit_tiles(tiles, aabb, o, d)
+    assert torch.equal(near[:3000], hit & (t < t_near))
+    assert torch.equal(far[:3000], hit & (t <= t_far))
+    assert not near[:3000][dead].any() and not far[:3000][dead].any() and not far[3000:].any()
+    assert 0.05 < float(far.float().mean()) < 0.9 and bool((far & ~near).any())
+
+
+def test_anyhit_launch_refuses_what_the_kernels_do_not_take(cuda):
+    tris = torch.rand((300, 3, 3), device=cuda)
+    tiles, aabb = closest_hit.pack_tiles(tris, intersect.triangle_tolerance(tris),
+                                         torch.ones(300, dtype=torch.bool, device=cuda))
+    rays = anyhit.prepare_rays_window(aabb, torch.zeros((256, 3), device=cuda),
+                                      torch.ones((256, 3), device=cuda), 1.0)
+    order = closest_hit.block_tile_order(rays, aabb, 2)
+    for launch in (anyhit.launch_anyhit, anyhit.launch_anyhit_pipe):
+        launch(rays, tiles, aabb, order)  # the good call goes through
+        for args in [(rays.double(), tiles, aabb, order), (rays[:200], tiles, aabb, order),
+                     (rays, tiles, aabb, order[:1]), (rays, tiles.cpu(), aabb, order)]:
+            with pytest.raises(ValueError):
+                launch(*args)
+    with pytest.raises(ValueError):
+        anyhit.launch_anyhit_pipe(rays, tiles[:, :, :126].contiguous(), aabb, order)
+
+
+def test_occluded_window_on_cuda_matches_cpu(cuda, tmp_path):
+    """`trace.occluded_window` on the Cornell box with spheres: the card (one
+    any-hit launch, coherence-sorted, no closest-hit launch) against the CPU."""
+    testscenes.make_cornell_box(tmp_path, spheres=True, sphere_subdiv=2)
+    hs = obj_io.load_scene(tmp_path, "box.obj")
+    rng = np.random.default_rng(6)
+    r = 20000
+    o = torch.from_numpy(rng.uniform(0.05, 0.95, (r, 3)).astype(np.float32))
+    d = torch.from_numpy(torch_parity.random_rays(rng, r)[1])
+    t_near = torch.from_numpy(rng.uniform(0.05, 1.0, r).astype(np.float32))
+    live = torch.from_numpy(rng.random(r) < 0.7)
+    out = {}
+    for dev in ("cpu", cuda):
+        g = build_scene(hs, dev).geom
+        before = (anyhit.launch_anyhit.launches, closest_hit.launch_closest_hit.launches)
+        out[str(dev)] = [x.cpu() for x in trace.occluded_window(
+            g, o.to(dev), d.to(dev), t_near.to(dev), live=live.to(dev))]
+        after = (anyhit.launch_anyhit.launches, closest_hit.launch_closest_hit.launches)
+        assert (after[0] - before[0], after[1] - before[1]) == ((1, 0) if dev == cuda else (0, 0))
+    (near, far), (rnear, rfar) = out[str(cuda)], out["cpu"]
+    assert float((near == rnear).float().mean()) >= 0.999
+    assert float((far == rfar).float().mean()) >= 0.999
+    assert not far[~live].any() and far[live].float().mean() > 0.7 and bool(near.any())

@@ -137,9 +137,13 @@ def test_fresh_interpreter_loads_no_jax():
         "import gpu_pathtracer_tpu_torch.renderer, gpu_pathtracer_tpu_torch.cli\n"
         "import gpu_pathtracer_tpu_torch.optim, gpu_pathtracer_tpu_torch.models.convert\n"
         "import gpu_pathtracer_tpu_torch.utils.testscenes, chip_smoke\n"
+        "import gpu_pathtracer_tpu_torch.render.sppm, gpu_pathtracer_tpu_torch.render.splat\n"
+        "import gpu_pathtracer_tpu_torch.ops.anyhit, gpu_pathtracer_tpu_torch.ops.hashgrid\n"
+        "import gpu_pathtracer_tpu_torch.ops.bounding_sphere\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'flax', 'gpu_pathtracer_tpu'))\n"
         "assert 'gpu_pathtracer_tpu_torch.render.integrator' in sys.modules\n"
+        "assert 'gpu_pathtracer_tpu_torch.ops.trace' in sys.modules\n"
         "print('LOADED', bad)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,

@@ -125,7 +125,7 @@ def test_cli_renders_cornell_master_file(tmp_path):
 def test_renderer_refuses_what_is_not_ported(tmp_path):
     testscenes.make_cornell_box(tmp_path, spheres=False)
     master = testscenes.cornell_master_file(tmp_path, width=4, height=4, spp=1, level=1)
-    for field, value in (("render_mode", 2), ("shard_rays", True), ("sss_pts_per_object", 8)):
+    for field, value in (("shard_rays", True), ("sss_pts_per_object", 8)):
         cfg = parse_master_file(master)
         setattr(cfg, field, value)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

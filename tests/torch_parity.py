@@ -76,3 +76,102 @@ def uniforms_from_key(key, level: int, r: int) -> np.ndarray:
                 u = jax.random.uniform(jax.random.fold_in(skey, j), shape)
                 out[i, row0 + j] = np.asarray(u).reshape(r)
     return out
+
+
+# ---------------------------------------------------------------------------
+# SPPM: scenes, and the port's uniforms derived from a JAX key the way
+# gpu_pathtracer_tpu.render.sppm folds it
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def sppm_scenes(fog: bool = False):
+    """The SPPM test box of tests/test_sppm.py (Cornell box with octahedron
+    spheres, 72 triangles, a light with a diffuse component; `fog` adds the
+    participating medium): (JAX scene, port scene on the CPU made from the
+    JAX scene's own arrays).  Built once per process; do not modify."""
+    import pathlib
+
+    from gpu_pathtracer_tpu.models.scene import build_scene as jax_build_scene
+    from gpu_pathtracer_tpu.utils import obj_io, testscenes
+    from gpu_pathtracer_tpu_torch.models.convert import scene_from_numpy
+
+    with tempfile.TemporaryDirectory() as tmp:
+        testscenes.make_cornell_box(tmp, spheres=True, sphere_subdiv=0, fog=fog)
+        mtl = pathlib.Path(tmp) / "box.mtl"
+        mtl.write_text(mtl.read_text().replace(
+            "newmtl light\nKd 0 0 0", "newmtl light\nKd 0.78 0.78 0.78"))
+        jscene = jax_build_scene(obj_io.load_scene(tmp, "box.obj"))
+    return jscene, scene_from_numpy(flatten(jscene), "cpu")
+
+
+def _uniform(key, shape) -> np.ndarray:
+    import jax
+
+    return np.asarray(jax.random.uniform(key, shape)).reshape(shape[0])
+
+
+def bsdf_uniforms_from_key(key, r: int) -> np.ndarray:
+    """(4, R): `materials.sample_bsdf`'s sub-keys 0-3."""
+    import jax
+
+    return np.stack([_uniform(jax.random.fold_in(key, j), (r,)) for j in range(4)])
+
+
+def stack_uniforms_from_key(key, r: int, steps: int = 8) -> np.ndarray:
+    """(steps, 4, R): `init_material_stack` folds its key per step."""
+    import jax
+
+    return np.stack([bsdf_uniforms_from_key(jax.random.fold_in(key, i), r) for i in range(steps)])
+
+
+def photon_uniforms_from_key(key, n_photons: int, max_bounce: int, steps: int | None = None):
+    """The uniforms dict of the port's `photon_pass` (sppm.py: emitter draws
+    at sub-keys 0-4, the stack probe at 5, step s at 100 + s with sub-keys 0
+    BSDF, 1 distance, 2 roulette, 3 scatter, 4 the HG pair, 5 new distance).
+    Distances are handed over as raw [0, 1) uniforms of the same bits."""
+    import jax
+
+    p = n_photons
+    steps = 4 * max_bounce + 32 if steps is None else steps
+    rows = np.empty((steps, 10, p), np.float32)
+    for s in range(steps):
+        skey = jax.random.fold_in(key, 100 + s)
+        rows[s, 0:4] = bsdf_uniforms_from_key(jax.random.fold_in(skey, 0), p)
+        for row, sub in ((4, 1), (5, 2), (6, 3), (9, 5)):
+            rows[s, row] = _uniform(jax.random.fold_in(skey, sub), (p,))
+        hkey = jax.random.fold_in(skey, 4)
+        rows[s, 7] = _uniform(jax.random.fold_in(hkey, 0), (p,))
+        rows[s, 8] = _uniform(jax.random.fold_in(hkey, 1), (p,))
+    return {
+        "emit": np.stack([_uniform(jax.random.fold_in(key, j), (p,)) for j in range(5)]),
+        "stack": stack_uniforms_from_key(jax.random.fold_in(key, 5), p),
+        "steps": rows,
+    }
+
+
+def eye_uniforms_from_key(key, r: int, max_bounce: int):
+    """The uniforms dict of the port's `eye_pass` (sppm.py: lens at sub-keys
+    0-1, the stack probe at 2, bounce s at 50 + s, the direct chain under 90
+    with its BSDF at 0, the light pick at 1 drawn as (R, 1), the light point
+    at 2-3 and chain step i at 10 + i)."""
+    import jax
+
+    k90 = jax.random.fold_in(key, 90)
+    return {
+        "lens": np.stack([_uniform(jax.random.fold_in(key, j), (r,)) for j in range(2)]),
+        "stack": stack_uniforms_from_key(jax.random.fold_in(key, 2), r),
+        "bounce": np.stack([
+            bsdf_uniforms_from_key(jax.random.fold_in(jax.random.fold_in(key, 50 + s), 0), r)
+            for s in range(max_bounce)]),
+        "direct_bsdf": bsdf_uniforms_from_key(jax.random.fold_in(k90, 0), r),
+        "direct_pick": _uniform(jax.random.fold_in(k90, 1), (r, 1)),
+        "direct_light": np.stack([_uniform(jax.random.fold_in(k90, j), (r,)) for j in (2, 3)]),
+        "direct_chain": np.stack([
+            bsdf_uniforms_from_key(jax.random.fold_in(k90, 10 + i), r) for i in range(8)]),
+    }
+
+
+def as_tensors(uniforms: dict):
+    import torch
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in uniforms.items()}

@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the CUDA device, and the card's name and power limit from nvidia-smi;
-  2. the four kernels (closest hit and windowed any hit, each with plain
-     loads and double-buffered) built with nvcc from the checkout's sources
+  2. the five kernels (closest hit and windowed any hit, each with plain
+     loads and double-buffered, and the double-buffered closest hit with the
+     tensor-core edge prefilter) built with nvcc from the checkout's sources
      (one nvcc per source, started together), with their ptxas lines;
   3. the plain-load kernel (`closest_hit`) against its plain PyTorch version
      on the card: a random triangle soup with dead rays and a ragged tail,
@@ -36,7 +37,7 @@ Phases (any failure exits non-zero; nothing is caught):
      ppm_max_bounce 8, 4 passes: it must take the hash-grid gathers and run
      their visibility checks on `anyhit` alone; per-pass seconds, photons/s,
      launches and host synchronizations; its direct component against a CPU
-     render at 64x64 with the photons scaled to the pixels; one pass on the
+     render at 48x48 with the photons scaled to the pixels; one pass on the
      same inputs (photon pass, eye pass, both gathers), card against CPU;
  10. both any-hit kernels on a soup with dead rays and a ragged tail and on
      the fullest gather wavefront recorded in phase 9: bits and per-block
@@ -50,23 +51,54 @@ Phases (any failure exits non-zero; nothing is caught):
      after the init pass through `render_sppm`, whose gathers must run on
      `anyhit_pipe` alone; the kernels compared as in phase 10 on its fullest
      gather wavefront.
+ 13. the kernel with the edge prefilter (`closest_hit_mxu`) against
+     `closest_hit_pipe` and its plain version: the soup, and the mesh
+     wavefronts at bounce 0 and bounce 2: (t, slot) bit-equal to
+     `closest_hit_pipe` on every ray, against the plain version on the
+     16,384-ray subset, the walk counts equal to `closest_hit_pipe`'s, the
+     prefilter's pair counts within 1% of the plain version's; both kernels'
+     times on the same rays, the share of pairs culled (per warp, as the
+     kernel culls, and per pair), `pack_edge_tiles`' time and bytes;
+ 14. the mesh main path with the prefilter:
+     `build_scene(..., edge_prefilter=True)` -> `render_image` at the main
+     widths must run on `closest_hit_mxu` alone and give phase 7's image bit
+     for bit from the same generator seed;
+ 15. the many-lights main path: the 2,048-emitter panel through
+     `renderer.render_from_config` at the main widths, which must take the
+     sparse light-tree regime; dropped MIS targets and host synchronizations
+     per wavefront step; the lower half of its image against a 64x64 CPU
+     render, and at 64x64 the card's image mean against the CPU's and against
+     a render with the dense tables forced;
+ 16. the SSS main path: the box whose white sphere scatters below its surface
+     through `renderer.render_from_config` at the main widths with 4,096
+     points (the hash-grid gather): first-pass and render seconds, the
+     `_pts.ppm` splat, the mean over the sphere's pixels against a 64x64 CPU
+     render with the same point count.
+To keep the run short some references run at a smaller depth than the main
+paths: the Cornell SPPM render makes 2 of the bench's passes and its CPU
+reference is 48x48, the render forced onto `closest_hit` and the mesh's CPU
+reference take 2 samples a pixel, the Cornell CPU reference 16, the
+many-lights one 4, and the ragged-tail mesh wavefronts hold 4,096 rays
+against the plain versions.
 The line before the card's line is the per-kernel JSON record; the last line
 is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 HERE = pathlib.Path(__file__).resolve().parent
 MAIN = dict(width=512, height=512, spp=8, level=8, weight=0.5)
-SPPM = dict(width=512, height=512, photons=50000, max_bounce=8, passes=4)  # the bench's SPPM leg
-SPPM_CPU_SIDE = 64  # the CPU render that the SPPM render is held against
+SPPM = dict(width=512, height=512, photons=50000, max_bounce=8, passes=2)  # the bench's SPPM leg, 2 of its passes
+SPPM_CPU_SIDE = 48  # the CPU render that the SPPM render is held against
 SPPM_SAME_PHOTONS = 4096  # photons of the same-inputs pass, card against CPU
 GATHER_CHUNK = 16384  # pixels per chunk of the grid gather: one any-hit query is this x k_nearest
 CORNELL_CAM = dict(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0), fovy_deg=40.0)
@@ -77,6 +109,11 @@ MESH_CPU_SUBDIV = 5  # the mesh that the CPU plain path renders as the reference
 TOL_RTOL = 1e-6  # t where slots agree: same float32 ops, no FMA on either side
 MIN_SLOT_AGREE = 0.999
 PLAIN_SUBSET = 16384  # rays of a mesh wavefront that the plain version also answers
+PREFILTER_COUNT_TOL = 0.01  # kernel vs plain version, pairs passed: the mma's own accumulation order
+PANEL = dict(nx=32, ny=32, emitters=2048)  # the many-lights configuration
+SSS_POINTS = 4096  # above SSS_DENSE_MAX: the hash-grid gather
+SSS_SPHERE = ((0.3, 0.2, 0.4), 0.2)  # the scattering sphere of the box
+REF_SIDE = 64  # the CPU reference renders of the new paths
 FLOPS_PER_PAIR = 42  # fp32 operations of one (ray, triangle) Woop test, t included
 PEAK_FP32 = 67e12  # H100 SXM, FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM bytes/s
@@ -132,18 +169,19 @@ def agreement(name, t, slot, rt, rslot, stats):
     stats["max_abs_err"] = max(stats["max_abs_err"], err)
 
 
-def bound_ms(rays, tiles, counts, out_bytes: int = 8):
+def bound_ms(rays, tiles, counts, out_bytes: int = 8, extra_tile_bytes: int = 0):
     """The least time the card could take for one launch's work (`out_bytes`
     of results per ray: 8 for a closest hit, 2 for the any-hit bits), from the
     launch's own per-block counts: the fp32 pair tests of the tiles that
     were scanned at the fp32 peak, against the bytes that must move (rays
-    in, results out, each scanned tile once, the walked part of the order
-    table and of the tile boxes) at the memory rate."""
+    in, results out, each scanned tile once with `extra_tile_bytes` of
+    further operands, the walked part of the order table and of the tile
+    boxes) at the memory rate."""
     n_tiles, rows, tile = tiles.shape
-    steps, _, scanned = (int(x) for x in counts.sum(dim=0))
+    steps, _, scanned = (int(x) for x in counts[:, :3].sum(dim=0))
     flops = scanned * 128 * tile * FLOPS_PER_PAIR
-    nbytes = (rays.numel() * 4 + rays.shape[0] * out_bytes + min(scanned, n_tiles) * rows * tile * 4
-              + steps * (4 + 32))
+    nbytes = (rays.numel() * 4 + rays.shape[0] * out_bytes
+              + min(scanned, n_tiles) * (rows * tile * 4 + extra_tile_bytes) + steps * (4 + 32))
     by_ops, by_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
 
@@ -170,7 +208,8 @@ def compare_plain_load(name, rays, tiles, aabb, stats, time_it=False):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
 
-def compare_pipe(name, rays, tiles, aabb, stats, pipe_stats, time_it=False):
+def compare_pipe(name, rays, tiles, aabb, stats, pipe_stats, time_it=False,
+                 plain_subset=PLAIN_SUBSET):
     """`closest_hit_pipe` on prepared rays: bit-equal to `closest_hit` on all
     of them, against its plain version on a subset of whole ray blocks spread
     over the batch, and the lagging-prefetch counts."""
@@ -197,7 +236,7 @@ def compare_pipe(name, rays, tiles, aabb, stats, pipe_stats, time_it=False):
     check(bool((c2[:, 2] >= c1[:, 2]).all()), f"{name}: closest_hit_pipe scanned fewer tiles")
 
     # the plain version on every k-th block
-    stride = max(1, rays.shape[0] // PLAIN_SUBSET)
+    stride = max(1, rays.shape[0] // plain_subset)
     blocks = torch.arange(0, n_blocks, stride, device=rays.device)
     rows = (blocks[:, None] * ch.RAY_BLOCK
             + torch.arange(ch.RAY_BLOCK, device=rays.device)[None, :]).reshape(-1)
@@ -229,6 +268,87 @@ def compare_pipe(name, rays, tiles, aabb, stats, pipe_stats, time_it=False):
     pipe_stats.update(ms=min(ms2a, ms2b), plain_ms=plain_s * 1e3, plain_rays=sub_rays.shape[0],
                       plain_load_ms=min(ms1a, ms1b), order_ms=order_ms, bound_ms=bound,
                       bound_by=by)
+
+
+def compare_mxu(name, rays, g, stats, out, time_it=False, plain_subset=PLAIN_SUBSET):
+    """`closest_hit_mxu` on prepared rays: (t, slot) bit-equal to
+    `closest_hit_pipe` on all of them with the same walk counts, against its
+    plain version on a subset of whole ray blocks spread over the batch, the
+    prefilter's pair counts within PREFILTER_COUNT_TOL of the plain
+    version's, and the share of pairs it culls."""
+    import torch
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+
+    tiles, aabb, edge, wsum = g.tiles, g.tile_aabb, g.edge_tiles, g.edge_wsum
+    n_blocks = rays.shape[0] // ch.RAY_BLOCK
+    order = ch.block_tile_order(rays, aabb, n_blocks)
+    t2, slot2, c2 = ch.launch_closest_hit_pipe(rays, tiles, aabb, order, counts=True)
+    t5, slot5, c5 = ch.launch_closest_hit_mxu(rays, tiles, edge, wsum, aabb, order, counts=True)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(t2, t5)) and bool(torch.equal(slot2, slot5))
+    differ = int(((t2 != t5) | (slot2 != slot5)).sum())
+    walked, fetched, scanned, passed, culled = (int(x) for x in c5.long().sum(dim=0))
+    pairs = scanned * ch.RAY_BLOCK * tiles.shape[2]
+    share = culled / max(pairs, 1)
+    log(f"{name}: {rays.shape[0]} rays x {tiles.shape[0]} tiles; closest_hit_mxu == "
+        f"closest_hit_pipe bit for bit: {equal} ({differ} rays differ); per block: steps "
+        f"{walked / n_blocks:.1f} (most {int(c5[:, 0].max())}), fetched {fetched / n_blocks:.2f}, "
+        f"scanned {scanned / n_blocks:.2f} (most {int(c5[:, 2].max())}); of {pairs} pairs of "
+        f"scanned tiles the prefilter passed {passed} to the exact test and culled {culled} "
+        f"({share:.4f})")
+    check(equal, f"{name}: closest_hit_mxu and closest_hit_pipe differ on {differ} rays")
+    check(bool(torch.equal(c5[:, :3], c2)), f"{name}: the walk counts differ from closest_hit_pipe's")
+    check(passed + culled == pairs, f"{name}: passed + culled != the pairs of the scanned tiles")
+
+    # the plain version on every k-th block
+    stride = max(1, rays.shape[0] // plain_subset)
+    blocks = torch.arange(0, n_blocks, stride, device=rays.device)
+    rows = (blocks[:, None] * ch.RAY_BLOCK
+            + torch.arange(ch.RAY_BLOCK, device=rays.device)[None, :]).reshape(-1)
+    sub_rays, sub_order = rays[rows].contiguous(), order[blocks].contiguous()
+    t0 = time.perf_counter()
+    rt, rslot, rc = ch.closest_hit_mxu_reference(sub_rays, tiles, edge, wsum, aabb, sub_order)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    agreement(f"{name}, plain version on {sub_rays.shape[0]} rays", t5[rows], slot5[rows],
+              rt, rslot, stats)
+    same_walk = float((rc[:, :3] == c5[blocks][:, :3]).all(dim=1).float().mean())
+    k_passed, p_passed = int(c5[blocks][:, 3].long().sum()), int(rc[:, 3].long().sum())
+    off = abs(k_passed - p_passed) / max(p_passed, 1)
+    log(f"{name}: plain version's walk counts equal the kernel's on {same_walk:.4f} of the "
+        f"subset's blocks; pairs passed: kernel {k_passed}, plain version {p_passed} "
+        f"(rel. difference {off:.6f}, tolerance {PREFILTER_COUNT_TOL})")
+    check(same_walk >= MIN_SLOT_AGREE, f"{name}: walk counts differ from the plain version's")
+    check(off <= PREFILTER_COUNT_TOL, f"{name}: the prefilter's counts are off the plain version's")
+    check(culled > 0, f"{name}: the prefilter culled nothing")
+
+    # per pair, before the union over a warp's rays: each of 32 spread blocks
+    # against the first tile it scans with the rays' initial budgets
+    probe = blocks[:: max(1, blocks.shape[0] // 32)]
+    first = order[probe, 0].long()
+    rb = rays.reshape(n_blocks, ch.RAY_BLOCK, 8)[probe]
+    cand = ch.prefilter_candidates(rb, edge[first], wsum[first], rb[..., 6:7])
+    live = (rb[..., 6] > 0).sum() * tiles.shape[2]
+    pair_share = 1.0 - float(cand.sum()) / max(int(live), 1)
+    union = cand.reshape(-1, ch.RAY_BLOCK // 32, 32, tiles.shape[2]).any(dim=2)
+    log(f"{name}: on {probe.shape[0]} blocks' nearest tiles the prefilter culls {pair_share:.4f} "
+        f"of the live rays' pairs one by one, {1.0 - float(union.float().mean()):.4f} of the "
+        f"columns after the union over a warp's 32 rays")
+    if not time_it:
+        return
+    ms2a = cuda_ms(lambda: ch.launch_closest_hit_pipe(rays, tiles, aabb, order), 20)
+    ms5a = cuda_ms(lambda: ch.launch_closest_hit_mxu(rays, tiles, edge, wsum, aabb, order), 20)
+    ms5b = cuda_ms(lambda: ch.launch_closest_hit_mxu(rays, tiles, edge, wsum, aabb, order), 20)
+    ms2b = cuda_ms(lambda: ch.launch_closest_hit_pipe(rays, tiles, aabb, order), 20)
+    extra = edge[0].numel() * 2 + wsum[0].numel() * 4
+    bound, by = bound_ms(rays, tiles, c5, extra_tile_bytes=extra)
+    log(f"{name}: closest_hit_mxu {ms5a:.4f} / {ms5b:.4f} ms, closest_hit_pipe {ms2a:.4f} / "
+        f"{ms2b:.4f} ms (20 launches each, in turns), plain version {plain_s * 1e3:.1f} ms (one "
+        f"launch, {sub_rays.shape[0]} rays), bound {bound:.5f} ms ({by})")
+    out.update(ms=min(ms5a, ms5b), plain_ms=plain_s * 1e3, plain_rays=sub_rays.shape[0],
+               pipe_ms=min(ms2a, ms2b), bound_ms=bound, bound_by=by, culled_share=share,
+               culled_share_per_pair=pair_share, scanned_per_block=scanned / n_blocks,
+               walked_per_block=walked / n_blocks)
 
 
 def compare_anyhit(name, rays, tiles, aabb, err, out, plain_subset, time_it=False):
@@ -541,8 +661,62 @@ def reset_launches(ch) -> None:
 
     ch.launch_closest_hit.launches = 0
     ch.launch_closest_hit_pipe.launches = 0
+    ch.launch_closest_hit_mxu.launches = 0
     ah.launch_anyhit.launches = 0
     ah.launch_anyhit_pipe.launches = 0
+
+
+def path_tracing_master(folder, obj_filename, config, **overrides):
+    """A master file for a path-tracing render of `folder`'s scene at the main
+    widths from the Cornell camera; returns the parsed config."""
+    kw = dict(
+        input_folder_path=f"{folder}/", obj_filename=obj_filename,
+        image_output_path=str(folder / "out.ppm"),
+        image_width=MAIN["width"], image_height=MAIN["height"], render_mode=1,
+        pathtracing_sample_size=MAIN["spp"], pathtracing_level=MAIN["level"],
+        dof_sample_size=1, hittable_pdf_weight=MAIN["weight"],
+        eye_x=0.5, eye_y=0.5, eye_z=2.4, center_x=0.5, center_y=0.5, center_z=0.0, fovy=40.0,
+    )
+    kw.update(overrides)
+    master = folder / "master.txt"
+    config.write_master_file(config.RenderConfig(**kw), master)
+    return config.parse_master_file(master)
+
+
+def make_sss_box(folder, testscenes) -> None:
+    """The Cornell box with spheres whose first (white) sphere gets a `skin`
+    material with a scattering path length of 0.15."""
+    testscenes.make_cornell_box(folder, spheres=True, sphere_subdiv=1)
+    mtl = folder / "box.mtl"
+    mtl.write_text(mtl.read_text()
+                   + "\nnewmtl skin\nKd 0.8 0.5 0.4\nKs 0 0 0\nd 1.0\nNs 1\npath_length 0.15\n")
+    lines = (folder / "box.obj").read_text().splitlines()
+    seen = 0
+    for i, line in enumerate(lines):
+        if line == "usemtl white":
+            seen += 1
+            if seen == 4:  # 3 wall groups, then the first sphere
+                lines[i] = "usemtl skin"
+                break
+    (folder / "box.obj").write_text("\n".join(lines) + "\n")
+
+
+def sphere_pixels(side: int):
+    """The pixels of a side x side frame from the Cornell camera whose centre
+    ray meets the scattering sphere shrunk to 0.9 of its radius."""
+    import torch
+    from gpu_pathtracer_tpu_torch.models.camera import Camera
+
+    cam = Camera.create(**CORNELL_CAM, width=side, height=side)
+    ii, jj = torch.meshgrid(torch.arange(side, dtype=torch.float32),
+                            torch.arange(side, dtype=torch.float32), indexing="ij")
+    zeros = torch.zeros(side * side)
+    o, d = cam.generate_rays(ii.reshape(-1) + 0.5, jj.reshape(-1) + 0.5, zeros, zeros)
+    centre, radius = SSS_SPHERE
+    oc = o - torch.tensor(centre)
+    b = (oc * d).sum(-1)
+    disc = b * b - ((oc * oc).sum(-1) - (0.9 * radius) ** 2)
+    return (disc > 0).reshape(side, side).numpy()
 
 
 def main() -> int:
@@ -561,7 +735,9 @@ def main() -> int:
     from gpu_pathtracer_tpu_torch.ops import _build, intersect, trace
     from gpu_pathtracer_tpu_torch.ops import anyhit as ah
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.ops import lights as lights_mod
     from gpu_pathtracer_tpu_torch.render import sppm
+    from gpu_pathtracer_tpu_torch.render import sss as sss_mod
     from gpu_pathtracer_tpu_torch.render.integrator import (
         N_UNIFORMS,
         render_image,
@@ -581,7 +757,7 @@ def main() -> int:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
 
     # ---- 2. build -----------------------------------------------------------
-    kernels = ("closest_hit", "closest_hit_pipe", "anyhit", "anyhit_pipe")
+    kernels = ("closest_hit", "closest_hit_pipe", "anyhit", "anyhit_pipe", "closest_hit_mxu")
     t0 = time.perf_counter()
     libs = _build.build_many(kernels)
     log(f"built {', '.join(str(p.relative_to(HERE)) for p in libs)} in "
@@ -655,7 +831,7 @@ def main() -> int:
     b2 = {}
     for bounce in (0, 2):
         compare_pipe(f"mesh bounce {bounce} (ragged)", sorted_rays(mg, mwaves[bounce], 100),
-                     mg.tiles, mg.tile_aabb, pipe_err, {})
+                     mg.tiles, mg.tile_aabb, pipe_err, {}, plain_subset=PLAIN_SUBSET // 4)
         compare_pipe(f"mesh bounce {bounce}", sorted_rays(mg, mwaves[bounce]),
                      mg.tiles, mg.tile_aabb, pipe_err, b2, time_it=True)
     prep_ms = cuda_ms(lambda: sorted_rays(mg, mwaves[2]), 10)
@@ -713,11 +889,11 @@ def main() -> int:
     log(f"main path: {seconds:.3f}s end to end (scene load and build included), "
         f"{rays / seconds:.0f} rays/s end to end; card: {card}")
 
-    # the same master file at 64x64, 32 spp: the plain path on the CPU, and
+    # the same master file at 64x64, 16 spp: the plain path on the CPU, and
     # the card at the same pixel centres
     cfg64 = config.parse_master_file(master)
     cfg64.image_width = cfg64.image_height = 64
-    cfg64.pathtracing_sample_size = 32
+    cfg64.pathtracing_sample_size = 16
     t0 = time.perf_counter()
     img_cpu = renderer.render_from_config(cfg64, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -735,13 +911,13 @@ def main() -> int:
     kw = dict(width=MAIN["width"], height=MAIN["height"], sample_size=MAIN["spp"],
               level=MAIN["level"], hittable_pdf_weight=MAIN["weight"])
 
-    def render_mesh():
+    def render_mesh(scn=mesh, **changes):
         reset_launches(ch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
-            out = render_image(mesh, mcam, generator=torch.Generator(device=dev).manual_seed(12),
-                               **kw)
+            out = render_image(scn, mcam, generator=torch.Generator(device=dev).manual_seed(12),
+                               **dict(kw, **changes))
         torch.cuda.synchronize()
         return out.cpu().numpy(), time.perf_counter() - t0
 
@@ -757,23 +933,25 @@ def main() -> int:
     check(mimg.shape == (MAIN["height"], MAIN["width"], 3), f"mesh image shape {mimg.shape}")
     check(bool(np.isfinite(mimg).all()) and mimg.mean() > 1e-3, "mesh image not finite or black")
 
-    # the same render with every query forced onto closest_hit
+    # the same view with every query forced onto closest_hit, 2 samples a pixel
+    b1_spp = 2
     pallas_max = trace.PALLAS_MAX
     trace.PALLAS_MAX = mg.p.shape[0]
     try:
-        mimg_b1, mesh_b1_s = render_mesh()
+        mimg_b1, mesh_b1_s = render_mesh(sample_size=b1_spp)
     finally:
         trace.PALLAS_MAX = pallas_max
-    check(ch.launch_closest_hit.launches == expected and ch.launch_closest_hit_pipe.launches == 0,
+    check(ch.launch_closest_hit.launches == expected * b1_spp // MAIN["spp"]
+          and ch.launch_closest_hit_pipe.launches == 0,
           "the forced render did not run on closest_hit alone")
     rel_b1 = abs(float(mimg.mean()) - float(mimg_b1.mean())) / float(mimg_b1.mean())
-    log(f"mesh through closest_hit (forced): render {mesh_b1_s:.3f}s, {rays / mesh_b1_s:.0f} "
-        f"rays/s; image mean {mimg_b1.mean():.6f} against {mimg.mean():.6f}; images equal: "
-        f"{bool(np.array_equal(mimg, mimg_b1))}")
+    log(f"mesh through closest_hit (forced, spp {b1_spp}): render {mesh_b1_s:.3f}s, "
+        f"{rays * b1_spp / MAIN['spp'] / mesh_b1_s:.0f} rays/s; image mean {mimg_b1.mean():.6f} "
+        f"against {mimg.mean():.6f}")
     check(rel_b1 < 0.05, f"mesh image mean off the closest_hit render by {rel_b1:.4f}")
 
     # CPU plain path: the mesh at subdiv=5 (20,484 triangles), 64x64
-    cpu_spp = 4  # ~13 s per sample on the CPU: every ray against all 161 tiles
+    cpu_spp = 2  # ~13 s per sample on the CPU: every ray against all 161 tiles
     cpu_kw = dict(kw, width=64, height=64, sample_size=cpu_spp)
     mesh5_host = testscenes.make_mesh_scene_host(subdiv=MESH_CPU_SUBDIV)
     cam64 = Camera.create(**MESH_CAM, width=64, height=64)
@@ -881,13 +1059,13 @@ def main() -> int:
     for suffix in ("", "_hit_point", "_direct", "_indirect", "_surface_photon"):
         check((sppm_folder / f"sppm{suffix}.ppm").stat().st_size > 0, f"sppm{suffix}.ppm missing")
 
-    # the same master file at 64x64 on the CPU's plain path, the photon count
+    # the same master file at 48x48 on the CPU's plain path, the photon count
     # scaled to keep the photons per pixel.  The direct component must agree.
     # The indirect one is printed, not compared: the gathers' caps depend on
     # the size (the grid's cell is the largest gather radius, which a few
     # pixels behind glass set to about the scene's size; at 512x512 and 50,000
     # photons the 27 cells then hold far more photons than `k_per_cell`
-    # admits, at 64x64 and 781 they do not), and so does the truncation that
+    # admits, at 64x64 and 781 or fewer they do not), and so does the truncation that
     # the cap totals report.  What can be compared exactly is below: one pass
     # on the same inputs.
     scale = (SPPM_CPU_SIDE * SPPM_CPU_SIDE) / (SPPM["width"] * SPPM["height"])
@@ -992,6 +1170,196 @@ def main() -> int:
     compare_anyhit("mesh, live gather rays", mesh_live, mg.tiles, mg.tile_aabb, anyhit_err,
                    b34_mesh_live, plain_subset=PLAIN_SUBSET, time_it=True)
 
+    # ---- 13. closest_hit_mxu against closest_hit_pipe and its plain version ---------
+    mxu_err = {"max_abs_err": 0.0}
+    soup_g = SimpleNamespace(tiles=tiles, tile_aabb=aabb)
+    soup_g.edge_tiles, soup_g.edge_wsum = ch.pack_edge_tiles(tris_t, valid)
+    compare_mxu("soup", soup, soup_g, mxu_err, {})
+    t0 = time.perf_counter()
+    mesh_pf = build_scene(mesh_host, dev, edge_prefilter=True)
+    torch.cuda.synchronize()
+    build_pf_s = time.perf_counter() - t0
+    pg = mesh_pf.geom
+    check(pg.edge_tiles is not None and trace.edge_operand(pg) is not None,
+          "build_scene(edge_prefilter=True) packed no edge tiles for the mesh")
+    check(bool(torch.equal(pg.tiles, mg.tiles)), "the two mesh scenes' tiles differ")
+    pack_ms = cuda_ms(lambda: ch.pack_edge_tiles(pg.p, pg.valid), 5)
+    edge_mb = (pg.edge_tiles.numel() * 2 + pg.edge_wsum.numel() * 4) / 1e6
+    log(f"mesh with the prefilter: build_scene {build_pf_s:.2f}s; pack_edge_tiles {pack_ms:.3f} ms, "
+        f"{pg.edge_tiles.numel() * 2 / 1e6:.1f} MB of edge tiles + "
+        f"{pg.edge_wsum.numel() * 4 / 1e6:.1f} MB of margin scales")
+    b5 = {}
+    b5_bounce0 = {}
+    compare_mxu("mesh bounce 0 (ragged)", sorted_rays(pg, mwaves[0], 100), pg, mxu_err, {},
+                plain_subset=PLAIN_SUBSET // 4)
+    compare_mxu("mesh bounce 0", sorted_rays(pg, mwaves[0]), pg, mxu_err, b5_bounce0, time_it=True)
+    compare_mxu("mesh bounce 2", sorted_rays(pg, mwaves[2]), pg, mxu_err, b5, time_it=True)
+
+    # ---- 14. mesh main path with the prefilter ------------------------------------------
+    mimg_pf, mesh_pf_s = render_mesh(mesh_pf)
+    mxu_launches = ch.launch_closest_hit_mxu.launches
+    log(f"mesh main path with the prefilter: {mxu_launches} closest_hit_mxu launches (expected "
+        f"{expected}), {ch.launch_closest_hit_pipe.launches} closest_hit_pipe, "
+        f"{ch.launch_closest_hit.launches} closest_hit; render {mesh_pf_s:.3f}s, "
+        f"{rays / mesh_pf_s:.0f} rays/s (closest_hit_pipe render: {mesh_s:.3f}s); image equal to "
+        f"the closest_hit_pipe render's bit for bit: {bool(np.array_equal(mimg, mimg_pf))}; "
+        f"card: {card}")
+    check(mxu_launches == expected and ch.launch_closest_hit_pipe.launches == 0
+          and ch.launch_closest_hit.launches == 0,
+          f"prefilter main path: {mxu_launches} closest_hit_mxu launches, expected {expected}")
+    check(bool(np.array_equal(mimg, mimg_pf)), "the prefilter render's image differs")
+
+    # ---- 15. many lights ---------------------------------------------------------------------
+    panel_folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_panel_"))
+    testscenes.make_emitter_panel(panel_folder, nx=PANEL["nx"], ny=PANEL["ny"])
+    pcfg = path_tracing_master(panel_folder, "panel.obj", config)
+    picks = []
+    inner_pick = lights_mod.pick_light
+
+    def counting_pick(*args, **kwargs):
+        picks.append(1)
+        return inner_pick(*args, **kwargs)
+
+    lights_mod.pick_light = counting_pick
+    reset_launches(ch)
+    lights_mod.host_syncs = 0
+    try:
+        t0 = time.perf_counter()
+        pimg = renderer.render_from_config(pcfg)
+        panel_s = time.perf_counter() - t0
+    finally:
+        lights_mod.pick_light = inner_pick
+    panel_syncs = lights_mod.host_syncs
+    log(f"many-lights main path: {MAIN['width']}x{MAIN['height']} spp {MAIN['spp']} level "
+        f"{MAIN['level']}, {PANEL['emitters']} emitters: {panel_s:.3f}s end to end, "
+        f"{rays / panel_s:.0f} rays/s end to end; {len(picks)} descents (one per wavefront step), "
+        f"{ch.launch_closest_hit.launches} closest_hit launches, {panel_syncs} host syncs = "
+        f"{panel_syncs / expected:.1f} per wavefront step; image mean {pimg.mean():.6f}; card: {card}")
+    check(len(picks) == expected, f"many lights: {len(picks)} descents, expected {expected}: the "
+          "sparse regime was not taken")
+    check(ch.launch_closest_hit.launches == expected, "many lights: closest_hit launch count")
+    check(pimg.shape == (MAIN["height"], MAIN["width"], 3) and bool(np.isfinite(pimg).all())
+          and pimg.mean() > 0, "many-lights image not finite or black")
+
+    # one wavefront of it with the statistics, and the dense tables forced
+    panel_scene, panel_cam = renderer.load_scene_from_config(pcfg, dev)
+    plt = panel_scene.light_tree
+    check(panel_scene.num_lights == PANEL["emitters"] and not plt.dense,
+          f"the panel has {panel_scene.num_lights} emitters, dense {plt.dense}")
+    pwave = wavefronts(panel_scene, panel_cam, WAVE_RAYS, 1, seed=4)[0]
+    lights_mod.host_syncs = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, pstats = trace_paths(panel_scene, pwave[0], pwave[1], level=MAIN["level"],
+                                hittable_pdf_weight=MAIN["weight"], return_stats=True,
+                                generator=torch.Generator(device=dev).manual_seed(5))
+    dropped = int(pstats["mis_targets_dropped"])
+    wave_s = time.perf_counter() - t0
+    log(f"many lights, one wavefront of {WAVE_RAYS} rays, level {MAIN['level']}: {wave_s:.3f}s = "
+        f"{wave_s / MAIN['level'] * 1e3:.1f} ms a step; mis_targets_dropped {dropped} "
+        f"({dropped / (WAVE_RAYS * MAIN['level']):.6f} per ray and bounce); tree depth {plt.depth}, "
+        f"{lights_mod.host_syncs / MAIN['level']:.1f} host syncs a step")
+    dense_tree = lights_mod.build_light_tree(
+        plt.tri_p, plt.tri_n, plt.tri_uv, plt.node_energy[panel_scene.num_lights - 1:],
+        plt.geom_slot, dense_tables=True)
+    check(dense_tree.dense and dense_tree.anc.shape[1] == PANEL["emitters"], "dense tables not forced")
+    # The camera jitters the lens, not the pixel, so the LED grid aliases on a
+    # frame's pixel centres and the image mean depends on the resolution (on
+    # the CPU the directly seen emission averages 0.725 at 64x64, 0.630 at
+    # 128x128, 0.647 at 512x512).  So: the main path against the CPU render
+    # over the lower half of the frame, which sees no LED; and at the CPU
+    # render's own pixel centres the card's sparse regime against the CPU's
+    # and against the dense tables forced.
+    pcfg64 = path_tracing_master(panel_folder, "panel.obj", config, image_width=REF_SIDE,
+                                 image_height=REF_SIDE, pathtracing_sample_size=MAIN["spp"] // 2)
+    t0 = time.perf_counter()
+    pimg_cpu = renderer.render_from_config(pcfg64, device="cpu")
+    pcpu_s = time.perf_counter() - t0
+    pimg_card64 = renderer.render_from_config(pcfg64)
+    dcam = Camera.create(**CORNELL_CAM, width=REF_SIDE, height=REF_SIDE, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pimg_dense = render_image(
+            dataclasses.replace(panel_scene, light_tree=dense_tree), dcam, REF_SIDE, REF_SIDE,
+            sample_size=MAIN["spp"] // 2, level=MAIN["level"], hittable_pdf_weight=MAIN["weight"],
+            generator=torch.Generator(device=dev).manual_seed(6)).cpu().numpy()
+    dense_s = time.perf_counter() - t0
+
+    def rel(a, b):
+        return abs(float(a.mean()) - float(b.mean())) / float(b.mean())
+
+    prel_low = rel(pimg[MAIN["height"] // 2:], pimg_cpu[REF_SIDE // 2:])
+    prel_cpu, prel_dense = rel(pimg_card64, pimg_cpu), rel(pimg_card64, pimg_dense)
+    log(f"many-lights image mean: card main path {pimg.mean():.6f}, its lower half "
+        f"{pimg[MAIN['height'] // 2:].mean():.6f}; CPU plain path {REF_SIDE}x{REF_SIDE} "
+        f"{pimg_cpu.mean():.6f}, lower half {pimg_cpu[REF_SIDE // 2:].mean():.6f} ({pcpu_s:.1f}s): "
+        f"rel diff of the lower halves {prel_low:.4f}; card {REF_SIDE}x{REF_SIDE} "
+        f"{pimg_card64.mean():.6f}: rel diff to the CPU {prel_cpu:.4f}; dense tables forced, card "
+        f"{REF_SIDE}x{REF_SIDE} {pimg_dense.mean():.6f} ({dense_s:.1f}s): rel diff {prel_dense:.4f}")
+    check(prel_low < 0.05, f"many lights: the main path's lower half is off the CPU's by {prel_low:.4f}")
+    check(prel_cpu < 0.05, f"many-lights image mean off the CPU render by {prel_cpu:.4f}")
+    check(prel_dense < 0.05, f"many-lights image mean off the dense-table render by {prel_dense:.4f}")
+
+    # ---- 16. SSS ---------------------------------------------------------------------------------
+    sss_folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sss_"))
+    make_sss_box(sss_folder, testscenes)
+    sss_cfg = path_tracing_master(sss_folder, "box.obj", config, sss_pts_per_object=SSS_POINTS)
+    grid_calls = []
+    inner_grid = sss_mod.gather_sss_grid
+
+    def counting_grid(*args, **kwargs):
+        grid_calls.append(args[1].shape[0])
+        return inner_grid(*args, **kwargs)
+
+    sss_mod.gather_sss_grid = counting_grid
+    reset_launches(ch)
+    sss_mod.host_syncs = 0
+    stages = {}
+    inner_exit = renderer._Stage.__exit__
+
+    def timed_exit(self, *exc):
+        inner_exit(self, *exc)
+        stages[self.stage] = self.seconds
+
+    renderer._Stage.__exit__ = timed_exit
+    try:
+        t0 = time.perf_counter()
+        sss_img = renderer.render_from_config(sss_cfg)
+        sss_s = time.perf_counter() - t0
+    finally:
+        sss_mod.gather_sss_grid = inner_grid
+        renderer._Stage.__exit__ = inner_exit
+    first_s, render_s = stages["SSS point cloud + first pass"], stages["path-tracing render"]
+    first_launches = MAIN["spp"] * MAIN["level"]
+    log(f"SSS main path: {MAIN['width']}x{MAIN['height']} spp {MAIN['spp']} level {MAIN['level']}, "
+        f"{SSS_POINTS} points on one object: {sss_s:.3f}s end to end; first pass {first_s:.3f}s, "
+        f"render {render_s:.3f}s = {rays / render_s:.0f} rays/s; {len(grid_calls)} grid gathers for "
+        f"{sum(grid_calls)} rays, {sss_mod.host_syncs} host syncs of the gather, "
+        f"{ch.launch_closest_hit.launches} closest_hit launches (expected "
+        f"{expected + first_launches}); image mean {sss_img.mean():.6f}; card: {card}")
+    check(ch.launch_closest_hit.launches == expected + first_launches, "SSS: closest_hit launch count")
+    check(len(grid_calls) > 0 and sss_mod.host_syncs == expected,
+          f"SSS: {len(grid_calls)} grid gathers, {sss_mod.host_syncs} gather calls")
+    check((sss_folder / "out_pts.ppm").stat().st_size > 0, "the SSS splat out_pts.ppm is missing")
+    check(sss_img.shape == (MAIN["height"], MAIN["width"], 3) and bool(np.isfinite(sss_img).all()),
+          "SSS image not finite")
+    sss_cfg64 = path_tracing_master(sss_folder, "box.obj", config, sss_pts_per_object=SSS_POINTS,
+                                    image_width=REF_SIDE, image_height=REF_SIDE)
+    t0 = time.perf_counter()
+    sss_cpu = renderer.render_from_config(sss_cfg64, device="cpu")
+    sss_cpu_s = time.perf_counter() - t0
+    on_card, on_cpu = sphere_pixels(MAIN["width"]), sphere_pixels(REF_SIDE)
+    s_card, s_cpu = float(sss_img[on_card].mean()), float(sss_cpu[on_cpu].mean())
+    srel_sphere = abs(s_card - s_cpu) / s_cpu
+    log(f"SSS, mean over the sphere's pixels: card {s_card:.6f} ({int(on_card.sum())} pixels), CPU "
+        f"plain path {REF_SIDE}x{REF_SIDE} spp {sss_cfg64.pathtracing_sample_size} {s_cpu:.6f} "
+        f"({int(on_cpu.sum())} pixels, {sss_cpu_s:.1f}s), rel diff {srel_sphere:.4f}; image means "
+        f"{sss_img.mean():.6f} / {sss_cpu.mean():.6f}")
+    check(s_card > 0 and srel_sphere < 0.10,
+          f"SSS: the sphere's mean is off the CPU render's by {srel_sphere:.4f}")
+
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     record = {"kernels": [
         {
@@ -1066,6 +1434,29 @@ def main() -> int:
                           "anyhit_ms_same_rays": b34_mesh_live["anyhit"]["ms"],
                           "closest_hit_ms_same_rays": b34_mesh_live["closest_ms"],
                           "block_tile_order_ms": b34_mesh_live["order_ms"]},
+        },
+        {
+            "name": "closest_hit_mxu",
+            "route": "cuda",
+            "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit_mxu.cu",
+            "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:692",
+            "launches": mxu_launches,
+            "max_abs_err": mxu_err["max_abs_err"],
+            "ms": b5["ms"],
+            "plain_ms": b5["plain_ms"],
+            "bound_ms": b5["bound_ms"],
+            "bound_by": b5["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a closest hit
+            "shape": "65,536 rays x 327,684 triangles, mesh bounce 2; plain_ms on "
+                     f"{b5['plain_rays']} of the rays",
+            "closest_hit_pipe_ms_same_rays": b5["pipe_ms"],
+            "culled_share": b5["culled_share"],
+            "culled_share_per_pair": b5["culled_share_per_pair"],
+            "pack_edge_tiles_ms": pack_ms,
+            "edge_operand_mb": edge_mb,
+            "bounce_0": {k: b5_bounce0[k] for k in ("ms", "pipe_ms", "plain_ms", "bound_ms",
+                                                    "bound_by", "culled_share",
+                                                    "culled_share_per_pair")},
         },
     ]}
     print(json.dumps(record), flush=True)

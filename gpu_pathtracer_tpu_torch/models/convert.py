@@ -7,8 +7,13 @@ builds the port's `Scene` from exactly those arrays, so both packages can be
 driven with the identical scene.  The tiles are the port's own packing and
 are rebuilt from "geom.p", "geom.tol" and "geom.valid" (likewise for the
 "transparent." subset, when the scene has one); fields the port does not
-hold (the reference's TPU tile columns) are ignored.  `scene_to_numpy`
-flattens a port scene the same way.  Every tensor made here is a leaf, so a
+hold (the reference's TPU tile columns) are ignored.  The prefilter's edge
+weights are carried across when present: the reference's "geom.edge_cols"
+(its (NT, 16, 3 * tile) layout, any float type) is re-laid-out to the port's
+tile width (`edge_cols_to_tiles`), the port's own "geom.edge_tiles" /
+"geom.edge_wsum" are taken as they are.  `scene_to_numpy` flattens a port
+scene the same way (bfloat16 tensors as float32 arrays: numpy has no
+bfloat16).  Every tensor made here is a leaf, so a
 material or atlas field can be asked for gradients (`requires_grad_`);
 `params_from_numpy` / `params_to_numpy` carry the optimizer's parameter dict
 (`optim.optimize`) across both ways, `photons_*` and `hit_points_*` the SPPM
@@ -25,7 +30,7 @@ import torch
 
 from gpu_pathtracer_tpu_torch.ops import bvh as bvh_mod
 from gpu_pathtracer_tpu_torch.ops import closest_hit, lights, materials, texture
-from gpu_pathtracer_tpu_torch.models.scene import GeometrySet, Scene
+from gpu_pathtracer_tpu_torch.models.scene import GeometrySet, Scene, SSSPoints
 
 
 def _t(a, device) -> torch.Tensor:
@@ -53,15 +58,43 @@ def _bvh(flat, prefix, device) -> bvh_mod.BVH:
     )
 
 
+def edge_cols_to_tiles(edge_cols: np.ndarray, n_tiles: int):
+    """The reference's (NT', 16, 3 * tile') edge columns (rows 0-5 the
+    Pluecker weights of column m * tile' + t, row 6 the margin scale) as the
+    port's ((n_tiles, 3 * TILE, EDGE_K), (n_tiles, 3, TILE)) float32 arrays.
+    Both packings pad the same sorted triangle rows, to different tile
+    widths; rows past the port's padding are padding in the reference too."""
+    tile, k = closest_hit.TILE, closest_hit.EDGE_K
+    cols = np.asarray(edge_cols, dtype=np.float32)
+    nt_ref, _, w3 = cols.shape
+    per_tri = cols.reshape(nt_ref, 16, 3, w3 // 3).transpose(0, 3, 2, 1).reshape(-1, 3, 16)
+    rows = n_tiles * tile
+    if per_tri.shape[0] < rows:
+        filler = np.zeros((rows - per_tri.shape[0], 3, 16), np.float32)
+        filler[:, :, 6] = -1.0
+        per_tri = np.concatenate([per_tri, filler])
+    per_tri = per_tri[:rows].reshape(n_tiles, tile, 3, 16).transpose(0, 2, 1, 3)
+    edge = np.zeros((n_tiles, 3, tile, k), np.float32)
+    edge[..., 0:6] = per_tri[..., 0:6]
+    return edge.reshape(n_tiles, 3 * tile, k), np.ascontiguousarray(per_tri[..., 6])
+
+
 def _geometry(flat, device, prefix: str = "geom") -> GeometrySet:
     g = {f: _t(flat[f"{prefix}.{f}"], device)
          for f in ("p", "n", "uv", "tangent", "tol", "mat_id", "obj_id", "valid", "attr")}
     tiles, tile_aabb = closest_hit.pack_tiles(g["p"], g["tol"], g["valid"])
+    edge = None
+    if f"{prefix}.edge_tiles" in flat:
+        edge = flat[f"{prefix}.edge_tiles"], flat[f"{prefix}.edge_wsum"]
+    elif flat.get(f"{prefix}.edge_cols") is not None:
+        edge = edge_cols_to_tiles(flat[f"{prefix}.edge_cols"], tiles.shape[0])
     return GeometrySet(
         bvh=_bvh(flat, f"{prefix}.bvh", device),
         tiles=tiles,
         tile_aabb=tile_aabb,
         num_tris=int(flat.get(f"{prefix}.num_tris", int(np.sum(flat[f"{prefix}.valid"])))),
+        edge_tiles=None if edge is None else _t(edge[0], device).to(torch.bfloat16),
+        edge_wsum=None if edge is None else _t(edge[1], device),
         **g,
     )
 
@@ -78,9 +111,8 @@ def _light_tree(flat, device) -> lights.LightTree:
         depth = lights.topology_tables(
             tree.parent.cpu().numpy(), tree.left.cpu().numpy(), tree.escape.cpu().numpy(), e
         )[2]
-    if not bool(flat.get("light_tree.dense", True)):
-        raise NotImplementedError("the sparse light-tree regime is not ported yet")
-    return lights.LightTree(tree=tree, num_lights=e, depth=depth, dense=True, **arrays)
+    dense = bool(flat.get("light_tree.dense", True))
+    return lights.LightTree(tree=tree, num_lights=e, depth=depth, dense=dense, **arrays)
 
 
 def _materials(flat, device) -> materials.MaterialTable:
@@ -96,8 +128,6 @@ def _materials(flat, device) -> materials.MaterialTable:
 
 def scene_from_numpy(flat: dict[str, np.ndarray], device) -> Scene:
     """The port's Scene from a reference Scene flattened to numpy arrays."""
-    if any(k.startswith("sss.") for k in flat):
-        raise NotImplementedError("SSS point clouds are not ported yet")
     has_lights = "light_tree.tri_p" in flat
     sky_rgb = flat["sky_rgb"]
     return Scene(
@@ -107,6 +137,9 @@ def scene_from_numpy(flat: dict[str, np.ndarray], device) -> Scene:
         materials=_materials(flat, device),
         sky_emission=_t(flat["sky_emission"], device),
         sky_rgb=_t(sky_rgb, device),
+        sss=_dataclass_from_numpy(SSSPoints, {k[4:]: v for k, v in flat.items()
+                                              if k.startswith("sss.")}, device)
+        if "sss.pos" in flat else None,
         num_lights=int(flat.get("num_lights", 0)),
         has_sky_tex=bool(flat.get("has_sky_tex", sky_rgb.shape[0] > 1)),
         sky_h=int(flat.get("sky_h", 1)),
@@ -126,7 +159,8 @@ def scene_to_numpy(obj, prefix: str = "") -> dict[str, np.ndarray]:
         if dataclasses.is_dataclass(v):
             out.update(scene_to_numpy(v, key + "."))
         elif isinstance(v, torch.Tensor):
-            out[key] = v.detach().cpu().numpy()
+            v = v.detach().cpu()
+            out[key] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
         else:
             out[key] = np.asarray(v)
     return out

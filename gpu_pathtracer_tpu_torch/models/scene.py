@@ -9,7 +9,12 @@ int32 on the scene's device (host arrays may be float64; they are cast here).
 
 `Scene.transparent` is the same structure over the transparent triangles
 alone (t_r > 0), with its own tiles; SPPM marches through it to find the
-media a camera or an emitter starts in.  `Scene.sss` waits for the SSS slice.
+media a camera or an emitter starts in.  `Scene.sss` is the surface point
+cloud of the sub-surface-scattering objects (`render.sss.attach_sss`).
+With `build_scene(edge_prefilter=True)` a scene above `ops.trace.PALLAS_MAX`
+triangle rows also carries the edge tiles of the closest-hit prefilter
+(`ops.closest_hit.pack_edge_tiles`), and its closest-hit queries then take
+`csrc/closest_hit_mxu.cu`.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 from gpu_pathtracer_tpu_torch.device import as_f32 as _f32
 from gpu_pathtracer_tpu_torch.device import as_i32 as _i32
 from gpu_pathtracer_tpu_torch.ops import bvh as bvh_mod
-from gpu_pathtracer_tpu_torch.ops import closest_hit, intersect, lights, materials
+from gpu_pathtracer_tpu_torch.ops import closest_hit, intersect, lights, materials, trace
 from gpu_pathtracer_tpu_torch.utils.obj_io import HostScene
 
 
@@ -44,6 +49,23 @@ class GeometrySet:
     tile_aabb: torch.Tensor  # (NT, 8)
     attr: torch.Tensor  # (T, 26) packed shading rows
     num_tris: int = 0
+    # the closest-hit prefilter's operand (`closest_hit.pack_edge_tiles`), on
+    # scenes above PALLAS_MAX that were built with edge_prefilter=True
+    edge_tiles: torch.Tensor | None = None  # (NT, 3 * TILE, 8) bfloat16
+    edge_wsum: torch.Tensor | None = None  # (NT, 3, TILE)
+
+
+@dataclasses.dataclass
+class SSSPoints:
+    """Surface point cloud for sub-surface scattering: one flat array across
+    all SSS objects, gathered by object id."""
+
+    pos: torch.Tensor  # (S, 3)
+    normal: torch.Tensor  # (S, 3)
+    filter: torch.Tensor  # (S, 3) kd texture at the sample
+    color: torch.Tensor  # (S, 3) cached irradiance * albedo (first pass)
+    obj_id: torch.Tensor  # (S,) int32
+    valid: torch.Tensor  # (S,) bool
 
 
 @dataclasses.dataclass
@@ -54,7 +76,7 @@ class Scene:
     materials: materials.MaterialTable
     sky_emission: torch.Tensor  # (3,)
     sky_rgb: torch.Tensor  # (P, 3) equirect env image (1 px white default)
-    sss: object | None = None
+    sss: SSSPoints | None = None
     num_lights: int = 0
     has_sky_tex: bool = False
     sky_h: int = 1
@@ -75,14 +97,19 @@ def pack_attr(p, n, uv, tol, mat_id) -> torch.Tensor:
 LEAF_SIZE = 4
 
 
-def build_geometry_set(p, n, uv, tangent, mat_id, obj_id) -> GeometrySet:
-    """BVH + leaf-order gathers + tolerances + tile packing + attr rows."""
+def build_geometry_set(p, n, uv, tangent, mat_id, obj_id,
+                       edge_prefilter: bool = False) -> GeometrySet:
+    """BVH + leaf-order gathers + tolerances + tile packing + attr rows; with
+    `edge_prefilter`, the prefilter's edge tiles for a set above PALLAS_MAX."""
     bvh = bvh_mod.build_bvh(torch.amin(p, dim=1), torch.amax(p, dim=1), leaf_size=LEAF_SIZE)
     safe = torch.clamp(bvh.order, min=0).long()
     valid = bvh.order >= 0
     p_sorted = p[safe]
     tol_sorted = intersect.triangle_tolerance(p_sorted)
     tiles, tile_aabb = closest_hit.pack_tiles(p_sorted, tol_sorted, valid)
+    edge_tiles = edge_wsum = None
+    if edge_prefilter and p_sorted.shape[0] > trace.PALLAS_MAX:
+        edge_tiles, edge_wsum = closest_hit.pack_edge_tiles(p_sorted, valid)
     mat_sorted = torch.where(valid, mat_id[safe], 0).to(torch.int32)
     n_sorted = n[safe]
     uv_sorted = uv[safe]
@@ -100,13 +127,18 @@ def build_geometry_set(p, n, uv, tangent, mat_id, obj_id) -> GeometrySet:
         tile_aabb=tile_aabb,
         attr=pack_attr(p_sorted, n_sorted, uv_sorted, tol_sorted, mat_sorted),
         num_tris=int(p.shape[0]),
+        edge_tiles=edge_tiles,
+        edge_wsum=edge_wsum,
     )
 
 
 def build_scene(host: HostScene, device, sky_emission=(0.0, 0.0, 0.0),
-                sky_image: np.ndarray | None = None) -> Scene:
+                sky_image: np.ndarray | None = None, edge_prefilter: bool = False) -> Scene:
     """Assemble the device scene from host-parsed arrays: material table,
-    geometry BVH + tiles, light tree over the emissive triangles."""
+    geometry BVH + tiles, light tree over the emissive triangles.
+    `edge_prefilter` (off by default) packs the closest-hit prefilter's edge
+    tiles when the geometry is above `ops.trace.PALLAS_MAX` rows, which routes
+    its closest-hit queries to the kernel with the tensor-core prefilter."""
     if host.tri_p.shape[0] == 0:
         raise ValueError("the scene has no triangles")
     table = materials.MaterialTable.from_host(host.materials, host.atlas, device)
@@ -116,7 +148,8 @@ def build_scene(host: HostScene, device, sky_emission=(0.0, 0.0, 0.0),
     tri_tangent = _f32(host.tri_tangent, device)
     mat_idx = _i32(host.mat_idx, device)
     object_idx = _i32(host.object_idx, device)
-    geom = build_geometry_set(tri_p, tri_n, tri_uv, tri_tangent, mat_idx, object_idx)
+    geom = build_geometry_set(tri_p, tri_n, tri_uv, tri_tangent, mat_idx, object_idx,
+                              edge_prefilter=edge_prefilter)
 
     # transparent subset (t_r > 0)
     transparent = None
@@ -124,7 +157,8 @@ def build_scene(host: HostScene, device, sky_emission=(0.0, 0.0, 0.0),
     if trans_mask.any():
         idx = torch.as_tensor(np.nonzero(trans_mask)[0], device=device)
         transparent = build_geometry_set(
-            tri_p[idx], tri_n[idx], tri_uv[idx], tri_tangent[idx], mat_idx[idx], object_idx[idx]
+            tri_p[idx], tri_n[idx], tri_uv[idx], tri_tangent[idx], mat_idx[idx], object_idx[idx],
+            edge_prefilter=edge_prefilter,
         )
 
     # emitters: any vertex with |Ke texture| above the triangle tolerance;

@@ -166,6 +166,15 @@ def build_bvh(prim_min: torch.Tensor, prim_max: torch.Tensor, leaf_size: int = 4
     )
 
 
+def ray_box_test(o, inv_d, box_min, box_max, t_max) -> torch.Tensor:
+    """Slab test of rays (origin, 1 / direction) against boxes, within t_max."""
+    t0 = (box_min - o) * inv_d
+    t1 = (box_max - o) * inv_d
+    tmin = torch.amax(torch.minimum(t0, t1), dim=-1)
+    tmax = torch.amin(torch.maximum(t0, t1), dim=-1)
+    return (tmax >= tmin) & (tmax > 0.0) & (tmin < t_max)
+
+
 def validate(bvh: BVH, prim_min=None, prim_max=None, atol: float = 1e-5) -> dict:
     """Structural invariant check; returns failure counts (all zero == valid).
     Host-side numpy, for tests and debugging."""

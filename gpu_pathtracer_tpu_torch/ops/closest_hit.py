@@ -9,19 +9,24 @@ miss), and every tile has an AABB, inverted for empty tiles so that no slab
 test ever passes.  A slot (the kernel's output) is `tile * TILE + column`,
 i.e. a row of the sorted SoA.
 
-Two kernels answer the query on CUDA tensors, over the same packed tiles and
-with the same arithmetic (`csrc/closest_hit_common.cuh`), so their results
-are bit-equal: `csrc/closest_hit.cu` stages each tile with plain loads, and
-`csrc/closest_hit_pipe.cu` (`big=True`, the route of scenes above
+Three kernels answer the query on CUDA tensors, over the same packed tiles
+and with the same arithmetic (`csrc/closest_hit_common.cuh`), so their
+results are bit-equal: `csrc/closest_hit.cu` stages each tile with plain
+loads, `csrc/closest_hit_pipe.cu` (`big=True`, the route of scenes above
 `ops.trace.PALLAS_MAX` triangles) stages tiles through two shared-memory
-buffers with `cp.async`, tile j+1 in flight while tile j computes.  CPU
-tensors run the plain PyTorch versions: `closest_hit_rays_reference` and,
-for `big=True`, `closest_hit_pipe_reference`, which walks each block's tiles
-in the block's order with the kernel's cull, early exit and lagging prefetch
-decision.  Geometry on the card: 128-triangle tiles (5 KB of shared memory,
-fine-grained enough that the tile cull prunes within a 972-triangle scene)
-and 128-ray blocks (one thread per ray, four warps: enough blocks in flight
-on 132 SMs at the 65,536-ray wavefront).
+buffers with `cp.async`, tile j+1 in flight while tile j computes, and
+`csrc/closest_hit_mxu.cu` (`big=True` with `edge=`, scenes built with
+`edge_prefilter=True`) is the double-buffered kernel with a conservative
+bf16 tensor-core test of the Pluecker edge values in front of the exact pair
+test (`pack_edge_tiles` packs its second operand).  CPU tensors run the plain
+PyTorch versions: `closest_hit_rays_reference` and, for `big=True`,
+`closest_hit_pipe_reference` / `closest_hit_mxu_reference`, which walk each
+block's tiles in the block's order with the kernel's cull, early exit,
+lagging prefetch decision and, for the last, prefilter.  Geometry on the
+card: 128-triangle tiles (5 KB of shared memory, fine-grained enough that the
+tile cull prunes within a 972-triangle scene) and 128-ray blocks (one thread
+per ray, four warps: enough blocks in flight on 132 SMs at the 65,536-ray
+wavefront).
 """
 
 from __future__ import annotations
@@ -36,6 +41,12 @@ _INF = 3.4e38
 _LB_SLACK = 0.999999  # 1 - 1e-6, the kernels' kLbSlack
 _TILE_ROWS = 10
 _REFERENCE_CHUNK = 8192  # rays per step of the plain version (chunk x TILE temporaries)
+EDGE_K = 8  # contraction depth of the prefilter's product: 6 Pluecker slots, 2 zero
+# 2^-6: twice the worst relative error of the bf16 product (each factor rounded
+# to bf16: 2^-8 each, 2^-7 for the product; the f32 accumulation is negligible),
+# applied to rmax_i * wsum_j >= sum_k |r_ik| |w_kj|
+MXU_MARGIN = 2.0 ** -6
+_WARP = 32  # rays whose candidates the prefilter unites: one warp of the kernel
 
 
 def pack_tiles(p: torch.Tensor, tol: torch.Tensor, valid: torch.Tensor):
@@ -61,6 +72,42 @@ def pack_tiles(p: torch.Tensor, tol: torch.Tensor, valid: torch.Tensor):
     tmax = torch.amax(torch.where(vmask, per_tile, -_INF), dim=(1, 2))
     aabb = torch.cat([tmin, tmax, torch.zeros((nt, 2), dtype=p.dtype, device=dev)], dim=1)
     return tiles, aabb.contiguous()
+
+
+def pack_edge_tiles(p: torch.Tensor, valid: torch.Tensor):
+    """(T, 3, 3) sorted triangles -> the prefilter's second operand, tile by
+    tile as `pack_tiles` cuts them: ((NT, 3 * TILE, EDGE_K) bfloat16 edge
+    weights, (NT, 3, TILE) float32 margin scales).
+
+    Column m * TILE + j of a tile (edge m of its triangle j; edges run
+    (v1, v2), (v2, v3), (v3, v1)) holds the Pluecker weights
+    [cross(a, b), b - a, 0, 0], so that with the ray's [d, o x d, 0, 0] one
+    depth-8 product gives e = d . cross(a, b) + (o x d) . (b - a); a hit
+    needs the three values of a triangle to share a sign.  The k index is
+    the fastest so that a tensor-core B fragment is one 32-bit load.  The
+    margin scale is wsum = sum |w| * (1 + 2^-7), and -1 on invalid and
+    padding triangles: their zero edge values then fail both `e >= -margin`
+    and `e <= margin` (margin < 0) instead of being vacuously consistent.
+
+    The cull weakens (it never errs) for scenes far from the origin, where
+    |o x d| inflates every margin; such scenes are best re-centred."""
+    tile = TILE
+    t = p.shape[0]
+    pad = (-t) % tile
+    dev = p.device
+    a = torch.where(valid[:, None, None], p, 0.0)
+    b = a[:, (1, 2, 0), :]
+    w6 = torch.cat([torch.linalg.cross(a, b), b - a], dim=-1)  # (T, 3 edges, 6)
+    wsum = torch.sum(torch.abs(w6), dim=-1) * (1.0 + 2.0 ** -7)  # (T, 3)
+    wsum = torch.where(valid[:, None], wsum, -1.0)
+    if pad:
+        w6 = torch.cat([w6, torch.zeros((pad, 3, 6), dtype=w6.dtype, device=dev)])
+        wsum = torch.cat([wsum, torch.full((pad, 3), -1.0, dtype=wsum.dtype, device=dev)])
+    nt = (t + pad) // tile
+    w8 = torch.cat([w6, torch.zeros((t + pad, 3, EDGE_K - 6), dtype=w6.dtype, device=dev)], dim=-1)
+    edge = w8.reshape(nt, tile, 3, EDGE_K).permute(0, 2, 1, 3).reshape(nt, 3 * tile, EDGE_K)
+    return (edge.to(torch.bfloat16).contiguous(),
+            wsum.reshape(nt, tile, 3).permute(0, 2, 1).contiguous())
 
 
 def root_exit_cap(tile_aabb, origin, direction, t_max) -> torch.Tensor:
@@ -131,11 +178,13 @@ def _check(name, x, dtype, shape, device):
 
 
 def launch_tile_kernel(kernel: str, max_tile: int, out_dtypes, rays, tiles, tile_aabb, order,
-                       counts: bool):
+                       counts: bool, extra=(), n_counts: int = 3):
     """Check the inputs (`max_tile` is the kernel's kMaxTile), launch
     `csrc/<kernel>.cu` on the current stream and return its two per-ray
-    outputs (of `out_dtypes`) and the per-block counts or None.  Every tile
-    kernel, closest-hit or any-hit, has this one C signature."""
+    outputs (of `out_dtypes`) and the (blocks, `n_counts`) per-block counts or
+    None.  Every tile kernel, closest-hit or any-hit, has this one C
+    signature; `extra` are further input tensors (checked by the caller)
+    whose pointers follow `order`'s."""
     from gpu_pathtracer_tpu_torch.ops import _build
 
     dev = rays.device
@@ -154,16 +203,17 @@ def launch_tile_kernel(kernel: str, max_tile: int, out_dtypes, rays, tiles, tile
     _check("order", order, torch.int32, (n_rays // RAY_BLOCK, n_tiles), dev)
 
     fn = getattr(_build.load(kernel), f"gpt_{kernel}")
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * (7 + len(extra)) + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     out_a = torch.empty((n_rays,), dtype=out_dtypes[0], device=dev)
     out_b = torch.empty((n_rays,), dtype=out_dtypes[1], device=dev)
-    out_counts = (torch.empty((n_rays // RAY_BLOCK, 3), dtype=torch.int32, device=dev)
+    out_counts = (torch.empty((n_rays // RAY_BLOCK, n_counts), dtype=torch.int32, device=dev)
                   if counts else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(rays.data_ptr(), tiles.data_ptr(), tile_aabb.data_ptr(), order.data_ptr(),
-                 out_a.data_ptr(), out_b.data_ptr(),
+                 *(x.data_ptr() for x in extra), out_a.data_ptr(), out_b.data_ptr(),
                  out_counts.data_ptr() if counts else None, n_rays, n_tiles, tile, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
@@ -205,9 +255,32 @@ def launch_closest_hit_pipe(rays, tiles, tile_aabb, order, counts: bool = False)
     return (t, slot, c) if counts else (t, slot)
 
 
+def launch_closest_hit_mxu(rays, tiles, edge_tiles, wsum, tile_aabb, order, counts: bool = False):
+    """Launch `csrc/closest_hit_mxu.cu` (the double-buffered kernel with the
+    tensor-core edge prefilter) on prepared rays and the tiles of
+    `pack_tiles` and `pack_edge_tiles`; (best_t, slot) as the other two
+    kernels, the same values bit for bit.  With `counts` also the
+    (R_pad / 128, 5) int32 per-block [tile steps walked, tiles fetched, tiles
+    scanned, pairs passed to the exact test, pairs the prefilter culled].
+    The kernel's tile width is fixed at 128."""
+    check_async_tiles(tiles)
+    n_tiles, _, tile = tiles.shape
+    if tile != TILE:
+        raise ValueError(f"the closest_hit_mxu kernel takes tiles of {TILE} triangles, got {tile}")
+    _check("edge_tiles", edge_tiles, torch.bfloat16, (n_tiles, 3 * tile, EDGE_K), rays.device)
+    _check("wsum", wsum, torch.float32, (n_tiles, 3, tile), rays.device)
+    if edge_tiles.data_ptr() % 16 or wsum.data_ptr() % 16:
+        raise ValueError("the 16-byte async copies need 16-byte-aligned edge tiles and wsum")
+    t, slot, c = launch_tile_kernel("closest_hit_mxu", TILE, _CLOSEST_OUT, rays, tiles, tile_aabb,
+                                    order, counts, extra=(edge_tiles, wsum), n_counts=5)
+    launch_closest_hit_mxu.launches += 1
+    return (t, slot, c) if counts else (t, slot)
+
+
 # kernel launches; set to 0 by callers that count
 launch_closest_hit.launches = 0
 launch_closest_hit_pipe.launches = 0
+launch_closest_hit_mxu.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -258,12 +331,15 @@ def pair_t(ctx, tv):
     return t, (~mixed) & (det != 0.0) & (t >= tv[9])
 
 
-def _scan_tile(ctx, tv, base, lane, best_t, best_slot):
+def _scan_tile(ctx, tv, base, lane, best_t, best_slot, columns=None):
     """One tile against every ray for the closest hit; `base` is the slot of
     the tile's first column.  Strict `<` against best_t and the first column
-    at the minimum."""
+    at the minimum.  `columns` (bool, broadcastable to the pairs) limits the
+    test to the pairs a prefilter passed."""
     t, ok = pair_t(ctx, tv)
     hit = ok & (t < best_t) & (t <= ctx[3])
+    if columns is not None:
+        hit = hit & columns
     t = torch.where(hit, t, _INF)
     t_min = torch.amin(t, dim=-1, keepdim=True)
     k = torch.amin(torch.where(t == t_min, lane, 2**30), dim=-1, keepdim=True)
@@ -295,15 +371,57 @@ def closest_hit_rays_reference(rays: torch.Tensor, tiles: torch.Tensor):
 _PIPE_REFERENCE_BLOCKS = 64  # ray blocks per pair step of the pipelined plain version
 
 
+def prefilter_candidates(rays, edge_tile, wsum_tile, best_t):
+    """The prefilter's verdict on every pair of a ray batch with one tile:
+    (..., R, TILE) bool.  `rays` (..., R, 8), `edge_tile` (..., 3 * TILE,
+    EDGE_K) bfloat16, `wsum_tile` (..., 3, TILE), `best_t` (..., R, 1).  The
+    rays' [d, o x d] rounded to bfloat16, the product accumulated in float32,
+    then sign-consistency of the three edge values within the margin
+    `MXU_MARGIN * rmax_i * wsum_j`, for live rays (best_t > 0) only."""
+    o, d = rays[..., 0:3], rays[..., 3:6]
+    moment = torch.stack([o[..., 1] * d[..., 2] - o[..., 2] * d[..., 1],
+                          o[..., 2] * d[..., 0] - o[..., 0] * d[..., 2],
+                          o[..., 0] * d[..., 1] - o[..., 1] * d[..., 0]], dim=-1)  # o x d
+    rv = torch.cat([d, moment], dim=-1)
+    rmax = torch.amax(torch.abs(rv), dim=-1, keepdim=True)
+    w = edge_tile[..., 0:6].to(torch.float32)
+    # (..., R, 3 TILE)
+    e = torch.matmul(rv.to(torch.bfloat16).to(torch.float32), w.transpose(-1, -2))
+    tile = wsum_tile.shape[-1]
+    margin = (MXU_MARGIN * rmax) * wsum_tile.reshape(*wsum_tile.shape[:-2], 1, 3 * tile)
+    e = e.reshape(*e.shape[:-1], 3, tile)
+    margin = margin.reshape(*margin.shape[:-1], 3, tile)
+    pos = torch.all(e >= -margin, dim=-2)
+    neg = torch.all(e <= margin, dim=-2)
+    return (pos | neg) & (best_t > 0.0)
+
+
 def closest_hit_pipe_reference(rays, tiles, tile_aabb, order):
-    """Plain PyTorch version of the double-buffered kernel: every ray block
+    """Plain PyTorch version of `csrc/closest_hit_pipe.cu`; see `_pipe_walk`.
+    Returns (best_t, slot, counts): (R_pad,), (R_pad,) and (R_pad / 128, 3)
+    int32 per-block [tile steps walked, tiles fetched, tiles scanned]."""
+    return _pipe_walk(rays, tiles, tile_aabb, order, None)
+
+
+def closest_hit_mxu_reference(rays, tiles, edge_tiles, wsum, tile_aabb, order):
+    """Plain PyTorch version of `csrc/closest_hit_mxu.cu`: the walk of
+    `closest_hit_pipe_reference` with the edge prefilter in front of the pair
+    test of every scanned tile (`prefilter_candidates`; the exact test runs on
+    the columns that are candidates for some ray of a 32-ray group, the
+    kernel's warp).  Returns (best_t, slot, counts), counts (R_pad / 128, 5):
+    walked, fetched, scanned, pairs passed to the exact test, pairs culled.
+    (best_t, slot) equal `closest_hit_pipe_reference`'s bit for bit."""
+    return _pipe_walk(rays, tiles, tile_aabb, order, (edge_tiles, wsum))
+
+
+def _pipe_walk(rays, tiles, tile_aabb, order, edge):
+    """The double-buffered kernels' walk in plain PyTorch: every ray block
     walks its own row of `order` with the Chebyshev early exit, the block
     slab vote and the lagging prefetch decision (tile j+1 is "fetched" on the
     best_t from before tile j's pairs; tile j is scanned only if it was
     fetched and the walk still goes on).  All blocks advance one tile step
     together; pair work is done only for the blocks that scan at that step.
-    Returns (best_t, slot, counts): (R_pad,), (R_pad,) and (R_pad / 128, 3)
-    int32 per-block [tile steps walked, tiles fetched, tiles scanned]."""
+    `edge` = (edge_tiles, wsum) puts the prefilter in front of the pairs."""
     n_blocks, n_tiles = order.shape
     tile = tiles.shape[2]
     dev = rays.device
@@ -336,7 +454,7 @@ def closest_hit_pipe_reference(rays, tiles, tile_aabb, order):
     reach = torch.amax(best_t, dim=(1, 2)) * dmax
     fetched_cur = (lower_bound(ti_cur) * _LB_SLACK < reach) & slab_vote(ti_cur)
     walking = torch.ones((n_blocks,), dtype=torch.bool, device=dev)
-    counts = torch.zeros((n_blocks, 3), dtype=torch.int32, device=dev)
+    counts = torch.zeros((n_blocks, 3 if edge is None else 5), dtype=torch.int32, device=dev)
     counts[:, 1] += fetched_cur
     for j in range(n_tiles):
         if not bool(walking.any()):
@@ -360,8 +478,16 @@ def closest_hit_pipe_reference(rays, tiles, tile_aabb, order):
             ti = ti_cur[blk]
             tv = [tiles[ti, row][:, None, :] for row in range(_TILE_ROWS)]
             base = (ti * tile).to(torch.int32)[:, None, None]
+            columns = None
+            if edge is not None:
+                cand = prefilter_candidates(rb[blk], edge[0][ti], edge[1][ti], best_t[blk])
+                union = torch.any(cand.reshape(-1, RAY_BLOCK // _WARP, _WARP, tile), dim=2)
+                passed = (torch.sum(union, dim=(1, 2)) * _WARP).to(torch.int32)
+                counts[blk, 3] += passed
+                counts[blk, 4] += RAY_BLOCK * tile - passed
+                columns = union.repeat_interleave(_WARP, dim=1)
             best_t[blk], best_slot[blk] = _scan_tile(
-                woop_ctx(rb[blk]), tv, base, lane, best_t[blk], best_slot[blk])
+                woop_ctx(rb[blk]), tv, base, lane, best_t[blk], best_slot[blk], columns)
 
         walking = walking & improve
         fetched_cur, ti_cur = fetched_next, ti_next
@@ -378,39 +504,47 @@ def _finish(t, slot, r):
     return torch.where(hit, t, float("inf")), slot, hit
 
 
-def closest_hit_tiles(tiles, tile_aabb, origin, direction, t_max=float("inf"), big=False):
+def closest_hit_tiles(tiles, tile_aabb, origin, direction, t_max=float("inf"), big=False,
+                      edge=None):
     """Closest hit for a ray batch: (t, slot, hit), slot a row of the sorted
     SoA and -1 on a miss, t = +inf on a miss.  CUDA tensors go through a
-    kernel (one launch per call): the double-buffered one with `big`, else
-    the plain-load one; CPU tensors through the matching plain version.
-    Not differentiable: recompute winner attributes outside
-    (`ops.trace.winner_bary`)."""
+    kernel (one launch per call): with `big` the double-buffered one, or,
+    when `edge` = (edge_tiles, wsum) of `pack_edge_tiles` is given, the one
+    with the edge prefilter; else the plain-load one.  CPU tensors go through
+    the matching plain version.  Not differentiable: recompute winner
+    attributes outside (`ops.trace.winner_bary`)."""
+    if edge is not None and not big:
+        raise ValueError("the edge prefilter belongs to the double-buffered route (big=True)")
     r = origin.shape[0]
     with torch.no_grad():
         rays = prepare_rays(tile_aabb, origin, direction, t_max)
         if rays.device.type == "cuda":
             order = block_tile_order(rays, tile_aabb, rays.shape[0] // RAY_BLOCK)
-            launch = launch_closest_hit_pipe if big else launch_closest_hit
-            t, slot = launch(rays, tiles, tile_aabb, order)
+            if edge is not None:
+                t, slot = launch_closest_hit_mxu(rays, tiles, edge[0], edge[1], tile_aabb, order)
+            elif big:
+                t, slot = launch_closest_hit_pipe(rays, tiles, tile_aabb, order)
+            else:
+                t, slot = launch_closest_hit(rays, tiles, tile_aabb, order)
         elif rays.device.type == "cpu":
-            t, slot = _reference(rays, tiles, tile_aabb, big)
+            t, slot = _reference(rays, tiles, tile_aabb, big, edge)
         else:
             raise ValueError(f"closest_hit_tiles runs on cuda or cpu, got {rays.device}")
     return _finish(t, slot, r)
 
 
-def _reference(rays, tiles, tile_aabb, big):
+def _reference(rays, tiles, tile_aabb, big, edge=None):
     if not big:
         return closest_hit_rays_reference(rays, tiles)
     order = block_tile_order(rays, tile_aabb, rays.shape[0] // RAY_BLOCK)
-    return closest_hit_pipe_reference(rays, tiles, tile_aabb, order)[:2]
+    return _pipe_walk(rays, tiles, tile_aabb, order, edge)[:2]
 
 
 def closest_hit_tiles_reference(tiles, tile_aabb, origin, direction, t_max=float("inf"),
-                                big=False):
+                                big=False, edge=None):
     """The plain version of `closest_hit_tiles` on any device (no kernel)."""
     r = origin.shape[0]
     with torch.no_grad():
         rays = prepare_rays(tile_aabb, origin, direction, t_max)
-        t, slot = _reference(rays, tiles, tile_aabb, big)
+        t, slot = _reference(rays, tiles, tile_aabb, big, edge)
     return _finish(t, slot, r)

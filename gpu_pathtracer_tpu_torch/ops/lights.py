@@ -1,12 +1,23 @@
 """Light tree: many-lights importance sampling + MIS mixture pdf (port of
-`gpu_pathtracer_tpu.ops.lights`, dense regime).
+`gpu_pathtracer_tpu.ops.lights`).
 
 The emitters get a `leaf_size=1` radix tree whose nodes carry energy sums.
 In the dense regime (E <= LIGHT_TREE_DENSE_MAX) every leaf's selection pdf
 is one (R, 2E-1) x (2E-1, E) product against the host-built ancestor
 matrix, the pick is an inverse-CDF over those pdfs, and the mixture pdf sums
-over every emitter.  The sparse regime (stochastic descent, bounded walks)
-is not ported yet.
+over every emitter.  Above that the (2E-1, E) matrix is not built and the
+integrators take the sparse regime, which never makes an (R, E) table: the
+pick is a stochastic root-to-leaf descent (`pick_light`), and the mixture
+pdf collects the emitter leaves whose boxes the ray stabs by a stackless
+walk of the tree (`collect_hit_leaves`, at most MAX_POTENTIAL_TARGETS a ray,
+the rest counted as dropped), intersects only those and gets their selection
+pdfs from bounded leaf-to-root walks (`node_pdf_walk`).
+
+The descent runs its `depth - 1` steps without asking the device anything.
+The collect walk is data-dependent (a ray is done when it leaves the tree):
+it asks the device every COLLECT_SYNC_STEPS steps whether any ray is still
+walking, bounded by 4 E steps as in the reference package; `host_syncs`
+counts those questions.
 """
 
 from __future__ import annotations
@@ -17,9 +28,19 @@ import math
 import numpy as np
 import torch
 
-from gpu_pathtracer_tpu_torch.constants import LIGHT_TREE_DENSE_MAX, SMALL_EPS
+from gpu_pathtracer_tpu_torch.constants import (
+    LIGHT_TREE_DENSE_MAX,
+    MAX_POTENTIAL_TARGETS,
+    SMALL_EPS,
+)
 from gpu_pathtracer_tpu_torch.ops import bvh as bvh_mod
 from gpu_pathtracer_tpu_torch.ops import intersect, linalg
+
+
+# steps of the collect walk between two `.any()` questions to the device
+COLLECT_SYNC_STEPS = 8
+# host synchronizations made by the sparse regime; set to 0 by callers that count
+host_syncs = 0
 
 
 @dataclasses.dataclass
@@ -45,9 +66,11 @@ class LightTree:
     dense: bool = True
 
 
-def topology_tables(parent: np.ndarray, left: np.ndarray, escape: np.ndarray, e: int):
+def topology_tables(parent: np.ndarray, left: np.ndarray, escape: np.ndarray, e: int,
+                    dense: bool = True):
     """Host-side sibling map, root->leaf ancestor matrix and depth of a
-    leaf_size=1 tree over e leaves."""
+    leaf_size=1 tree over e leaves; without `dense` the O(E^2) matrix is a
+    (1, 1) placeholder."""
     total = 2 * e - 1
     leaf_base = e - 1
     if e == 1:
@@ -58,11 +81,12 @@ def topology_tables(parent: np.ndarray, left: np.ndarray, escape: np.ndarray, e:
     sib = np.arange(total, dtype=np.int64)
     sib[lchild] = rchild
     sib[rchild] = lchild
-    anc = np.zeros((total, e), np.float32)
+    anc = np.zeros((total, e) if dense else (1, 1), np.float32)
     cur = np.arange(e, dtype=np.int64) + leaf_base
     depth = 0
     while True:
-        anc[cur, np.arange(e)] = 1.0
+        if dense:
+            anc[cur, np.arange(e)] = 1.0
         depth += 1
         done = cur == 0
         if done.all() or depth > 2 * e + 2:
@@ -71,15 +95,16 @@ def topology_tables(parent: np.ndarray, left: np.ndarray, escape: np.ndarray, e:
     return sib, anc, depth
 
 
-def build_light_tree(tri_p, tri_n, tri_uv, energy, geom_slot) -> LightTree:
-    """Build the light tree (radix tree over emitters + bottom-up energy)."""
+def build_light_tree(tri_p, tri_n, tri_uv, energy, geom_slot,
+                     dense_tables: bool | None = None) -> LightTree:
+    """Build the light tree (radix tree over emitters + bottom-up energy).
+    `dense_tables` (default: E <= LIGHT_TREE_DENSE_MAX) says whether the
+    O(E^2) ancestor matrix of the matmul-form pdf is built; without it the
+    integrators take the sparse descent / walk regime."""
     e = tri_p.shape[0]
-    if e > LIGHT_TREE_DENSE_MAX:
-        raise NotImplementedError(
-            f"{e} emitters: the sparse light-tree regime (E > "
-            f"{LIGHT_TREE_DENSE_MAX}) is not ported yet (ROADMAP queue A, "
-            "item 5: pick_light / hittable_pdf_sum_sparse)"
-        )
+    if dense_tables is None:
+        dense_tables = e <= LIGHT_TREE_DENSE_MAX
+    dense_tables = bool(dense_tables) or e == 1
     dev = tri_p.device
     pmin = torch.amin(tri_p, dim=1)
     pmax = torch.amax(tri_p, dim=1)
@@ -106,7 +131,8 @@ def build_light_tree(tri_p, tri_n, tri_uv, energy, geom_slot) -> LightTree:
             node_energy = new
 
     sib, anc, depth = topology_tables(
-        tree.parent.cpu().numpy(), tree.left.cpu().numpy(), tree.escape.cpu().numpy(), e
+        tree.parent.cpu().numpy(), tree.left.cpu().numpy(), tree.escape.cpu().numpy(), e,
+        dense=dense_tables,
     )
     total = 2 * e - 1
     leaf_base = e - 1
@@ -131,8 +157,66 @@ def build_light_tree(tri_p, tri_n, tri_uv, energy, geom_slot) -> LightTree:
         node_is_leaf=torch.arange(total, device=dev) >= leaf_base,
         num_lights=e,
         depth=depth,
-        dense=True,
+        dense=dense_tables,
     )
+
+
+def cone_union(ax_a, t0_a, te_a, ax_b, t0_b, te_b):
+    """Orientation-cone union per Estevez-Kulla, branch-free over (..., 3)
+    axes.  Returns (axis, theta_0, theta_e)."""
+    swap = t0_b > t0_a
+    ax_1 = torch.where(swap[..., None], ax_b, ax_a)
+    ax_2 = torch.where(swap[..., None], ax_a, ax_b)
+    t0_1 = torch.where(swap, t0_b, t0_a)
+    t0_2 = torch.where(swap, t0_a, t0_b)
+
+    theta_d = torch.arccos(torch.clamp(linalg.dot(ax_1, ax_2), -1.0, 1.0))
+    new_te = torch.maximum(te_a, te_b)
+
+    contained = torch.clamp(theta_d + t0_2, max=math.pi) <= t0_1
+    t0_open = (t0_1 + theta_d + t0_2) / 2.0
+    full = t0_open >= math.pi
+
+    rot_axis = linalg.cross(ax_1, ax_2)
+    # a zero rotation axis means parallel axes: same-direction ones land in
+    # `contained`; antipodal ones admit no finite cone: the full sphere
+    degenerate = linalg.length(rot_axis) < 1e-12
+    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=rot_axis.dtype, device=rot_axis.device)
+    rot_axis = torch.where(degenerate[..., None], x_axis, rot_axis)
+    ax_open = linalg.rodrigues_rotate(ax_1, rot_axis, t0_open - t0_1)
+
+    axis = torch.where((contained | full | degenerate)[..., None], ax_1, ax_open)
+    t0 = torch.where(contained, t0_1,
+                     torch.where(full | (degenerate & ~contained), math.pi, t0_open))
+    return axis, t0, new_te
+
+
+def build_node_cones(lt: LightTree):
+    """Per-node orientation cones, bottom-up: a leaf's cone is (avg normal,
+    theta_0 = 0, theta_e = pi / 2), an internal node's the union of its
+    children's; `depth` sweeps of recompute-from-children reach the fixed
+    point.  The importance does not use them (the reference leaves the cone
+    terms out); they are kept as a data structure.  Returns (axis (2E-1, 3),
+    theta_0 (2E-1,), theta_e (2E-1,))."""
+    e = lt.num_lights
+    num_internal = e - 1
+    dev = lt.avg_normal.device
+    axis = torch.cat([torch.zeros((num_internal, 3), dtype=torch.float32, device=dev),
+                      lt.avg_normal])
+    t0 = torch.zeros((2 * e - 1,), dtype=torch.float32, device=dev)
+    te = torch.cat([torch.zeros((num_internal,), dtype=torch.float32, device=dev),
+                    torch.full((e,), math.pi / 2.0, dtype=torch.float32, device=dev)])
+    if num_internal == 0:
+        return axis, t0, te
+    left = lt.tree.left[:num_internal].long()
+    right = lt.tree.escape[left].long()
+    for _ in range(lt.depth):
+        ux, u0, ue = cone_union(axis[left], t0[left], te[left],
+                                axis[right], t0[right], te[right])
+        axis = torch.cat([ux, axis[num_internal:]])
+        t0 = torch.cat([u0, t0[num_internal:]])
+        te = torch.cat([ue, te[num_internal:]])
+    return axis, t0, te
 
 
 def leaf_energies(lt: LightTree, table, mat_id_sorted: torch.Tensor) -> torch.Tensor:
@@ -142,6 +226,69 @@ def leaf_energies(lt: LightTree, table, mat_id_sorted: torch.Tensor) -> torch.Te
     mat = mat_id_sorted[lt.geom_slot.long()]  # (E,)
     ke_verts = table.emission_color(mat[:, None].expand(-1, 3), lt.tri_uv)  # (E, 3, 3)
     return 2.0 * math.pi * torch.mean(ke_verts, dim=1) * lt.area[:, None]
+
+
+def _node_importance(lt: LightTree, node, point, pivot) -> torch.Tensor:
+    """Node importance |energy| / dist^2 to the node's box centre, a leaf
+    with its energy directed toward the shading point.  node (...,) unified
+    node ids, point / pivot broadcastable (..., 3)."""
+    e = lt.num_lights
+    leaf_base = e - 1
+    node = node.long()
+    center = 0.5 * (lt.tree.aabb_min[node] + lt.tree.aabb_max[node])
+    d = point - center
+    dist2 = torch.clamp(linalg.dot(d, d), min=1e-30)
+    is_leaf = node >= leaf_base
+    leaf = torch.clamp(node - leaf_base, 0, e - 1)
+    dir_to_point = linalg.normalize(point - lt.centroid[leaf], SMALL_EPS)
+    fac = torch.clamp(
+        linalg.dot(lt.avg_normal[leaf], dir_to_point) * linalg.dot(-dir_to_point, pivot), min=0.0
+    )
+    energy = lt.node_energy[node]
+    eff = torch.where(is_leaf[..., None], energy * fac[..., None], energy)
+    return linalg.length(eff) / dist2
+
+
+def _children(lt: LightTree, internal):
+    left = lt.tree.left[internal].long()
+    return left, lt.tree.escape[left].long()
+
+
+def descent_steps(lt: LightTree) -> int:
+    """Steps of `pick_light`'s descent: the longest root-to-leaf path."""
+    return max(lt.depth - 1, 0)
+
+
+def pick_light(lt: LightTree, point, pivot, generator: torch.Generator | None = None,
+               uniforms: torch.Tensor | None = None) -> torch.Tensor:
+    """Stochastic root-to-leaf descent, each branch taken in proportion to
+    the children's importance.  point / pivot (R, 3) -> (R,) int32 leaf index
+    (tree order).  Step s uses row s of `uniforms` (`descent_steps(lt)`, R)
+    (the reference folds its key by the step), else a draw from `generator`.
+    The loop runs its fixed number of steps: a ray that has reached its leaf
+    stays there, and the host never waits for the device."""
+    e = lt.num_lights
+    r_shape = point.shape[:-1]
+    dev = point.device
+    if e == 1:
+        return torch.zeros(r_shape, dtype=torch.int32, device=dev)
+    leaf_base = e - 1
+    steps = descent_steps(lt)
+    if uniforms is None:
+        uniforms = torch.rand((steps,) + tuple(r_shape), generator=generator, device=dev)
+    elif uniforms.shape[0] < steps:
+        raise ValueError(f"pick_light needs {steps} rows of uniforms, got {uniforms.shape[0]}")
+    node = torch.zeros(r_shape, dtype=torch.int64, device=dev)
+    for step in range(steps):
+        at_internal = node < leaf_base
+        left, right = _children(lt, torch.clamp(node, max=leaf_base - 1))
+        imp_l = _node_importance(lt, left, point, pivot)
+        imp_r = _node_importance(lt, right, point, pivot)
+        total = imp_l + imp_r
+        factor = torch.where(total < 1e-10, 0.5, imp_l / torch.clamp(total, min=1e-30))
+        nxt = torch.where(uniforms[step] < factor, left, right)
+        node = torch.where(at_internal, nxt, node)
+    return (node - leaf_base).to(torch.int32)
 
 
 def pick_light_dense(lt: LightTree, node_pdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -210,6 +357,108 @@ def leaf_node_pdfs(lt: LightTree, point: torch.Tensor, pivot: torch.Tensor) -> t
     ratio = torch.where(is_root, 1.0, ratio)
     log_pdf = torch.log(torch.clamp(ratio, 1e-35, 1.0)) @ lt.anc
     return torch.exp(log_pdf)
+
+
+def node_pdf_walk(lt: LightTree, leaf, point, pivot) -> torch.Tensor:
+    """Selection pdf of the given leaves by the bounded leaf-to-root walk
+    that multiplies branch ratios: O(K * depth) per ray, no (R, E) table.
+    leaf (..., K) leaf indices (tree order), point / pivot (..., 3).  A plain
+    loop over the tree's depth, differentiable to the emitter energies."""
+    e = lt.num_lights
+    if e == 1:
+        return torch.ones(leaf.shape, dtype=torch.float32, device=leaf.device)
+    pt = point[..., None, :]
+    pv = pivot[..., None, :]
+    cur = leaf.long() + (e - 1)
+    pdf = torch.ones(leaf.shape, dtype=torch.float32, device=leaf.device)
+    for _ in range(lt.depth):
+        live = cur > 0
+        safe = torch.clamp(cur, min=0)
+        par = lt.tree.parent[safe].long()
+        left, right = _children(lt, torch.clamp(par, min=0))
+        sib = torch.where(left == safe, right, left)
+        imp_1 = _node_importance(lt, safe, pt, pv)
+        imp_2 = _node_importance(lt, sib, pt, pv)
+        ratio = imp_1 / (imp_1 + imp_2)
+        ratio = torch.where(torch.isfinite(ratio), ratio, 0.5)
+        pdf = torch.where(live, pdf * ratio, pdf)
+        cur = torch.where(live, par, cur)
+    return pdf
+
+
+def leaf_node_pdfs_walk(lt: LightTree, point, pivot) -> torch.Tensor:
+    """Walk-form pdfs for all leaves (the cross-check of the matmul-form
+    `leaf_node_pdfs`; O(E * depth) per ray, dense-regime sizes only)."""
+    e = lt.num_lights
+    leaves = torch.arange(e, dtype=torch.int32, device=point.device).expand(
+        point.shape[:-1] + (e,))
+    return node_pdf_walk(lt, leaves, point, pivot)
+
+
+def collect_hit_leaves(lt: LightTree, origin, direction, max_k: int = MAX_POTENTIAL_TARGETS):
+    """Up to `max_k` emitter leaves whose box the ray stabs, by a stackless
+    walk of the light tree over its hit / escape links.  Returns (leaf, ok,
+    dropped): (R, K) int32 leaf indices in the order met, their validity, and
+    the (R,) int32 count of stabbed leaves dropped past the cap (a mixture pdf
+    summed over a capped collection is biased low for that ray).  The
+    collection is a superset of the emitters the ray hits."""
+    global host_syncs
+    e = lt.num_lights
+    r = origin.shape[0]
+    dev = origin.device
+    if e == 1:
+        return (torch.zeros((r, 1), dtype=torch.int32, device=dev),
+                torch.ones((r, 1), dtype=torch.bool, device=dev),
+                torch.zeros((r,), dtype=torch.int32, device=dev))
+    leaf_base = e - 1
+    tree = lt.tree
+    inv_d = 1.0 / torch.where(torch.abs(direction) < 1e-20,
+                              torch.where(direction < 0, -1e-20, 1e-20), direction)
+    k_ar = torch.arange(max_k, dtype=torch.int32, device=dev)
+    t_inf = torch.full((r,), float("inf"), dtype=torch.float32, device=dev)
+    left_link, escape_link = tree.left.long(), tree.escape.long()
+
+    cur = torch.zeros((r,), dtype=torch.int64, device=dev)
+    buf = torch.zeros((r, max_k), dtype=torch.int32, device=dev)
+    cnt = torch.zeros((r,), dtype=torch.int32, device=dev)
+    drop = torch.zeros((r,), dtype=torch.int32, device=dev)
+    for step in range(4 * e):
+        if step % COLLECT_SYNC_STEPS == 0:
+            host_syncs += 1
+            if not bool(torch.any(cur >= 0)):
+                break
+        live = cur >= 0
+        node = torch.clamp(cur, min=0)
+        box_hit = bvh_mod.ray_box_test(origin, inv_d, tree.aabb_min[node], tree.aabb_max[node],
+                                       t_inf) & live
+        is_leaf = node >= leaf_base
+        stab = box_hit & is_leaf
+        take = stab & (cnt < max_k)
+        slot = (k_ar[None, :] == cnt[:, None]) & take[:, None]
+        buf = torch.where(slot, (node - leaf_base).to(torch.int32)[:, None], buf)
+        cnt = cnt + take.to(torch.int32)
+        drop = drop + (stab & ~take).to(torch.int32)
+        nxt = torch.where(box_hit & ~is_leaf, left_link[node], escape_link[node])
+        cur = torch.where(live, nxt, cur)
+    return buf, k_ar[None, :] < cnt[:, None], drop
+
+
+def hittable_pdf_sum_sparse(lt: LightTree, origin, direction, pivot,
+                            max_k: int = MAX_POTENTIAL_TARGETS, with_stats: bool = False):
+    """`hittable_pdf_sum` without any (R, E) table: collect the candidate
+    leaves through the light tree, intersect only those K triangles and get
+    their selection pdfs by bounded walks.  With `with_stats` also the (R,)
+    int32 count of stabbed emitter leaves dropped past `max_k`."""
+    cand, ok, dropped = collect_hit_leaves(lt, origin, direction, max_k)
+    c = cand.long()
+    t, bary, hit = intersect.intersect_tris(origin, direction, lt.tri_p[c], lt.tol[c],
+                                            float("inf"))
+    n_hit = linalg.normalize(torch.sum(bary[..., None] * lt.tri_n[c], dim=-2), SMALL_EPS)
+    cos = torch.abs(linalg.dot(direction[..., None, :], n_hit))
+    geom = torch.where(hit & ok, (t * t) / torch.clamp(cos * lt.area[c], min=1e-20), 0.0)
+    node_pdf = node_pdf_walk(lt, cand, origin, pivot)
+    s = torch.sum(torch.where(hit & ok, node_pdf * geom, 0.0), dim=-1)
+    return (s, dropped) if with_stats else s
 
 
 def hittable_pdf_sum(lt: LightTree, origin, direction, pivot, node_pdf=None) -> torch.Tensor:

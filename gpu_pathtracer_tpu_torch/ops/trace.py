@@ -4,11 +4,13 @@ Every closest-hit query goes through the tile query of `ops/closest_hit.py`:
 on a CUDA device that is a hand-written kernel, on the CPU the kernel's
 plain version.  Scenes above `PALLAS_MAX` triangle rows take the
 double-buffered kernel (`csrc/closest_hit_pipe.cu`), as they take the
-HBM-resident kernel in the reference package; smaller scenes take
-`csrc/closest_hit.cu`.  Large wavefronts are first sorted for coherence so
-that the kernels' per-block tile cull and early exit fire.  Hits are
-reported in sorted-SoA slots (rows of `GeometrySet.p`), with barycentrics
-recomputed differentiably for the winner.
+HBM-resident kernel in the reference package, or, when the geometry set
+carries the prefilter's edge tiles (`build_scene(edge_prefilter=True)`),
+`csrc/closest_hit_mxu.cu`; smaller scenes take `csrc/closest_hit.cu`.  Large
+wavefronts are first sorted for coherence so that the kernels' per-block
+tile cull and early exit fire.  Hits are reported in sorted-SoA slots (rows
+of `GeometrySet.p`), with barycentrics recomputed differentiably for the
+winner.
 
 The windowed any-hit query (`occluded_window`, the photon gathers'
 visibility re-check) goes through `ops/anyhit.py` by the same rules:
@@ -75,6 +77,17 @@ def park_dead(g, origin, direction, live):
             torch.where(live[:, None], direction, z_axis))
 
 
+def edge_operand(g):
+    """The prefilter's (edge_tiles, wsum) when the set's closest-hit queries
+    take the kernel with the edge prefilter, else None.  A set without the
+    fields (any object with `p`, `tiles` and `tile_aabb` serves as one) has
+    none."""
+    edge_tiles = getattr(g, "edge_tiles", None)
+    if pallas_big(g) and edge_tiles is not None:
+        return edge_tiles, g.edge_wsum
+    return None
+
+
 def _sorts(g, r: int) -> bool:
     return r >= RAY_SORT_MIN and g.tiles.shape[0] >= RAY_SORT_MIN_TILES
 
@@ -90,16 +103,17 @@ def closest_hit_sorted(g, origin, direction, t_max=float("inf"), live=None):
     result is used: the others get a budget of -1 and miss without work.
     Returns (t, slot, hit) in the caller's ray order."""
     r = origin.shape[0]
-    big = pallas_big(g)
+    big, edge = pallas_big(g), edge_operand(g)
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device).expand(r)
     if live is not None:
         t_max = torch.where(live, t_max, -1.0)
         origin, direction = park_dead(g, origin, direction, live)
     if not _sorts(g, r):
-        return closest_hit_tiles(g.tiles, g.tile_aabb, origin, direction, t_max, big=big)
+        return closest_hit_tiles(g.tiles, g.tile_aabb, origin, direction, t_max, big=big,
+                                 edge=edge)
     perm = coherence_perm(g, origin, direction, live)
     t, slot, hit = closest_hit_tiles(
-        g.tiles, g.tile_aabb, origin[perm], direction[perm], t_max[perm], big=big
+        g.tiles, g.tile_aabb, origin[perm], direction[perm], t_max[perm], big=big, edge=edge
     )
     inv = _inverse(perm)
     return t[inv], slot[inv], hit[inv]

@@ -5,7 +5,12 @@ All rays advance one bounce per step: closest hit -> winner barycentrics ->
 hit interpolation -> BSDF sample -> NEE/MIS with the light tree ->
 emission / sky -> dielectric-stack update.  Randomness is eight uniforms per
 ray and bounce, drawn from an explicit `torch.Generator` or passed in as a
-(level, 8, R) tensor so that a test can feed the reference's numbers.
+(level, 8, R) tensor so that a test can feed the reference's numbers; a scene
+whose light tree is in the sparse regime (more than LIGHT_TREE_DENSE_MAX
+emitters) also uses one uniform per step of the light-pick descent
+(`pick_uniforms`, (level, descent steps, R)).  A diffuse hit on a material
+with a scattering path length ends the path with the gather over the scene's
+SSS point cloud (`render.sss`), when the scene carries one.
 
 Shading stays in differentiable torch ops (only the closest-hit query is
 not differentiable); callers that only render wrap the call in
@@ -65,18 +70,26 @@ def _sky_color(scene: Scene, direction):
 
 
 def _nee_mis(scene: Scene, ref: materials.ReflectionRecord, normal, coming_dir,
-             hittable_pdf_weight: float, u: torch.Tensor):
+             hittable_pdf_weight: float, u: torch.Tensor, u_descent: torch.Tensor | None = None):
     """change_ref_ray: with probability w redirect the sampled ray at a
     light-tree-sampled emitter point, then weight with the mixture pdf.
-    `u` is (4, R): u_accept, the light-pick uniform, u1, u2.
-    Returns (new_dir, new_filter, factor)."""
+    `u` is (4, R): u_accept, the light-pick uniform, u1, u2; `u_descent`
+    (descent steps, R) feeds the sparse regime's pick instead of u[1].
+    Returns (new_dir, new_filter, factor, mis_dropped): mis_dropped is the
+    (R,) count of emitter leaves the sparse pdf sum dropped past
+    MAX_POTENTIAL_TARGETS (0 in the dense regime, which sums over all)."""
     lt = scene.light_tree
     pivot = torch.where(ref.diffuse[..., None], normal, ref.perfect_dir)
     w = torch.where(torch.isinf(ref.n), 0.0, hittable_pdf_weight)
     take_light = u[0] < w
 
-    node_pdf = lights_mod.leaf_node_pdfs(lt, ref.origin, pivot)
-    leaf = lights_mod.pick_light_dense(lt, node_pdf, u[1])
+    # dense regime: one (R, E) pdf table serves the pick and the mixture pdf;
+    # sparse regime: stochastic descent + bounded walks, O(R log E)
+    if lt.dense:
+        node_pdf = lights_mod.leaf_node_pdfs(lt, ref.origin, pivot)
+        leaf = lights_mod.pick_light_dense(lt, node_pdf, u[1])
+    else:
+        leaf = lights_mod.pick_light(lt, ref.origin, pivot, uniforms=u_descent)
     target = lights_mod.sample_point_on_light(lt, leaf, u[2], u[3])
     light_dir = linalg.normalize(target - ref.origin, SMALL_EPS)
 
@@ -85,7 +98,12 @@ def _nee_mis(scene: Scene, ref: materials.ReflectionRecord, normal, coming_dir,
     filt_l = sampling.phong_filter(ref.k, ref.n, pivot, new_dir)
     new_filter = torch.where(refilter[..., None], filt_l, ref.filter)
 
-    hittable = lights_mod.hittable_pdf_sum(lt, ref.origin, new_dir, pivot, node_pdf=node_pdf)
+    if lt.dense:
+        hittable = lights_mod.hittable_pdf_sum(lt, ref.origin, new_dir, pivot, node_pdf=node_pdf)
+        mis_dropped = torch.zeros(ref.pdf.shape, dtype=torch.int32, device=ref.pdf.device)
+    else:
+        hittable, mis_dropped = lights_mod.hittable_pdf_sum_sparse(
+            lt, ref.origin, new_dir, pivot, with_stats=True)
     samp_diff = sampling.diffuse_sampling_pdf(normal, new_dir)
     samp_spec = sampling.specular_sampling_pdf(
         coming_dir, new_dir, normal, ref.perfect_dir, ref.n, ref.refracted
@@ -96,7 +114,7 @@ def _nee_mis(scene: Scene, ref: materials.ReflectionRecord, normal, coming_dir,
     scat = sampling.scattering_pdf(normal, new_dir, ref.diffuse, coming_dir, ref.refracted)
     factor = scat / math.pi / torch.where(pdf != 0, pdf, 1.0)
     factor = torch.where(pdf != 0, factor, 0.0)
-    return new_dir, new_filter, factor
+    return new_dir, new_filter, factor, mis_dropped
 
 
 def trace_paths(
@@ -108,14 +126,24 @@ def trace_paths(
     stack_size: int = MATERIAL_STACK_SIZE,
     generator: torch.Generator | None = None,
     uniforms: torch.Tensor | None = None,
-) -> torch.Tensor:
+    pick_uniforms: torch.Tensor | None = None,
+    sss_first_pass: bool = False,
+    return_stats: bool = False,
+):
     """Radiance (R, 3) for a batch of rays, one wavefront step per bounce.
 
     Per bounce each ray uses eight uniforms: rows 0-3 go to `sample_bsdf`,
     rows 4-7 to `_nee_mis` (u_accept, light pick, u1, u2).  They come from
-    `uniforms` (level, 8, R) when given, else from `generator`."""
-    if scene.sss is not None:
-        raise NotImplementedError("SSS scenes are not ported yet (ROADMAP queue A, item 8)")
+    `uniforms` (level, 8, R) when given, else from `generator`.  In the
+    sparse light-tree regime the pick is a descent with one uniform per step:
+    `pick_uniforms` (level, `lights.descent_steps`, R), else drawn from
+    `generator` after the eight.
+
+    `sss_first_pass` traces the irradiance paths of the SSS point cloud: SSS
+    hits then take NEE like any other and no gather is made.  With
+    `return_stats` returns (radiance, stats), stats["mis_targets_dropped"]
+    the total of emitter leaves dropped past MAX_POTENTIAL_TARGETS over all
+    (ray, bounce) mixture-pdf sums (a 0-d int64 tensor)."""
     r = origin.shape[0]
     dev = origin.device
     g = scene.geom
@@ -126,12 +154,24 @@ def trace_paths(
     mask = torch.ones((r, 3), dtype=torch.float32, device=dev)
     acc = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     live = torch.ones((r,), dtype=torch.bool, device=dev)
+    lt = scene.light_tree
+    descent = lights_mod.descent_steps(lt) if lt is not None and not lt.dense else 0
+    gather_sss = scene.sss is not None and not sss_first_pass
+    sss_color = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    sss_done = torch.zeros((r,), dtype=torch.bool, device=dev)
+    cap_mis = torch.zeros((), dtype=torch.int64, device=dev)
 
     for i in range(level):
         if uniforms is not None:
             u = uniforms[i].to(dev)
         else:
             u = torch.rand((N_UNIFORMS, r), generator=generator, device=dev)
+        u_descent = None
+        if descent:
+            if pick_uniforms is not None:
+                u_descent = pick_uniforms[i].to(dev)
+            else:
+                u_descent = torch.rand((descent, r), generator=generator, device=dev)
         _, slot, bary, hit = trace.closest_hit(g, o, d, live=live)
         hit = hit & live
 
@@ -140,14 +180,17 @@ def trace_paths(
             scene.materials, mat_id, point, d, normal, uv, stack_ids, stack_len, u[U_BSDF]
         )
 
-        if scene.light_tree is not None:
-            do_nee = hit & ~ref.false_hit & ~ref.sss
-            new_dir, new_filter, nee_factor = _nee_mis(
-                scene, ref, normal, d, hittable_pdf_weight, u[U_ACCEPT:]
+        if lt is not None:
+            do_nee = hit & ~ref.false_hit
+            if not sss_first_pass:
+                do_nee = do_nee & ~ref.sss
+            new_dir, new_filter, nee_factor, mis_dropped = _nee_mis(
+                scene, ref, normal, d, hittable_pdf_weight, u[U_ACCEPT:], u_descent
             )
             next_dir = torch.where(do_nee[..., None], new_dir, ref.dir)
             filt = torch.where(do_nee[..., None], new_filter, ref.filter)
             factor = torch.where(do_nee, nee_factor, 1.0)
+            cap_mis = cap_mis + torch.sum(torch.where(do_nee, mis_dropped, 0))
         else:
             next_dir, filt = ref.dir, ref.filter
             factor = torch.ones((r,), dtype=torch.float32, device=dev)
@@ -169,13 +212,31 @@ def trace_paths(
         mask = new_mask
         live = live & hit & (ref.false_hit | cont)
 
+        # SSS diffuse hit: the path's radiance is the point-cloud gather,
+        # whatever it accumulated before
+        if gather_sss:
+            from gpu_pathtracer_tpu_torch.render import sss as sss_mod
+
+            sss_now = hit & ref.sss & ~sss_done
+            gathered = sss_mod.gather_sss_auto(
+                scene.sss, point, g.obj_id[torch.clamp(slot, min=0).long()],
+                scene.materials.path_length[torch.clamp(mat_id, min=0).long()],
+                scene.materials.diffuse_color(mat_id, uv), sss_now,
+            )
+            sss_color = torch.where(sss_now[..., None], gathered, sss_color)
+            sss_done = sss_done | sss_now
+            live = live & ~sss_now
+
         stack_ids, stack_len = materials.stack_rearrange(
             stack_ids, stack_len, mat_id, ref.false_hit, ref.entering, ref.refracted, hit
         )
         o = torch.where(hit[..., None], ref.origin, o)
         d = torch.where(hit[..., None], next_dir, d)
 
-    return linalg.de_nan(acc)
+    out = linalg.de_nan(torch.where(sss_done[..., None], sss_color, acc))
+    if return_stats:
+        return out, {"mis_targets_dropped": cap_mis}
+    return out
 
 
 def _pixel_chunks(width: int, height: int, ray_chunk: int, dev):

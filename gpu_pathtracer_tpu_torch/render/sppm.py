@@ -632,7 +632,8 @@ def _direct_radiance_chain(scene: Scene, diff_pt, diff_nrm, diff_uv, diff_mat, d
     diffuse hits; clamped to <= 1 per channel.
 
     `uniforms`: {"direct_bsdf": (4, R), "direct_pick": (R,), "direct_light":
-    (2, R), "direct_chain": (max_steps, 4, R)}."""
+    (2, R), "direct_chain": (max_steps, 4, R)}; in the sparse light-tree
+    regime the pick is a descent and "direct_pick" is (descent steps, R)."""
     table = scene.materials
     g = scene.geom
     lt = scene.light_tree
@@ -647,10 +648,17 @@ def _direct_radiance_chain(scene: Scene, diff_pt, diff_nrm, diff_uv, diff_mat, d
         _draw(uniforms, "direct_bsdf", None, (4, r), generator, dev),
     )
     pivot = torch.where(ref.diffuse[..., None], diff_nrm, ref.perfect_dir)
-    node_pdf = lights_mod.leaf_node_pdfs(lt, diff_pt, pivot)
-    leaf = lights_mod.pick_light_dense(
-        lt, node_pdf, _draw(uniforms, "direct_pick", None, (r,), generator, dev)
-    )
+    if lt.dense:
+        node_pdf = lights_mod.leaf_node_pdfs(lt, diff_pt, pivot)
+        leaf = lights_mod.pick_light_dense(
+            lt, node_pdf, _draw(uniforms, "direct_pick", None, (r,), generator, dev)
+        )
+    else:
+        leaf = lights_mod.pick_light(
+            lt, diff_pt, pivot,
+            uniforms=_draw(uniforms, "direct_pick", None, (lights_mod.descent_steps(lt), r),
+                           generator, dev),
+        )
     u_light = _draw(uniforms, "direct_light", None, (2, r), generator, dev)
     target = lights_mod.sample_point_on_light(lt, leaf, u_light[0], u_light[1])
     new_dir = linalg.normalize(target - diff_pt, SMALL_EPS)
@@ -658,7 +666,10 @@ def _direct_radiance_chain(scene: Scene, diff_pt, diff_nrm, diff_uv, diff_mat, d
     filt_redir = sampling.phong_filter(ref.k, ref.n, pivot, new_dir)
     ref_filter = torch.where(refilter[..., None], filt_redir, ref.filter)
 
-    hittable = lights_mod.hittable_pdf_sum(lt, diff_pt, new_dir, pivot, node_pdf=node_pdf)
+    if lt.dense:
+        hittable = lights_mod.hittable_pdf_sum(lt, diff_pt, new_dir, pivot, node_pdf=node_pdf)
+    else:
+        hittable = lights_mod.hittable_pdf_sum_sparse(lt, diff_pt, new_dir, pivot)
     scat = sampling.scattering_pdf(diff_nrm, new_dir, ref.diffuse, diff_coming, ref.refracted)
     factor = scat / math.pi / torch.where(hittable != 0, hittable, 1.0)
     factor = torch.where(hittable != 0, factor, 0.0)

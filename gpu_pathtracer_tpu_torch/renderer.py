@@ -9,8 +9,9 @@ The device is the CUDA device; `--device cpu` runs the kernels' plain
 versions on the CPU and exists for tests.  The renderer never picks the CPU
 on its own.  `render_mode` 2 in the master file selects the SPPM render
 (`render.sppm.render_sppm`), which writes its progress images beside the
-output image.  Not ported yet: `shard_rays` and SSS
-(`sss_pts_per_object > 0`); each raises NotImplementedError.
+output image.  `sss_pts_per_object > 0` samples the SSS point clouds, runs
+their first pass and writes the `_pts.ppm` splat before the render.  Not
+ported yet: `shard_rays`, which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -77,14 +78,28 @@ def render_from_config(cfg: RenderConfig, device=None, pass_log=None) -> np.ndar
 
     if cfg.shard_rays:
         raise NotImplementedError("shard_rays is not ported yet (ROADMAP queue A, item 11)")
-    if cfg.sss_pts_per_object > 0:
-        raise NotImplementedError("SSS (sss_pts_per_object > 0) is not ported yet (ROADMAP queue A, item 8)")
     dev = resolve_device(device)
     scene, camera = load_scene_from_config(cfg, dev)
+    out = pathlib.Path(cfg.image_output_path)
+    if cfg.sss_pts_per_object > 0:
+        from gpu_pathtracer_tpu_torch.render.splat import splat_points
+        from gpu_pathtracer_tpu_torch.render.sss import attach_sss
+
+        # a stream of its own, so the render's numbers do not depend on the cloud's
+        sss_generator = torch.Generator(device=dev).manual_seed(cfg.seed + 777)
+        with torch.no_grad(), _Stage("SSS point cloud + first pass", dev):
+            scene = attach_sss(
+                scene, cfg.sss_pts_per_object, sample_size=cfg.pathtracing_sample_size,
+                level=cfg.pathtracing_level, hittable_pdf_weight=cfg.hittable_pdf_weight,
+                generator=sss_generator,
+            )
+        if scene.sss is not None:
+            pts = splat_points(camera, scene.sss.pos, scene.sss.color, cfg.image_width,
+                               cfg.image_height, scene.sss.valid)
+            save_ppm(pts.cpu().numpy(), f"{out.with_suffix('')}_pts.ppm")
     if cfg.render_mode == 2:
         from gpu_pathtracer_tpu_torch.render.sppm import render_sppm
 
-        out = pathlib.Path(cfg.image_output_path)
         with torch.no_grad(), _Stage("SPPM render", dev) as st:
             img = render_sppm(scene, camera, cfg, cfg.seed,
                               output_prefix=str(out.with_suffix("")), pass_log=pass_log)

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Where a render of the PyTorch port spends its time on the card.
 
-    python3 scripts/profile_torch_render.py [cornell|mesh] [--gradient]
+    python3 scripts/profile_torch_render.py [cornell|mesh|panel|sss] [--gradient]
 
 Builds the scene of one `chip_smoke.py` main path (the Cornell box with
-spheres, or the 327,684-triangle mesh), renders 512x512 at level 8 with
+spheres, the 327,684-triangle mesh, the 2,048-emitter panel of the sparse
+light-tree regime, or the SSS box with its 4,096-point cloud attached),
+renders 512x512 at level 8 with
 hittable_pdf_weight 0.5, one sample per pixel (4 chunks x 8 bounces = 32
 wavefront steps of 65,536 rays), and prints:
 
 * the wall time of one such render without the profiler (after a warm-up);
 * from `torch.profiler` over one more: the device's busy time and its share
-  of the unprofiled wall, the number of kernel launches, the closest-hit
-  kernel's time, and the twelve largest kernels;
+  of the unprofiled wall, the number of kernel launches, the host
+  synchronizations that the sparse light regime and the SSS gather count,
+  the closest-hit kernel's time, and the twelve largest kernels;
 * CUDA-event times of the pieces of one closest-hit query on a captured
   bounce-2 wavefront: coherence sort, `prepare_rays`, `block_tile_order`,
   the kernel.
@@ -38,7 +41,8 @@ from gpu_pathtracer_tpu_torch.device import require_cuda  # noqa: E402
 from gpu_pathtracer_tpu_torch.models.camera import Camera  # noqa: E402
 from gpu_pathtracer_tpu_torch.models.scene import build_scene  # noqa: E402
 from gpu_pathtracer_tpu_torch.ops import closest_hit as ch  # noqa: E402
-from gpu_pathtracer_tpu_torch.ops import trace  # noqa: E402
+from gpu_pathtracer_tpu_torch.ops import lights, trace  # noqa: E402
+from gpu_pathtracer_tpu_torch.render import sss  # noqa: E402
 from gpu_pathtracer_tpu_torch.render.integrator import (  # noqa: E402
     render_image,
     render_image_value_and_grad,
@@ -50,7 +54,8 @@ SIZE, LEVEL, WEIGHT = 512, 8, 0.5
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("scene", nargs="?", default="cornell", choices=("cornell", "mesh"))
+    ap.add_argument("scene", nargs="?", default="cornell",
+                    choices=("cornell", "mesh", "panel", "sss"))
     ap.add_argument("--gradient", action="store_true")
     args = ap.parse_args()
     dev = require_cuda()
@@ -60,11 +65,25 @@ def main() -> int:
         scene = build_scene(testscenes.make_mesh_scene_host(subdiv=7), dev)
         cam = Camera.create(**chip_smoke.MESH_CAM, width=SIZE, height=SIZE, device=dev)
     else:
-        folder = tempfile.mkdtemp(prefix="profile_torch_")
-        testscenes.make_cornell_box(folder, spheres=True, sphere_subdiv=2)
-        scene = build_scene(obj_io.load_scene(folder, "box.obj"), dev)
+        folder = pathlib.Path(tempfile.mkdtemp(prefix="profile_torch_"))
+        obj = "box.obj"
+        if args.scene == "panel":
+            testscenes.make_emitter_panel(folder, nx=chip_smoke.PANEL["nx"],
+                                          ny=chip_smoke.PANEL["ny"])
+            obj = "panel.obj"
+        elif args.scene == "sss":
+            chip_smoke.make_sss_box(folder, testscenes)
+        else:
+            testscenes.make_cornell_box(folder, spheres=True, sphere_subdiv=2)
+        scene = build_scene(obj_io.load_scene(folder, obj), dev)
         cam = Camera.create(**chip_smoke.CORNELL_CAM, width=SIZE, height=SIZE, device=dev)
     kw = dict(sample_size=1, level=LEVEL, hittable_pdf_weight=WEIGHT)
+    if args.scene == "sss":
+        with torch.no_grad():
+            scene = sss.attach_sss(scene, chip_smoke.SSS_POINTS, sample_size=8, level=LEVEL,
+                                   hittable_pdf_weight=WEIGHT,
+                                   generator=torch.Generator(device=dev).manual_seed(7))
+        print(f"SSS cloud: {scene.sss.pos.shape[0]} points", flush=True)
 
     def forward(seed):
         with torch.no_grad():
@@ -94,6 +113,7 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    lights.host_syncs = sss.host_syncs = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(3)
@@ -110,7 +130,9 @@ def main() -> int:
     total_us = sum(device_us(e) for e in events)
     print(f"profiled wall {profiled_wall * 1e3:.1f} ms; device busy {total_us / 1e3:.1f} ms = "
           f"{total_us / 1e6 / wall:.3f} of the unprofiled wall; {launches} cudaLaunchKernel calls, "
-          f"{launches / steps:.0f} per wavefront step")
+          f"{launches / steps:.0f} per wavefront step; host syncs counted by the sparse light "
+          f"regime {lights.host_syncs / steps:.1f} and by the SSS gather "
+          f"{sss.host_syncs / steps:.1f} per step")
     for e in events:
         if "closest_hit" in e.key:
             print(f"kernel {e.key}: {device_us(e) / 1e3:.2f} ms in {e.count} launches")

@@ -211,7 +211,7 @@ def test_build_hash_covers_included_headers(monkeypatch, tmp_path):
     assert second != first and second.name == "libk.so"
     # the real kernels share one header
     monkeypatch.undo()
-    for name in ("closest_hit", "closest_hit_pipe"):
+    for name in ("closest_hit", "closest_hit_pipe", "closest_hit_mxu"):
         assert [p.name for p in _build.sources(name)] == [f"{name}.cu", "closest_hit_common.cuh"]
 
 

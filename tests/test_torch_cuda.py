@@ -129,6 +129,46 @@ def test_pipe_kernel_counts_match_plain(cuda):
     assert ((extra >= 0) & (extra <= 1)).all() and (counts[:, 2] < 161).all()
 
 
+def test_mxu_kernel_bit_equal_to_pipe_kernel_and_counts_near_plain(cuda):
+    """The kernel with the tensor-core edge prefilter: (t, slot) equal the
+    double-buffered kernel's bit for bit and the walk counts are the same;
+    the prefilter's pair counts are within 1% of the plain version's (the
+    accumulation order inside the mma is the hardware's, so a pair at the
+    margin may fall on either side), and it culls pairs."""
+    g, o, d, t_max = _mesh_query(cuda, 3000)
+    edge_tiles, wsum = closest_hit.pack_edge_tiles(g.p, g.valid)
+    rays = closest_hit.prepare_rays(g.tile_aabb, o, d, t_max)
+    order = closest_hit.block_tile_order(rays, g.tile_aabb, rays.shape[0] // 128)
+    before = closest_hit.launch_closest_hit_mxu.launches
+    t, slot, counts = closest_hit.launch_closest_hit_mxu(rays, g.tiles, edge_tiles, wsum,
+                                                         g.tile_aabb, order, counts=True)
+    t2, slot2, counts2 = closest_hit.launch_closest_hit_pipe(rays, g.tiles, g.tile_aabb, order,
+                                                             counts=True)
+    torch.cuda.synchronize()
+    assert closest_hit.launch_closest_hit_mxu.launches == before + 1
+    assert torch.equal(t, t2) and torch.equal(slot, slot2)
+    assert torch.equal(counts[:, :3], counts2)
+    rt, rslot, rcounts = closest_hit.closest_hit_mxu_reference(rays, g.tiles, edge_tiles, wsum,
+                                                               g.tile_aabb, order)
+    same = slot == rslot
+    assert float(same.float().mean()) >= 0.999
+    hit = same & (slot >= 0)
+    torch.testing.assert_close(t[hit], rt[hit], rtol=1e-6, atol=0.0)
+    assert torch.equal(counts[:, :3], rcounts[:, :3])
+    passed, culled = (int(x) for x in counts[:, 3:].sum(dim=0))
+    rpassed = int(rcounts[:, 3].sum())
+    assert culled > 0 and passed + culled == int(counts[:, 2].sum()) * 128 * 128
+    assert abs(passed - rpassed) <= 0.01 * rpassed, (passed, rpassed)
+    # through the public entry point
+    t3, slot3, _ = closest_hit.closest_hit_tiles(g.tiles, g.tile_aabb, o, d, t_max, big=True,
+                                                 edge=(edge_tiles, wsum))
+    assert torch.equal(t3, torch.where(slot2[:3000] >= 0, t2[:3000], float("inf")))
+    assert torch.equal(slot3, slot2[:3000])
+    with pytest.raises(ValueError):
+        closest_hit.launch_closest_hit_mxu(rays, g.tiles, edge_tiles.float(), wsum, g.tile_aabb,
+                                           order)
+
+
 def test_pipe_launch_refuses_what_the_kernel_does_not_take(cuda):
     tris = torch.rand((300, 3, 3), device=cuda)
     tiles, aabb = closest_hit.pack_tiles(tris, intersect.triangle_tolerance(tris),

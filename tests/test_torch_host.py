@@ -139,7 +139,7 @@ def test_fresh_interpreter_loads_no_jax():
         "import gpu_pathtracer_tpu_torch.utils.testscenes, chip_smoke\n"
         "import gpu_pathtracer_tpu_torch.render.sppm, gpu_pathtracer_tpu_torch.render.splat\n"
         "import gpu_pathtracer_tpu_torch.ops.anyhit, gpu_pathtracer_tpu_torch.ops.hashgrid\n"
-        "import gpu_pathtracer_tpu_torch.ops.bounding_sphere\n"
+        "import gpu_pathtracer_tpu_torch.ops.bounding_sphere, gpu_pathtracer_tpu_torch.render.sss\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'flax', 'gpu_pathtracer_tpu'))\n"
         "assert 'gpu_pathtracer_tpu_torch.render.integrator' in sys.modules\n"

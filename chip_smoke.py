@@ -9,16 +9,23 @@ Phases (any failure exits non-zero; nothing is caught):
      loads and double-buffered, and the double-buffered closest hit with the
      tensor-core edge prefilter) built with nvcc from the checkout's sources
      (one nvcc per source, started together), with their ptxas lines;
-  3. the plain-load kernel (`closest_hit`) against its plain PyTorch version
-     on the card: a random triangle soup with dead rays and a ragged tail,
-     and Cornell wavefronts at bounce 0 and bounce 3 (65,536 rays x 972
-     triangles, the Cornell main path's shape), with both times;
-  4. the double-buffered kernel (`closest_hit_pipe`) on wavefronts of the
-     327,684-triangle mesh at bounce 0 and bounce 2: against its plain
-     version on a 16,384-ray subset, bit-equal to `closest_hit` on the full
-     65,536 rays (and on a ragged tail), the per-block fetched/scanned tile
-     counts, the times of both kernels, of the plain version and of the
-     host-side preparation of a launch;
+  3. the plain-load kernel (`closest_hit`, the group walk: 8-ray groups,
+     8 threads a ray) against its plain PyTorch version on the card, and its
+     per-group counts against the group walk's plain version: a random
+     triangle soup with dead rays and a ragged tail, and Cornell wavefronts
+     at bounce 0 and bounce 3 (65,536 rays x 972 triangles, the Cornell main
+     path's shape), with both times and two bounds (from its own counts and
+     from the 128-ray block walk's: `closest_hit_mxu`'s counts on the same
+     rays);
+  4. the ring-buffered kernel (`closest_hit_pipe`, the same walk with TMA
+     copies) on wavefronts of the 327,684-triangle mesh at bounce 0 and
+     bounce 2: against its plain version (values and per-group counts) on a
+     16,384-ray subset, bit-equal to `closest_hit` with the same walk on the
+     full 65,536 rays (and on a ragged tail), the per-group counts with the
+     most tiles scanned by a group, both kernels' times in turns, the cycle
+     split of the slowest group, the plain version's time, the host-side
+     preparation of a launch, and two bounds (its own counts; the 128-ray
+     block walk's, from `closest_hit_mxu`'s counts on the same rays);
   5. the same uniforms through `trace_paths` on the card and on the CPU;
   6. the Cornell main path: `renderer.render_from_config` on a master file
      for the Cornell box with spheres at 512x512, 8 spp, level 8,
@@ -54,8 +61,9 @@ Phases (any failure exits non-zero; nothing is caught):
  13. the kernel with the edge prefilter (`closest_hit_mxu`) against
      `closest_hit_pipe` and its plain version: the soup, and the mesh
      wavefronts at bounce 0 and bounce 2: (t, slot) bit-equal to
-     `closest_hit_pipe` on every ray, against the plain version on the
-     16,384-ray subset, the walk counts equal to `closest_hit_pipe`'s, the
+     `closest_hit_pipe` on every ray (the 128-ray block walk against the
+     group walk), against the plain version on the 16,384-ray subset with its
+     walk counts equal to the plain version's (the block walk), the
      prefilter's pair counts within 1% of the plain version's; both kernels'
      times on the same rays, the share of pairs culled (per warp, as the
      kernel culls, and per pair), `pack_edge_tiles`' time and bytes;
@@ -80,6 +88,7 @@ reference is 48x48, the render forced onto `closest_hit` and the mesh's CPU
 reference take 2 samples a pixel, the Cornell CPU reference 16, the
 many-lights one 4, and the ragged-tail mesh wavefronts hold 4,096 rays
 against the plain versions.
+Each phase logs its seconds, and a line before the JSON record lists them.
 The line before the card's line is the per-kernel JSON record; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -121,6 +130,24 @@ PEAK_BYTES = 3.35e12  # H100 SXM, HBM bytes/s
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+class PhaseClock:
+    """Seconds per phase: `start(n)` ends the phase that ran before it."""
+
+    def __init__(self):
+        self.seconds, self.current, self.t0 = {}, None, time.perf_counter()
+
+    def start(self, n: int) -> None:
+        now = time.perf_counter()
+        if self.current is not None:
+            self.seconds[self.current] = round(now - self.t0, 1)
+            log(f"phase {self.current} took {now - self.t0:.1f}s")
+        self.current, self.t0 = n, now
+
+    def report(self) -> None:
+        self.start(None)
+        log("seconds per phase: " + ", ".join(f"{n}: {s}" for n, s in self.seconds.items()))
 
 
 def check(ok: bool, what: str) -> None:
@@ -169,26 +196,48 @@ def agreement(name, t, slot, rt, rslot, stats):
     stats["max_abs_err"] = max(stats["max_abs_err"], err)
 
 
-def bound_ms(rays, tiles, counts, out_bytes: int = 8, extra_tile_bytes: int = 0):
+def bound_ms(rays, tiles, counts, out_bytes: int = 8, extra_tile_bytes: int = 0,
+             unit: int = 128):
     """The least time the card could take for one launch's work (`out_bytes`
     of results per ray: 8 for a closest hit, 2 for the any-hit bits), from the
-    launch's own per-block counts: the fp32 pair tests of the tiles that
-    were scanned at the fp32 peak, against the bytes that must move (rays
-    in, results out, each scanned tile once with `extra_tile_bytes` of
-    further operands, the walked part of the order table and of the tile
-    boxes) at the memory rate."""
+    launch's own counts (one row per `unit` rays that walk together): the
+    fp32 pair tests of the tiles that were scanned at the fp32 peak, against
+    the bytes that must move (rays in, results out, each scanned tile once
+    with `extra_tile_bytes` of further operands, the walked part of each
+    128-ray row of the order table and of the tile boxes) at the memory
+    rate."""
     n_tiles, rows, tile = tiles.shape
-    steps, _, scanned = (int(x) for x in counts[:, :3].sum(dim=0))
-    flops = scanned * 128 * tile * FLOPS_PER_PAIR
+    scanned = int(counts[:, 2].sum())
+    walked = int(counts[:, 0].reshape(-1, 128 // unit).amax(dim=1).sum())
+    flops = scanned * unit * tile * FLOPS_PER_PAIR
     nbytes = (rays.numel() * 4 + rays.shape[0] * out_bytes
-              + min(scanned, n_tiles) * (rows * tile * 4 + extra_tile_bytes) + steps * (4 + 32))
+              + min(scanned, n_tiles) * (rows * tile * 4 + extra_tile_bytes) + walked * (4 + 32))
     by_ops, by_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
 
 
-def compare_plain_load(name, rays, tiles, aabb, stats, time_it=False):
-    """`closest_hit` vs its plain version on the same prepared rays; when
-    asked, both times and the launch's bound."""
+def group_rows(blocks, per_row: int):
+    """The groups (rows of the group walk's counts) of the given 128-ray rows."""
+    import torch
+
+    return (blocks[:, None] * per_row
+            + torch.arange(per_row, device=blocks.device)[None, :]).reshape(-1)
+
+
+def group_stats(counts) -> str:
+    walked, fetched, scanned = (counts[:, i].float() for i in range(3))
+    return (f"per group: walked {float(walked.mean()):.1f} (most {int(walked.max())}), fetched "
+            f"{float(fetched.mean()):.2f}, scanned {float(scanned.mean()):.2f} (most "
+            f"{int(scanned.max())})")
+
+
+def compare_plain_load(name, rays, tiles, aabb, stats, time_it=False, edge=None):
+    """`closest_hit` vs its plain version on the same prepared rays, and its
+    per-group counts vs the group walk's plain version (ring 0); when asked,
+    its time and two bounds: from its own counts and from the 128-ray block
+    walk's (the walk of B1 before the group walk), which the prefilter kernel
+    keeps: its counts on the same rays (`edge` = `pack_edge_tiles` of the
+    scene)."""
     import torch
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
 
@@ -199,43 +248,59 @@ def compare_plain_load(name, rays, tiles, aabb, stats, time_it=False):
     live = float((rays[:, 6] > 0).float().mean())
     agreement(f"{name} ({tiles.shape[0] * tiles.shape[2]} tri slots, live {live:.3f})",
               t, slot, rt, rslot, stats)
+    _, _, rc = ch.closest_hit_pipe_reference(rays, tiles, aabb, order, ring=0)
+    same_counts = float((rc == counts).all(dim=1).float().mean())
+    log(f"{name}: closest_hit {group_stats(counts)}; counts equal the plain walk's on "
+        f"{same_counts:.4f} of the groups")
+    check(same_counts >= MIN_SLOT_AGREE, f"{name}: closest_hit's counts differ from the plain "
+          f"walk's on {1 - same_counts:.4f} of the groups")
     if not time_it:
         return None
-    ms = cuda_ms(lambda: ch.launch_closest_hit(rays, tiles, aabb, order), 20)
+    ms = [cuda_ms(lambda: ch.launch_closest_hit(rays, tiles, aabb, order), 20) for _ in range(2)]
     plain_ms = cuda_ms(lambda: ch.closest_hit_rays_reference(rays, tiles), 3)
-    bound, by = bound_ms(rays, tiles, counts)
-    log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by})")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    bound, by = bound_ms(rays, tiles, counts, unit=ch.GROUP_RAYS)
+    *_, bc = ch.launch_closest_hit_mxu(rays, tiles, *edge, aabb, order, counts=True)
+    block_bound, block_by = bound_ms(rays, tiles, bc[:, :3])
+    log(f"{name}: kernel {ms[0]:.4f} / {ms[1]:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound:.5f} ms ({by}); the 128-ray block walk's bound {block_bound:.5f} ms ({block_by}, "
+        f"most tiles scanned by a block {int(bc[:, 2].max())})")
+    return dict(ms=min(ms), plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                bound_ms_block_walk=block_bound)
 
 
 def compare_pipe(name, rays, tiles, aabb, stats, pipe_stats, time_it=False,
-                 plain_subset=PLAIN_SUBSET):
+                 plain_subset=PLAIN_SUBSET, edge=None):
     """`closest_hit_pipe` on prepared rays: bit-equal to `closest_hit` on all
-    of them, against its plain version on a subset of whole ray blocks spread
-    over the batch, and the lagging-prefetch counts."""
+    of them with the same walk (entries walked and tiles scanned per group),
+    against its plain version (values and per-group counts) on a subset of
+    whole 128-ray rows spread over the batch.  When asked, both kernels'
+    times in turns, the cycle split of the slowest group, and two bounds:
+    from the kernel's own counts and from the 128-ray block walk's, which the
+    prefilter kernel keeps (its counts on the same rays; `edge` =
+    `pack_edge_tiles` of the scene)."""
     import torch
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
 
     n_blocks = rays.shape[0] // ch.RAY_BLOCK
+    per_row = ch.RAY_BLOCK // ch.GROUP_RAYS
     order = ch.block_tile_order(rays, aabb, n_blocks)
     t1, slot1, c1 = ch.launch_closest_hit(rays, tiles, aabb, order, counts=True)
     t2, slot2, c2 = ch.launch_closest_hit_pipe(rays, tiles, aabb, order, counts=True)
     torch.cuda.synchronize()
     equal = bool(torch.equal(t1, t2)) and bool(torch.equal(slot1, slot2))
-    steps, fetched, scanned = (c2[:, i].long() for i in range(3))
-    extra = fetched - scanned
+    extra = c2[:, 1].long() - c2[:, 2].long()
     log(f"{name}: {rays.shape[0]} rays x {tiles.shape[0]} tiles; closest_hit_pipe == closest_hit "
-        f"bit for bit: {equal}; per block: steps {float(steps.float().mean()):.1f}, fetched "
-        f"{float(fetched.float().mean()):.2f}, scanned {float(scanned.float().mean()):.2f} "
-        f"(closest_hit scans {float(c1[:, 2].float().mean()):.2f}); fetched but not scanned: "
-        f"{int(extra.sum())} tiles in {n_blocks} blocks")
+        f"bit for bit: {equal} ({int(((t1 != t2) | (slot1 != slot2)).sum())} rays differ); "
+        f"closest_hit_pipe {group_stats(c2)}; fetched but not scanned: {int(extra.sum())} tiles "
+        f"in {c2.shape[0]} groups")
     check(equal, f"{name}: closest_hit_pipe and closest_hit differ")
-    check(bool(torch.equal(c1[:, 0], c2[:, 0])), f"{name}: the two kernels walk different steps")
-    check(bool((extra >= 0).all()) and bool((extra <= 1).all()),
-          f"{name}: a block fetched {int(extra.max())} tiles more than it scanned")
-    check(bool((c2[:, 2] >= c1[:, 2]).all()), f"{name}: closest_hit_pipe scanned fewer tiles")
+    check(bool(torch.equal(c1[:, 0], c2[:, 0])) and bool(torch.equal(c1[:, 2], c2[:, 2])),
+          f"{name}: the two kernels walk differently")
+    check(bool(torch.equal(c1[:, 1], c1[:, 2])), f"{name}: closest_hit staged a tile it did not scan")
+    check(bool((extra >= 0).all()) and bool((extra <= ch.PIPE_RING).all()),
+          f"{name}: a group fetched {int(extra.max())} tiles more than it scanned")
 
-    # the plain version on every k-th block
+    # the plain version on every k-th row
     stride = max(1, rays.shape[0] // plain_subset)
     blocks = torch.arange(0, n_blocks, stride, device=rays.device)
     rows = (blocks[:, None] * ch.RAY_BLOCK
@@ -247,11 +312,11 @@ def compare_pipe(name, rays, tiles, aabb, stats, pipe_stats, time_it=False,
     plain_s = time.perf_counter() - t0
     agreement(f"{name}, plain version on {sub_rays.shape[0]} rays", t2[rows], slot2[rows],
               rt, rslot, stats)
-    same_counts = float((rc == c2[blocks]).all(dim=1).float().mean())
+    same_counts = float((rc == c2[group_rows(blocks, per_row)]).all(dim=1).float().mean())
     log(f"{name}: plain version's counts equal the kernel's on {same_counts:.4f} of the "
-        f"subset's blocks")
-    check(same_counts >= MIN_SLOT_AGREE, f"{name}: fetched/scanned counts differ from the plain "
-          f"version's on {1 - same_counts:.4f} of the blocks")
+        f"subset's groups")
+    check(same_counts >= MIN_SLOT_AGREE, f"{name}: walked/fetched/scanned counts differ from the "
+          f"plain version's on {1 - same_counts:.4f} of the groups")
     if not time_it:
         return
     # kernels in turns, on the same wavefront
@@ -260,14 +325,23 @@ def compare_pipe(name, rays, tiles, aabb, stats, pipe_stats, time_it=False,
     ms2b = cuda_ms(lambda: ch.launch_closest_hit_pipe(rays, tiles, aabb, order), 20)
     ms1b = cuda_ms(lambda: ch.launch_closest_hit(rays, tiles, aabb, order), 20)
     order_ms = cuda_ms(lambda: ch.block_tile_order(rays, aabb, n_blocks), 20)
-    bound, by = bound_ms(rays, tiles, c2)
+    *_, cyc = ch.launch_closest_hit_pipe(rays, tiles, aabb, order, counts=True, cycles=True)
+    slow = int(torch.argmax(cyc[:, 0]))
+    split = float(cyc[slow, 1]) / max(float(cyc[slow, 0]), 1.0)
+    bound, by = bound_ms(rays, tiles, c2, unit=ch.GROUP_RAYS)
+    *_, c5 = ch.launch_closest_hit_mxu(rays, tiles, *edge, aabb, order, counts=True)
+    block_bound, block_by = bound_ms(rays, tiles, c5[:, :3])
     log(f"{name}: closest_hit_pipe {ms2a:.4f} / {ms2b:.4f} ms, closest_hit {ms1a:.4f} / "
         f"{ms1b:.4f} ms (20 launches each, in turns), plain version {plain_s * 1e3:.1f} ms "
-        f"(one launch, {sub_rays.shape[0]} rays), block_tile_order {order_ms:.4f} ms, "
-        f"bound {bound:.5f} ms ({by})")
+        f"(one launch, {sub_rays.shape[0]} rays), block_tile_order {order_ms:.4f} ms; the "
+        f"slowest group (walked {int(c2[slow, 0])}, scanned {int(c2[slow, 2])}) spends {split:.3f} "
+        f"of its {int(cyc[slow, 0])} cycles staging and scanning; bound {bound:.5f} ms ({by}), "
+        f"the 128-ray block walk's {block_bound:.5f} ms ({block_by}; most tiles scanned by a "
+        f"block {int(c5[:, 2].max())})")
     pipe_stats.update(ms=min(ms2a, ms2b), plain_ms=plain_s * 1e3, plain_rays=sub_rays.shape[0],
                       plain_load_ms=min(ms1a, ms1b), order_ms=order_ms, bound_ms=bound,
-                      bound_by=by)
+                      bound_by=by, bound_ms_block_walk=block_bound, scan_share_slowest=split,
+                      most_scanned=int(c2[:, 2].max()))
 
 
 def compare_mxu(name, rays, g, stats, out, time_it=False, plain_subset=PLAIN_SUBSET):
@@ -282,7 +356,7 @@ def compare_mxu(name, rays, g, stats, out, time_it=False, plain_subset=PLAIN_SUB
     tiles, aabb, edge, wsum = g.tiles, g.tile_aabb, g.edge_tiles, g.edge_wsum
     n_blocks = rays.shape[0] // ch.RAY_BLOCK
     order = ch.block_tile_order(rays, aabb, n_blocks)
-    t2, slot2, c2 = ch.launch_closest_hit_pipe(rays, tiles, aabb, order, counts=True)
+    t2, slot2 = ch.launch_closest_hit_pipe(rays, tiles, aabb, order)
     t5, slot5, c5 = ch.launch_closest_hit_mxu(rays, tiles, edge, wsum, aabb, order, counts=True)
     torch.cuda.synchronize()
     equal = bool(torch.equal(t2, t5)) and bool(torch.equal(slot2, slot5))
@@ -297,7 +371,6 @@ def compare_mxu(name, rays, g, stats, out, time_it=False, plain_subset=PLAIN_SUB
         f"scanned tiles the prefilter passed {passed} to the exact test and culled {culled} "
         f"({share:.4f})")
     check(equal, f"{name}: closest_hit_mxu and closest_hit_pipe differ on {differ} rays")
-    check(bool(torch.equal(c5[:, :3], c2)), f"{name}: the walk counts differ from closest_hit_pipe's")
     check(passed + culled == pairs, f"{name}: passed + culled != the pairs of the scanned tiles")
 
     # the plain version on every k-th block
@@ -747,6 +820,8 @@ def main() -> int:
     from gpu_pathtracer_tpu_torch.utils import config, obj_io, testscenes
 
     t_start = time.perf_counter()
+    phases = PhaseClock()
+    phases.start(1)
     # ---- 1. device --------------------------------------------------------
     dev = require_cuda()
     card = nvidia_smi()
@@ -756,6 +831,7 @@ def main() -> int:
     # the light-tree pdf matmul runs in full float32
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
 
+    phases.start(2)
     # ---- 2. build -----------------------------------------------------------
     kernels = ("closest_hit", "closest_hit_pipe", "anyhit", "anyhit_pipe", "closest_hit_mxu")
     t0 = time.perf_counter()
@@ -768,6 +844,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
+    phases.start(3)
     # ---- 3. closest_hit vs plain ------------------------------------------
     stats = {"max_abs_err": 0.0}
     pipe_err = {"max_abs_err": 0.0}
@@ -803,12 +880,17 @@ def main() -> int:
     camera = Camera.create(**CORNELL_CAM, width=MAIN["width"], height=MAIN["height"], device=dev)
     waves = wavefronts(scene, camera, WAVE_RAYS, 4, seed=1)
     g = scene.geom
+    cornell_edge = ch.pack_edge_tiles(g.p, g.valid)
+    b1s = {}
     for bounce in (0, 3):
         compare_plain_load(f"cornell bounce {bounce} (ragged)", sorted_rays(g, waves[bounce], 100),
                            g.tiles, g.tile_aabb, stats)
-        b1 = compare_plain_load(f"cornell bounce {bounce}", sorted_rays(g, waves[bounce]),
-                                g.tiles, g.tile_aabb, stats, time_it=True)
+        b1s[bounce] = compare_plain_load(f"cornell bounce {bounce}", sorted_rays(g, waves[bounce]),
+                                         g.tiles, g.tile_aabb, stats, time_it=True,
+                                         edge=cornell_edge)
+    b1 = b1s[3]
 
+    phases.start(4)
     # ---- 4. closest_hit_pipe on the mesh ----------------------------------
     t0 = time.perf_counter()
     mesh_host = testscenes.make_mesh_scene_host(subdiv=MESH_SUBDIV)
@@ -828,17 +910,21 @@ def main() -> int:
     mwaves = wavefronts(mesh, mcam, WAVE_RAYS, 3, seed=2)
     check(ch.launch_closest_hit_pipe.launches == 3 and ch.launch_closest_hit.launches == 0,
           "the mesh wavefronts did not run on closest_hit_pipe alone")
-    b2 = {}
-    for bounce in (0, 2):
+    mesh_edge = ch.pack_edge_tiles(mg.p, mg.valid)
+    b2s = {0: {}, 2: {}}
+    for bounce, b2 in b2s.items():
         compare_pipe(f"mesh bounce {bounce} (ragged)", sorted_rays(mg, mwaves[bounce], 100),
                      mg.tiles, mg.tile_aabb, pipe_err, {}, plain_subset=PLAIN_SUBSET // 4)
         compare_pipe(f"mesh bounce {bounce}", sorted_rays(mg, mwaves[bounce]),
-                     mg.tiles, mg.tile_aabb, pipe_err, b2, time_it=True)
+                     mg.tiles, mg.tile_aabb, pipe_err, b2, time_it=True, edge=mesh_edge)
+    del mesh_edge
+    b2 = b2s[2]
     prep_ms = cuda_ms(lambda: sorted_rays(mg, mwaves[2]), 10)
     log(f"mesh bounce 2: coherence sort + prepare_rays {prep_ms:.4f} ms per launch "
         f"(block_tile_order apart, above)")
     b2["prep_ms"] = prep_ms
 
+    phases.start(5)
     # ---- 5. same uniforms, card vs CPU -------------------------------------
     scene_cpu = build_scene(obj_io.load_scene(folder, "box.obj"), "cpu")
     cam32 = Camera.create(**CORNELL_CAM, width=32, height=32)
@@ -857,6 +943,7 @@ def main() -> int:
         f"means {float(col_gpu.mean()):.6f} / {float(col_cpu.mean()):.6f}")
     check(share >= 0.99, f"same uniforms: only {share:.4f} of rays match")
 
+    phases.start(6)
     # ---- 6. Cornell main path -------------------------------------------------
     cfg = config.RenderConfig(
         input_folder_path=f"{folder}/", obj_filename="box.obj",
@@ -907,6 +994,7 @@ def main() -> int:
     check(rel < 0.05, f"main-path image mean off the CPU plain path by {rel:.4f}")
     check(rel64 < 0.02, f"64x64 card image mean off the CPU plain path by {rel64:.4f}")
 
+    phases.start(7)
     # ---- 7. mesh main path ------------------------------------------------------
     kw = dict(width=MAIN["width"], height=MAIN["height"], sample_size=MAIN["spp"],
               level=MAIN["level"], hittable_pdf_weight=MAIN["weight"])
@@ -966,6 +1054,7 @@ def main() -> int:
         f"subdiv={MESH_CPU_SUBDIV}, 64x64 spp {cpu_spp}: {mref:.6f} ({mcpu_s:.1f}s); rel diff {mrel:.4f}")
     check(mrel < 0.05, f"mesh image mean off the CPU plain path by {mrel:.4f}")
 
+    phases.start(8)
     # ---- 8. gradient ------------------------------------------------------------
     bw_spp = max(1, MAIN["spp"] // 4)
     target = torch.as_tensor(img, device=dev)
@@ -1028,6 +1117,7 @@ def main() -> int:
     check(bool((params["ke"] >= 0).all()) and bool(torch.isfinite(params["ke"]).all()),
           "optimize left a negative or non-finite parameter")
 
+    phases.start(9)
     # ---- 9. SPPM main path ----------------------------------------------------------
     sppm_folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sppm_"))
     scfg = sppm_box_master(sppm_folder, False, config, testscenes)
@@ -1098,6 +1188,7 @@ def main() -> int:
     check(same["gather"] >= 0.999 and same["overflow_equal"],
           f"SPPM same inputs: {same['gather']:.4f} of the gathered pixels agree")
 
+    phases.start(10)
     # ---- 10. the any-hit kernels on the recorded gather wavefront ------------------
     box_scene = build_scene(obj_io.load_scene(sppm_folder, "box.obj"), dev)
     bg = box_scene.geom
@@ -1116,6 +1207,7 @@ def main() -> int:
     compare_anyhit("SPPM box, live gather rays", box_live, bg.tiles, bg.tile_aabb, anyhit_err,
                    b34_box_live, plain_subset=box_live.shape[0], time_it=True)
 
+    phases.start(11)
     # ---- 11. the fog configuration -----------------------------------------------------
     fog_folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_fog_"))
     fcfg = sppm_box_master(fog_folder, True, config, testscenes, ppm_num_pass=1)
@@ -1136,6 +1228,7 @@ def main() -> int:
           "the fog pass's gathers did not run on anyhit alone")
     check(bool(np.isfinite(fimg).all()) and fimg.mean() > 0, "fog image not finite or black")
 
+    phases.start(12)
     # ---- 12. the mesh configuration ----------------------------------------------------
     mcfg = config.RenderConfig(image_width=SPPM["width"], image_height=SPPM["height"],
                                ppm_num_photon_per_pass=SPPM["photons"], ppm_num_pass=1,
@@ -1170,6 +1263,7 @@ def main() -> int:
     compare_anyhit("mesh, live gather rays", mesh_live, mg.tiles, mg.tile_aabb, anyhit_err,
                    b34_mesh_live, plain_subset=PLAIN_SUBSET, time_it=True)
 
+    phases.start(13)
     # ---- 13. closest_hit_mxu against closest_hit_pipe and its plain version ---------
     mxu_err = {"max_abs_err": 0.0}
     soup_g = SimpleNamespace(tiles=tiles, tile_aabb=aabb)
@@ -1195,6 +1289,7 @@ def main() -> int:
     compare_mxu("mesh bounce 0", sorted_rays(pg, mwaves[0]), pg, mxu_err, b5_bounce0, time_it=True)
     compare_mxu("mesh bounce 2", sorted_rays(pg, mwaves[2]), pg, mxu_err, b5, time_it=True)
 
+    phases.start(14)
     # ---- 14. mesh main path with the prefilter ------------------------------------------
     mimg_pf, mesh_pf_s = render_mesh(mesh_pf)
     mxu_launches = ch.launch_closest_hit_mxu.launches
@@ -1209,6 +1304,7 @@ def main() -> int:
           f"prefilter main path: {mxu_launches} closest_hit_mxu launches, expected {expected}")
     check(bool(np.array_equal(mimg, mimg_pf)), "the prefilter render's image differs")
 
+    phases.start(15)
     # ---- 15. many lights ---------------------------------------------------------------------
     panel_folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_panel_"))
     testscenes.make_emitter_panel(panel_folder, nx=PANEL["nx"], ny=PANEL["ny"])
@@ -1302,6 +1398,7 @@ def main() -> int:
     check(prel_cpu < 0.05, f"many-lights image mean off the CPU render by {prel_cpu:.4f}")
     check(prel_dense < 0.05, f"many-lights image mean off the dense-table render by {prel_dense:.4f}")
 
+    phases.start(16)
     # ---- 16. SSS ---------------------------------------------------------------------------------
     sss_folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sss_"))
     make_sss_box(sss_folder, testscenes)
@@ -1360,6 +1457,7 @@ def main() -> int:
     check(s_card > 0 and srel_sphere < 0.10,
           f"SSS: the sphere's mean is off the CPU render's by {srel_sphere:.4f}")
 
+    phases.report()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     record = {"kernels": [
         {
@@ -1375,6 +1473,10 @@ def main() -> int:
             "bound_by": b1["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a closest hit
             "shape": "65,536 rays x 972 triangles, Cornell bounce 3",
+            # the same bound from the 128-ray block walk's counts (B5's on the same rays)
+            "bound_ms_block_walk": b1["bound_ms_block_walk"],
+            "bounce_0": {k: b1s[0][k] for k in ("ms", "bound_ms", "bound_by",
+                                                "bound_ms_block_walk")},
         },
         {
             "name": "closest_hit_pipe",
@@ -1393,6 +1495,13 @@ def main() -> int:
             "closest_hit_ms_same_rays": b2["plain_load_ms"],
             "block_tile_order_ms": b2["order_ms"],
             "sort_and_prepare_ms": b2["prep_ms"],
+            # the same bound from the 128-ray block walk's counts (B5's on the same rays)
+            "bound_ms_block_walk": b2["bound_ms_block_walk"],
+            "most_tiles_scanned_by_a_group": b2["most_scanned"],
+            "slowest_group_scan_share": b2["scan_share_slowest"],
+            "bounce_0": {k: b2s[0][k] for k in ("ms", "plain_load_ms", "bound_ms", "bound_by",
+                                                "bound_ms_block_walk", "most_scanned",
+                                                "scan_share_slowest")},
         },
         {
             "name": "anyhit",

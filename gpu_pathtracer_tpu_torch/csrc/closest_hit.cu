@@ -4,24 +4,22 @@
 // (gpu_pathtracer_tpu/ops/pallas_trace.py): for every ray, the closest
 // watertight-Woop hit among the scene's triangles, returned as (t, slot)
 // with slot a row of the Morton-sorted triangle SoA (-1 on a miss).
-// Layouts and the pair arithmetic are in closest_hit_common.cuh, shared with
-// the double-buffered kernel of closest_hit_pipe.cu.
+// Layouts, the pair arithmetic and the walk are in closest_hit_common.cuh,
+// shared with the ring-buffered kernel of closest_hit_pipe.cu.
 //
-// One thread per ray, 128 rays per block.  A block reduces its rays' origin
-// box and max |d|_inf once, then walks its row of `order`: per tile it
-// computes the Chebyshev lower bound from the origin box to the tile box and
-// stops once lb * (1 - 1e-6) >= max(best_t) * dmax (no later tile can
-// improve any ray); it votes on the per-ray slab test against best_t and,
-// if any ray's slab reaches the tile, stages the tile's 10 rows in shared
-// memory and every thread scans its triangles in order.
+// A block is a group of 8 rays with 8 threads per ray; it walks the tile
+// order of its 128-ray row 32 entries at a time (one batched cull, one
+// candidate mask) and stages each candidate tile with plain loads into one
+// shared-memory buffer (`group_walk`).
 //
 // What bounds it on this card: fp32 ALU work per (ray, triangle) pair
-// (~50 flops plus a division for pairs that pass the edge tests); the tiles
-// are L2-resident at the main path's 972 triangles (~40 KB), and each tile
-// is read from shared memory as a broadcast.  The design spends that ALU
-// budget only where it can matter: the tile cull skips tiles no ray of the
-// block can reach, and the front-to-back early exit stops the walk once
-// the block's hits are closer than every remaining tile.
+// (~42 flops plus a division for pairs that pass the edge tests), and, on a
+// launch, its slowest group.  The tiles are L2-resident at the main path's
+// 972 triangles (~40 KB) and each staged tile is read from shared memory as a
+// broadcast.  Small groups with several threads per ray shorten the slowest
+// group's chain of serial pair tests eight times over and let an SM hold
+// enough warps to hide their latency; the batched cull costs two barriers
+// per 32 order entries instead of two per entry.
 
 #include "closest_hit_common.cuh"
 
@@ -31,72 +29,61 @@ namespace {
 
 constexpr int kMaxTile = 1024;  // 10 rows * 1024 * 4 B = 40 KB of shared memory
 
-__global__ void __launch_bounds__(kBlock)
+// Stages a candidate tile with plain loads, all threads, one barrier.
+struct PlainStager {
+  float* buf;
+  const float* tris;
+  int tile;
+  const int* ti;
+  unsigned pending;
+  int fetched;
+
+  __device__ void begin_batch(const int* batch_ti, unsigned mask) {
+    ti = batch_ti;
+    pending = mask;
+  }
+  __device__ const float* acquire() {
+    const int k = __ffs(pending) - 1;
+    pending &= pending - 1;
+    const float* src = tris + (long long)ti[k] * kTileRows * tile;
+    for (int i = threadIdx.x; i < kTileRows * tile; i += kGroupThreads) buf[i] = src[i];
+    __syncthreads();
+    ++fetched;
+    return buf;
+  }
+  __device__ void release() {}
+  __device__ void drain() {}
+};
+
+__global__ void __launch_bounds__(kGroupThreads)
 closest_hit_kernel(const float* __restrict__ rays, const float* __restrict__ tris,
                    const float* __restrict__ aabb, const int* __restrict__ order,
                    float* __restrict__ out_t, int* __restrict__ out_slot,
-                   int* __restrict__ out_counts, int n_tiles, int tile) {
+                   int* __restrict__ out_counts, long long* __restrict__ out_cycles,
+                   int n_tiles, int tile) {
   extern __shared__ float s_tile[];  // (10, tile)
-  __shared__ float s_box[7][kWarps];
-  __shared__ float s_best[kWarps];
-  __shared__ int s_any[kWarps];
-
-  const int tid = threadIdx.x;
-  const long long ray = (long long)blockIdx.x * kBlock + tid;
-  const Ray q = load_ray(rays + ray * 8);
-  const BlockBox bb = block_box(q, s_box);
-
-  float best_t = fminf(kInf, q.t_cap);
-  int best_slot = -1;
-  const int* my_order = order + (long long)blockIdx.x * n_tiles;
-  int n_steps = 0, n_computed = 0;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    ++n_steps;
-    const int ti = my_order[j];
-    const float* b = aabb + (long long)ti * 8;
-    const float lb = tile_lb(b, bb);
-    float block_best;
-    bool any;
-    block_max_any(best_t, slab_hit(b, q, best_t), s_best, s_any, block_best, any);
-    // uniform across the block: every value in it is block-wide
-    if (!(lb * kLbSlack < block_best * bb.dmax)) break;
-
-    if (any) {
-      const float* src = tris + (long long)ti * kTileRows * tile;
-      for (int i = tid; i < kTileRows * tile; i += kBlock) s_tile[i] = src[i];
-      __syncthreads();
-      scan_tile(s_tile, tile, ti * tile, q, best_t, best_slot);
-      ++n_computed;
-    }
-    __syncthreads();  // s_tile / s_best / s_any are rewritten next tile
-  }
-
-  out_t[ray] = best_t;
-  out_slot[ray] = best_slot;
-  if (out_counts != nullptr && tid == 0) {
-    int* c = out_counts + (long long)blockIdx.x * 3;
-    c[0] = n_steps;
-    c[1] = n_computed;  // every staged tile is scanned
-    c[2] = n_computed;
-  }
+  __shared__ WalkShared s;
+  PlainStager st{s_tile, tris, tile, nullptr, 0u, 0};
+  group_walk(rays, aabb, order, out_t, out_slot, out_counts, out_cycles, n_tiles, tile, s, st);
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes.  Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).  `out_counts` is null or (n_rays / 128, 3)
-// int32: per block the tile steps walked, the tiles staged and the tiles
-// scanned.
+// cudaGetLastError() (0 = launched).  `out_counts` is null or (n_rays / kGroupRays, 3)
+// int32: per group the order entries walked, the tiles staged and the tiles
+// scanned; `out_cycles` is null or (n_rays / kGroupRays, 2) int64: per group the
+// clock64 cycles of the walk and of its staging and scanning.
 extern "C" int gpt_closest_hit(const float* rays, const float* tris, const float* aabb,
                                const int* order, float* out_t, int* out_slot,
-                               int* out_counts, int n_rays, int n_tiles, int tile,
-                               void* stream) {
-  if (n_rays < 0 || n_rays % kBlock != 0 || n_tiles <= 0 || tile <= 0 || tile > kMaxTile)
+                               int* out_counts, long long* out_cycles, int n_rays,
+                               int n_tiles, int tile, void* stream) {
+  if (n_rays < 0 || n_rays % kBlock != 0 || n_tiles <= 0 || tile <= 0 || tile > kMaxTile ||
+      reinterpret_cast<size_t>(aabb) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   const size_t smem = (size_t)kTileRows * tile * sizeof(float);
-  closest_hit_kernel<<<n_rays / kBlock, kBlock, smem, (cudaStream_t)stream>>>(
-      rays, tris, aabb, order, out_t, out_slot, out_counts, n_tiles, tile);
+  closest_hit_kernel<<<n_rays / kGroupRays, kGroupThreads, smem, (cudaStream_t)stream>>>(
+      rays, tris, aabb, order, out_t, out_slot, out_counts, out_cycles, n_tiles, tile);
   return (int)cudaGetLastError();
 }

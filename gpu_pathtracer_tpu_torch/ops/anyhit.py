@@ -77,8 +77,8 @@ def launch_anyhit(rays, tiles, tile_aabb, order, counts: bool = False):
     occ_far), each (R_pad,) bool, and with `counts` also the (R_pad / 128, 3)
     int32 per-block [tile steps walked, tiles staged, tiles scanned].  Raises
     on any input the kernel does not take and on a refused launch."""
-    near, far, c = launch_tile_kernel("anyhit", 1024, _BITS_OUT,
-                                      rays, tiles, tile_aabb, order, counts)
+    near, far, c, _ = launch_tile_kernel("anyhit", 1024, _BITS_OUT,
+                                         rays, tiles, tile_aabb, order, counts)
     launch_anyhit.launches += 1
     near, far = near.view(torch.bool), far.view(torch.bool)
     return (near, far, c) if counts else (near, far)
@@ -89,8 +89,8 @@ def launch_anyhit_pipe(rays, tiles, tile_aabb, order, counts: bool = False):
     and outputs as `launch_anyhit`, the same bits.  It also refuses a tile
     width that is not a multiple of 4 and tiles that are not 16-byte aligned."""
     check_async_tiles(tiles)
-    near, far, c = launch_tile_kernel("anyhit_pipe", 512, _BITS_OUT,
-                                      rays, tiles, tile_aabb, order, counts)
+    near, far, c, _ = launch_tile_kernel("anyhit_pipe", 512, _BITS_OUT,
+                                         rays, tiles, tile_aabb, order, counts)
     launch_anyhit_pipe.launches += 1
     near, far = near.view(torch.bool), far.view(torch.bool)
     return (near, far, c) if counts else (near, far)

@@ -11,22 +11,25 @@ i.e. a row of the sorted SoA.
 
 Three kernels answer the query on CUDA tensors, over the same packed tiles
 and with the same arithmetic (`csrc/closest_hit_common.cuh`), so their
-results are bit-equal: `csrc/closest_hit.cu` stages each tile with plain
-loads, `csrc/closest_hit_pipe.cu` (`big=True`, the route of scenes above
-`ops.trace.PALLAS_MAX` triangles) stages tiles through two shared-memory
-buffers with `cp.async`, tile j+1 in flight while tile j computes, and
-`csrc/closest_hit_mxu.cu` (`big=True` with `edge=`, scenes built with
-`edge_prefilter=True`) is the double-buffered kernel with a conservative
-bf16 tensor-core test of the Pluecker edge values in front of the exact pair
-test (`pack_edge_tiles` packs its second operand).  CPU tensors run the plain
-PyTorch versions: `closest_hit_rays_reference` and, for `big=True`,
-`closest_hit_pipe_reference` / `closest_hit_mxu_reference`, which walk each
-block's tiles in the block's order with the kernel's cull, early exit,
-lagging prefetch decision and, for the last, prefilter.  Geometry on the
-card: 128-triangle tiles (5 KB of shared memory, fine-grained enough that the
-tile cull prunes within a 972-triangle scene) and 128-ray blocks (one thread
-per ray, four warps: enough blocks in flight on 132 SMs at the 65,536-ray
-wavefront).
+results are bit-equal.  `csrc/closest_hit.cu` (B1) and
+`csrc/closest_hit_pipe.cu` (B2, `big=True`, the route of scenes above
+`ops.trace.PALLAS_MAX` triangles) share the group walk: a CUDA block is a
+group of GROUP_RAYS = 8 rays with 8 threads per ray, which walks the tile
+order of its 128-ray row WALK_BATCH = 32 entries at a time (one batched
+cull, one candidate mask, the early exit re-checked per candidate); B1
+stages each candidate tile with plain loads, B2 brings up to PIPE_RING of
+them in ahead with TMA bulk copies.  `csrc/closest_hit_mxu.cu` (`big=True`
+with `edge=`, scenes built with `edge_prefilter=True`) walks in 128-ray
+blocks, one thread per ray, double-buffered, with a conservative bf16
+tensor-core test of the Pluecker edge values in front of the exact pair
+test (`pack_edge_tiles` packs its second operand).  CPU tensors run the
+plain PyTorch versions: `closest_hit_rays_reference` and, for `big=True`,
+`closest_hit_pipe_reference` (the group walk) / `closest_hit_mxu_reference`
+(the block walk with the prefilter).  Counts are per walking unit: per
+group for B1 and B2, per 128-ray block for B5.  Geometry on the card:
+128-triangle tiles (5 KB of shared memory, fine-grained enough that the
+tile cull prunes within a 972-triangle scene) and the tile order per 128
+rays (one sort row per 128 rays at the 65,536-ray wavefront).
 """
 
 from __future__ import annotations
@@ -36,7 +39,12 @@ import ctypes
 import torch
 
 TILE = 128  # triangles per tile (kernel maximum: 1024)
-RAY_BLOCK = 128  # rays per CUDA block (fixed in the kernel)
+RAY_BLOCK = 128  # rays per row of the tile order (and per block of the 128-ray kernels)
+# The closest-hit kernels' group walk (csrc/closest_hit_common.cuh; the
+# kernels' constants kGroupRays, kBatch and closest_hit_pipe.cu's kRing)
+GROUP_RAYS = 8  # rays per group: one CUDA block of 8 threads per ray
+WALK_BATCH = 32  # order entries culled together
+PIPE_RING = 2  # tile buffers of closest_hit_pipe.cu's TMA ring
 _INF = 3.4e38
 _LB_SLACK = 0.999999  # 1 - 1e-6, the kernels' kLbSlack
 _TILE_ROWS = 10
@@ -178,13 +186,17 @@ def _check(name, x, dtype, shape, device):
 
 
 def launch_tile_kernel(kernel: str, max_tile: int, out_dtypes, rays, tiles, tile_aabb, order,
-                       counts: bool, extra=(), n_counts: int = 3):
+                       counts: bool, extra=(), n_counts: int = 3, unit: int = RAY_BLOCK,
+                       cycles=None):
     """Check the inputs (`max_tile` is the kernel's kMaxTile), launch
     `csrc/<kernel>.cu` on the current stream and return its two per-ray
-    outputs (of `out_dtypes`) and the (blocks, `n_counts`) per-block counts or
-    None.  Every tile kernel, closest-hit or any-hit, has this one C
-    signature; `extra` are further input tensors (checked by the caller)
-    whose pointers follow `order`'s."""
+    outputs (of `out_dtypes`), the (R_pad / `unit`, `n_counts`) int32 counts
+    (one row per `unit` rays that walk together) or None, and the
+    (R_pad / `unit`, 2) int64 cycles or None.  Every tile kernel, closest-hit
+    or any-hit, has this one C signature; `extra` are further input tensors
+    (checked by the caller) whose pointers follow `order`'s, and the
+    closest-hit kernels' entry points take a cycles pointer after the counts'
+    (`cycles` a bool for them, None for the others)."""
     from gpu_pathtracer_tpu_torch.ops import _build
 
     dev = rays.device
@@ -202,26 +214,39 @@ def launch_tile_kernel(kernel: str, max_tile: int, out_dtypes, rays, tiles, tile
     _check("tile_aabb", tile_aabb, torch.float32, (n_tiles, 8), dev)
     _check("order", order, torch.int32, (n_rays // RAY_BLOCK, n_tiles), dev)
 
-    fn = getattr(_build.load(kernel), f"gpt_{kernel}")
-    fn.argtypes = ([ctypes.c_void_p] * (7 + len(extra)) + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = bind_tile_entry(_build.load(kernel), kernel, len(extra), cycles is not None)
     out_a = torch.empty((n_rays,), dtype=out_dtypes[0], device=dev)
     out_b = torch.empty((n_rays,), dtype=out_dtypes[1], device=dev)
-    out_counts = (torch.empty((n_rays // RAY_BLOCK, n_counts), dtype=torch.int32, device=dev)
+    out_counts = (torch.empty((n_rays // unit, n_counts), dtype=torch.int32, device=dev)
                   if counts else None)
+    out_cycles = torch.empty((n_rays // unit, 2), dtype=torch.int64, device=dev) if cycles else None
+    cycles_arg = () if cycles is None else (out_cycles.data_ptr() if cycles else None,)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(rays.data_ptr(), tiles.data_ptr(), tile_aabb.data_ptr(), order.data_ptr(),
                  *(x.data_ptr() for x in extra), out_a.data_ptr(), out_b.data_ptr(),
-                 out_counts.data_ptr() if counts else None, n_rays, n_tiles, tile, stream)
+                 out_counts.data_ptr() if counts else None, *cycles_arg,
+                 n_rays, n_tiles, tile, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
-    return out_a, out_b, out_counts
+    return out_a, out_b, out_counts, out_cycles
+
+
+def bind_tile_entry(lib, kernel: str, n_extra: int = 0, cycles: bool = False):
+    """The C entry point `gpt_<kernel>` of a loaded tile-kernel library with
+    its signature set: rays, tiles, tile boxes, order, `n_extra` further
+    inputs, the two per-ray outputs, counts (and cycles, for the closest-hit
+    kernels: `cycles`) as pointers, then n_rays, n_tiles, tile and the
+    stream; it returns a cudaError_t."""
+    fn = getattr(lib, f"gpt_{kernel}")
+    fn.argtypes = ([ctypes.c_void_p] * (7 + n_extra + cycles) + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def check_async_tiles(tiles) -> None:
-    """What the double-buffered kernels' 16-byte async tile copies need."""
+    """What the async tile copies (16-byte chunks, TMA bulk copies) need."""
     if tiles.dim() == 3 and (tiles.shape[2] % 4 or tiles.data_ptr() % 16):
         raise ValueError(
             f"the 16-byte async tile copies need tile % 4 == 0 and 16-byte-aligned tiles, "
@@ -232,27 +257,41 @@ def check_async_tiles(tiles) -> None:
 _CLOSEST_OUT = (torch.float32, torch.int32)
 
 
-def launch_closest_hit(rays, tiles, tile_aabb, order, counts: bool = False):
+def _launch_group_walk(kernel, max_tile, rays, tiles, tile_aabb, order, counts, cycles):
+    """B1 and B2: the group walk's kernels, counts and cycles per group."""
+    if tile_aabb.data_ptr() % 16:
+        raise ValueError("the group walk reads tile boxes as 16-byte vectors: tile_aabb must be "
+                         "16-byte aligned")
+    t, slot, c, cy = launch_tile_kernel(kernel, max_tile, _CLOSEST_OUT, rays, tiles, tile_aabb,
+                                        order, counts, unit=GROUP_RAYS, cycles=cycles)
+    return (t, slot) + ((c,) if counts else ()) + ((cy,) if cycles else ())
+
+
+def launch_closest_hit(rays, tiles, tile_aabb, order, counts: bool = False, cycles: bool = False):
     """Launch `csrc/closest_hit.cu` on prepared rays; returns (best_t, slot),
-    each (R_pad,), and with `counts` also the (R_pad / 128, 3) int32 per-block
-    [tile steps walked, tiles staged, tiles scanned].  Raises on any input the
-    kernel does not take and on a refused launch."""
-    t, slot, c = launch_tile_kernel("closest_hit", 1024, _CLOSEST_OUT,
-                                    rays, tiles, tile_aabb, order, counts)
+    each (R_pad,); with `counts` also the (R_pad / GROUP_RAYS, 3) int32 per
+    group [order entries walked, tiles staged, tiles scanned], and with
+    `cycles` the (R_pad / GROUP_RAYS, 2) int64 per group [clock64 cycles of
+    the walk, of its staging and scanning].  Raises on any input the kernel
+    does not take and on a refused launch."""
+    out = _launch_group_walk("closest_hit", 1024, rays, tiles, tile_aabb, order, counts, cycles)
     launch_closest_hit.launches += 1
-    return (t, slot, c) if counts else (t, slot)
+    return out
 
 
-def launch_closest_hit_pipe(rays, tiles, tile_aabb, order, counts: bool = False):
-    """Launch `csrc/closest_hit_pipe.cu` (the double-buffered kernel); same
-    inputs and outputs as `launch_closest_hit`, the same values bit for bit.
-    It also refuses a tile width that is not a multiple of 4 and tiles that
-    are not 16-byte aligned (its async copies move 16-byte chunks)."""
+def launch_closest_hit_pipe(rays, tiles, tile_aabb, order, counts: bool = False,
+                            cycles: bool = False):
+    """Launch `csrc/closest_hit_pipe.cu` (the TMA ring); same inputs and
+    outputs as `launch_closest_hit`, the same values bit for bit (counts
+    apart from the tiles fetched: the ring fetches up to PIPE_RING candidates
+    ahead).  It also refuses a tile width that is not a multiple of 4 and
+    tiles that are not 16-byte aligned (its bulk copies move whole 16-byte
+    chunks)."""
     check_async_tiles(tiles)
-    t, slot, c = launch_tile_kernel("closest_hit_pipe", 512, _CLOSEST_OUT,
-                                    rays, tiles, tile_aabb, order, counts)
+    out = _launch_group_walk("closest_hit_pipe", 512, rays, tiles, tile_aabb, order, counts,
+                             cycles)
     launch_closest_hit_pipe.launches += 1
-    return (t, slot, c) if counts else (t, slot)
+    return out
 
 
 def launch_closest_hit_mxu(rays, tiles, edge_tiles, wsum, tile_aabb, order, counts: bool = False):
@@ -271,8 +310,9 @@ def launch_closest_hit_mxu(rays, tiles, edge_tiles, wsum, tile_aabb, order, coun
     _check("wsum", wsum, torch.float32, (n_tiles, 3, tile), rays.device)
     if edge_tiles.data_ptr() % 16 or wsum.data_ptr() % 16:
         raise ValueError("the 16-byte async copies need 16-byte-aligned edge tiles and wsum")
-    t, slot, c = launch_tile_kernel("closest_hit_mxu", TILE, _CLOSEST_OUT, rays, tiles, tile_aabb,
-                                    order, counts, extra=(edge_tiles, wsum), n_counts=5)
+    t, slot, c, _ = launch_tile_kernel("closest_hit_mxu", TILE, _CLOSEST_OUT, rays, tiles,
+                                       tile_aabb, order, counts, extra=(edge_tiles, wsum),
+                                       n_counts=5)
     launch_closest_hit_mxu.launches += 1
     return (t, slot, c) if counts else (t, slot)
 
@@ -396,32 +436,46 @@ def prefilter_candidates(rays, edge_tile, wsum_tile, best_t):
     return (pos | neg) & (best_t > 0.0)
 
 
-def closest_hit_pipe_reference(rays, tiles, tile_aabb, order):
-    """Plain PyTorch version of `csrc/closest_hit_pipe.cu`; see `_pipe_walk`.
-    Returns (best_t, slot, counts): (R_pad,), (R_pad,) and (R_pad / 128, 3)
-    int32 per-block [tile steps walked, tiles fetched, tiles scanned]."""
+def closest_hit_pipe_reference(rays, tiles, tile_aabb, order, ring: int = PIPE_RING):
+    """Plain PyTorch version of `csrc/closest_hit_pipe.cu`'s walk (see
+    `_group_walk`), and with `ring=0` of `csrc/closest_hit.cu`'s, which
+    stages only what it scans.  Returns (best_t, slot, counts): (R_pad,),
+    (R_pad,) and (R_pad / GROUP_RAYS, 3) int32 per group [order entries
+    walked, tiles fetched, tiles scanned]."""
+    return _group_walk(rays, tiles, tile_aabb, order, ring)
+
+
+def closest_hit_block_reference(rays, tiles, tile_aabb, order):
+    """The 128-ray block walk without the prefilter (`_pipe_walk`): the walk
+    of `csrc/closest_hit_mxu.cu` and, before the group walk, of B1 and B2.
+    Returns (best_t, slot, counts), counts (R_pad / 128, 3) int32 per block
+    [tile steps walked, tiles fetched, tiles scanned]; (best_t, slot) equal
+    the group walk's."""
     return _pipe_walk(rays, tiles, tile_aabb, order, None)
 
 
 def closest_hit_mxu_reference(rays, tiles, edge_tiles, wsum, tile_aabb, order):
-    """Plain PyTorch version of `csrc/closest_hit_mxu.cu`: the walk of
-    `closest_hit_pipe_reference` with the edge prefilter in front of the pair
-    test of every scanned tile (`prefilter_candidates`; the exact test runs on
-    the columns that are candidates for some ray of a 32-ray group, the
-    kernel's warp).  Returns (best_t, slot, counts), counts (R_pad / 128, 5):
-    walked, fetched, scanned, pairs passed to the exact test, pairs culled.
+    """Plain PyTorch version of `csrc/closest_hit_mxu.cu`: the 128-ray block
+    walk (`_pipe_walk`) with the edge prefilter in front of the pair test of
+    every scanned tile (`prefilter_candidates`; the exact test runs on the
+    columns that are candidates for some ray of a 32-ray group, the kernel's
+    warp).  Returns (best_t, slot, counts), counts (R_pad / 128, 5): walked,
+    fetched, scanned, pairs passed to the exact test, pairs culled.
     (best_t, slot) equal `closest_hit_pipe_reference`'s bit for bit."""
     return _pipe_walk(rays, tiles, tile_aabb, order, (edge_tiles, wsum))
 
 
 def _pipe_walk(rays, tiles, tile_aabb, order, edge):
-    """The double-buffered kernels' walk in plain PyTorch: every ray block
-    walks its own row of `order` with the Chebyshev early exit, the block
-    slab vote and the lagging prefetch decision (tile j+1 is "fetched" on the
-    best_t from before tile j's pairs; tile j is scanned only if it was
-    fetched and the walk still goes on).  All blocks advance one tile step
-    together; pair work is done only for the blocks that scan at that step.
-    `edge` = (edge_tiles, wsum) puts the prefilter in front of the pairs."""
+    """The 128-ray block walk of `csrc/closest_hit_mxu.cu` in plain PyTorch
+    (with `edge` = None: the walk B1 and B2 had before the group walk, kept
+    as the yardstick of their counts): every ray block walks its own row of
+    `order` tile by tile with the Chebyshev early exit, the block slab vote
+    and the lagging prefetch decision (tile j+1 is "fetched" on the best_t
+    from before tile j's pairs; tile j is scanned only if it was fetched and
+    the walk still goes on).  All blocks advance one tile step together; pair
+    work is done only for the blocks that scan at that step.  `edge` =
+    (edge_tiles, wsum) puts the prefilter in front of the pairs.  Returns
+    (best_t, slot, counts), counts (R_pad / 128, 3 or 5)."""
     n_blocks, n_tiles = order.shape
     tile = tiles.shape[2]
     dev = rays.device
@@ -494,6 +548,94 @@ def _pipe_walk(rays, tiles, tile_aabb, order, edge):
     return best_t.reshape(-1), best_slot.reshape(-1), counts
 
 
+_GROUP_REFERENCE_GROUPS = 256  # groups per pair step of the group walk's plain version
+
+
+def _group_walk(rays, tiles, tile_aabb, order, ring):
+    """The closest-hit kernels' group walk (`csrc/closest_hit_common.cuh`) in
+    plain PyTorch.  Each group of GROUP_RAYS rays walks the row of `order`
+    of its 128-ray block, WALK_BATCH entries at a time: the Chebyshev bound of
+    each entry from the row's origin box, the first entry that no ray of the
+    group can improve on (bound * (1 - 1e-6) >= max best_t * the row's max
+    |d|_inf) ending the walk there, the slab votes of every ray against its
+    best_t at the start of the batch, then the voted entries in order, each
+    re-checked against the group's up-to-date max best_t (a failed re-check
+    ends the walk) and scanned.  All groups advance one batch, then one
+    batch position, together; pair work is done only for the groups that scan
+    at that position.  Counts per group: [entries walked (up to the one at
+    which the walk ended), tiles fetched, tiles scanned], where a ring of
+    `ring` buffers fetches up to `ring` candidates of a batch ahead (0: only
+    what is scanned)."""
+    n_rows, n_tiles = order.shape
+    tile = tiles.shape[2]
+    dev = rays.device
+    per_row = RAY_BLOCK // GROUP_RAYS
+    n_groups = n_rows * per_row
+    rb = rays.reshape(n_rows, RAY_BLOCK, 8)
+    row = torch.arange(n_groups, device=dev) // per_row
+    b_lo = torch.amin(rb[..., 0:3], dim=1)[row, None, :]  # (G, 1, 3)
+    b_hi = torch.amax(rb[..., 0:3], dim=1)[row, None, :]
+    dmax = torch.amax(torch.abs(rb[..., 3:6]), dim=(1, 2))[row]  # (G,)
+    gr = rays.reshape(n_groups, GROUP_RAYS, 8)
+    o, d = gr[:, :, None, 0:3], gr[:, :, None, 3:6]  # (G, R, 1, 3)
+    inv_d = 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
+    lane = torch.arange(tile, dtype=torch.int32, device=dev)
+    order = order.long()[row]  # (G, NT)
+
+    best_t = torch.clamp(gr[..., 6:7], max=_INF)  # (G, R, 1)
+    best_slot = torch.full_like(best_t, -1, dtype=torch.int32)
+    counts = torch.zeros((n_groups, 3), dtype=torch.int32, device=dev)
+    walking = torch.ones((n_groups,), dtype=torch.bool, device=dev)
+    for s in range(0, n_tiles, WALK_BATCH):
+        if not bool(walking.any()):
+            break
+        nb = min(WALK_BATCH, n_tiles - s)
+        ent = order[:, s:s + nb]  # (G, nb)
+        box = tile_aabb[ent]  # (G, nb, 8)
+        gap = torch.maximum(box[..., 0:3] - b_hi, b_lo - box[..., 3:6])
+        lb = torch.clamp(torch.amax(gap, dim=-1), min=0.0)  # (G, nb)
+        reach = torch.amax(best_t, dim=(1, 2)) * dmax
+        stops = ~(lb * _LB_SLACK < reach[:, None])
+        stop = torch.where(stops.any(dim=1), torch.argmax(stops.to(torch.int32), dim=1), nb)
+        t0 = (box[:, None, :, 0:3] - o) * inv_d  # (G, R, nb, 3)
+        t1 = (box[:, None, :, 3:6] - o) * inv_d
+        tlo = torch.amax(torch.minimum(t0, t1), dim=-1)
+        thi = torch.amin(torch.maximum(t0, t1), dim=-1)
+        votes = ((thi >= tlo) & (thi > 0.0) & (torch.clamp(tlo, min=0.0) < best_t)).any(dim=1)
+        pos = torch.arange(nb, device=dev)
+        cand = votes & (pos[None, :] < stop[:, None]) & walking[:, None]
+        n_cand = cand.sum(dim=1, dtype=torch.int32)
+        in_batch = walking.clone()
+        exit_at = torch.full((n_groups,), -1, dtype=torch.long, device=dev)
+        scanned = torch.zeros((n_groups,), dtype=torch.int32, device=dev)
+        for k in torch.nonzero(cand.any(dim=0))[:, 0].tolist():  # positions some group votes for
+            at = torch.nonzero(in_batch & cand[:, k])[:, 0]
+            if at.shape[0] == 0:
+                continue
+            reach = torch.amax(best_t[at], dim=(1, 2)) * dmax[at]
+            ok = lb[at, k] * _LB_SLACK < reach
+            fail = at[~ok]
+            in_batch[fail] = False
+            exit_at[fail] = k
+            go = at[ok]
+            scanned[go] += 1
+            for c0 in range(0, go.shape[0], _GROUP_REFERENCE_GROUPS):
+                grp = go[c0:c0 + _GROUP_REFERENCE_GROUPS]
+                ti = ent[grp, k]
+                tv = [tiles[ti, r][:, None, :] for r in range(_TILE_ROWS)]
+                base = (ti * tile).to(torch.int32)[:, None, None]
+                best_t[grp], best_slot[grp] = _scan_tile(
+                    woop_ctx(gr[grp]), tv, base, lane, best_t[grp], best_slot[grp])
+        ended = exit_at >= 0
+        stopped = ~ended & (stop < nb)
+        walked = torch.where(ended, s + exit_at + 1, torch.where(stopped, s + stop + 1, s + nb))
+        counts[:, 0] = torch.where(walking, walked.to(torch.int32), counts[:, 0])
+        counts[:, 1] += torch.where(ended, torch.minimum(n_cand, scanned + ring), n_cand)
+        counts[:, 2] += scanned
+        walking = walking & ~ended & ~stopped
+    return best_t.reshape(-1), best_slot.reshape(-1), counts
+
+
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
@@ -537,7 +679,9 @@ def _reference(rays, tiles, tile_aabb, big, edge=None):
     if not big:
         return closest_hit_rays_reference(rays, tiles)
     order = block_tile_order(rays, tile_aabb, rays.shape[0] // RAY_BLOCK)
-    return _pipe_walk(rays, tiles, tile_aabb, order, edge)[:2]
+    if edge is not None:
+        return _pipe_walk(rays, tiles, tile_aabb, order, edge)[:2]
+    return _group_walk(rays, tiles, tile_aabb, order, PIPE_RING)[:2]
 
 
 def closest_hit_tiles_reference(tiles, tile_aabb, origin, direction, t_max=float("inf"),

@@ -2,9 +2,12 @@
 double-buffered closest-hit query (`big=True`) and the mesh render.
 
 On the CPU the port's `big` route runs `closest_hit_pipe_reference`, the
-plain version of `csrc/closest_hit_pipe.cu`: per ray block the front-to-back
-tile walk with the slab vote, the early exit and the lagging prefetch
-decision.  It is held against the JAX package's `_closest_kernel_big_pipe`
+plain version of `csrc/closest_hit_pipe.cu`: per group of 8 rays the
+front-to-back tile walk of its 128-ray row, 32 entries at a time, with the
+slab votes and the early exit (tests/test_torch_group_walk.py holds its
+counts).  The count tests below hold the 128-ray block walk with the lagging
+prefetch decision (`closest_hit_block_reference`), which the prefilter
+kernel `csrc/closest_hit_mxu.cu` keeps.  It is held against the JAX package's `_closest_kernel_big_pipe`
 in interpret mode (`closest_hit_pallas(..., big=True)`, as
 tests/test_bigmesh.py runs it) on the displaced icosphere at subdiv=4 (5,124
 triangles), built by both packages from the same host arrays.
@@ -112,7 +115,7 @@ def test_lagging_prefetch_counts(mesh, coherent):
         o, d = o[perm], d[perm]
     rays = closest_hit.prepare_rays(g.tile_aabb, _t(o), _t(d))
     order = closest_hit.block_tile_order(rays, g.tile_aabb, 4)
-    t, slot, counts = closest_hit.closest_hit_pipe_reference(rays, g.tiles, g.tile_aabb, order)
+    t, slot, counts = closest_hit.closest_hit_block_reference(rays, g.tiles, g.tile_aabb, order)
     steps, fetched, scanned = counts.numpy().T
     assert ((fetched - scanned >= 0) & (fetched - scanned <= 1)).all(), counts
     assert (steps >= scanned).all() and (steps <= 41).all() and (scanned >= 1).all()
@@ -140,7 +143,7 @@ def test_prefetch_decision_lags_one_tile():
     rays = closest_hit.prepare_rays(aabb, o, d)
     order = closest_hit.block_tile_order(rays, aabb, 1)
     assert order.tolist() == [[0, 1]]
-    t, slot, counts = closest_hit.closest_hit_pipe_reference(rays, tiles, aabb, order)
+    t, slot, counts = closest_hit.closest_hit_block_reference(rays, tiles, aabb, order)
     assert counts.tolist() == [[2, 2, 1]]  # steps, fetched, scanned
     assert (slot == 0).all() and torch.allclose(t, torch.ones(128))
     # seen from behind, the order flips; the t_max of 1.5 ends the walk before
@@ -148,7 +151,7 @@ def test_prefetch_decision_lags_one_tile():
     rays = closest_hit.prepare_rays(aabb, o - torch.tensor([0.0, 0.0, 3.0]), -d,
                                     torch.full((128,), 1.5))
     order = closest_hit.block_tile_order(rays, aabb, 1)
-    t, slot, counts = closest_hit.closest_hit_pipe_reference(rays, tiles, aabb, order)
+    t, slot, counts = closest_hit.closest_hit_block_reference(rays, tiles, aabb, order)
     assert order.tolist() == [[1, 0]] and (slot == 128).all()
     assert counts.tolist() == [[2, 1, 1]]
 
@@ -157,7 +160,7 @@ def test_walk_stops_at_once_for_dead_blocks():
     tiles, aabb, o, d, _ = _soup_query()
     rays = closest_hit.prepare_rays(aabb, o[:256], d[:256], torch.full((256,), -1.0))
     order = closest_hit.block_tile_order(rays, aabb, 2)
-    t, slot, counts = closest_hit.closest_hit_pipe_reference(rays, tiles, aabb, order)
+    t, slot, counts = closest_hit.closest_hit_block_reference(rays, tiles, aabb, order)
     assert (slot == -1).all()
     np.testing.assert_array_equal(counts.numpy(), [[1, 0, 0], [1, 0, 0]])
 

@@ -11,8 +11,10 @@ package's tests.)  Tolerances: the kernel and its plain version compute the
 same float32 expressions without FMA contraction, so where slots agree t
 agrees to rtol 1e-6; slots agree on >= 99.9% of rays (a ray may split only
 at an exact tie between triangles that the two visit in another order).
-The two kernels share their arithmetic and each block's tile order, so the
-double-buffered one equals the plain-load one bit for bit.  The any-hit
+The two closest-hit kernels share their arithmetic, their walk (groups of
+8 rays over each 128-ray row of the tile order) and the order, so the
+ring-buffered one equals the plain-load one bit for bit, and the prefilter
+kernel (the 128-ray block walk) equals both.  The any-hit
 kernels return bits: both bits equal their plain versions', each other's and
 the bits derived from the closest-hit kernel on every ray, and the per-block
 counts equal the plain versions'.
@@ -73,7 +75,9 @@ def test_launch_refuses_what_the_kernel_does_not_take(cuda):
     rays = closest_hit.prepare_rays(aabb, torch.zeros((256, 3), device=cuda),
                                     torch.ones((256, 3), device=cuda))
     order = closest_hit.block_tile_order(rays, aabb, 2)
+    shifted = torch.empty((aabb.numel() + 1,), device=cuda)[1:].view_as(aabb).copy_(aabb)
     bad = [
+        (rays, tiles, shifted, order),  # tile boxes not 16-byte aligned
         (rays.double(), tiles, aabb, order),  # dtype
         (rays[:200], tiles, aabb, order),  # not a multiple of the ray block
         (rays.t().contiguous().t(), tiles, aabb, order),  # not contiguous
@@ -114,6 +118,10 @@ def test_pipe_kernel_matches_plain_and_plain_load_kernel(cuda):
 
 
 def test_pipe_kernel_counts_match_plain(cuda):
+    """Per group of GROUP_RAYS rays: the ring kernel's counts equal its plain
+    version's, the plain-load kernel's equal the same walk's with nothing
+    fetched ahead (ring 0), and at most PIPE_RING tiles are fetched and not
+    scanned."""
     g, o, d, t_max = _mesh_query(cuda, 2048)
     rays = closest_hit.prepare_rays(g.tile_aabb, o, d, t_max)
     order = closest_hit.block_tile_order(rays, g.tile_aabb, 16)
@@ -124,9 +132,35 @@ def test_pipe_kernel_counts_match_plain(cuda):
     assert float(same.float().mean()) >= 0.999
     hit = same & (slot >= 0)
     torch.testing.assert_close(t[hit], rt[hit], rtol=1e-6, atol=0.0)
+    assert counts.shape == (2048 // closest_hit.GROUP_RAYS, 3)
     assert torch.equal(counts, rcounts)
     extra = (counts[:, 1] - counts[:, 2]).cpu().numpy()
-    assert ((extra >= 0) & (extra <= 1)).all() and (counts[:, 2] < 161).all()
+    assert ((extra >= 0) & (extra <= closest_hit.PIPE_RING)).all() and (counts[:, 2] < 161).all()
+    t1, slot1, counts1 = closest_hit.launch_closest_hit(rays, g.tiles, g.tile_aabb, order,
+                                                        counts=True)
+    _, _, rcounts1 = closest_hit.closest_hit_pipe_reference(rays, g.tiles, g.tile_aabb, order,
+                                                            ring=0)
+    assert torch.equal(t1, t) and torch.equal(slot1, slot)
+    assert torch.equal(counts1, rcounts1)
+
+
+@pytest.mark.parametrize("kernel", ["closest_hit", "closest_hit_pipe"])
+def test_group_walk_cycles(cuda, kernel):
+    """The per-group cycles output: the walk's cycles cover the part spent
+    staging and scanning, a group that scans nothing spends nothing there,
+    and asking for the cycles changes no result."""
+    g, o, d, t_max = _mesh_query(cuda, 2048)
+    rays = closest_hit.prepare_rays(g.tile_aabb, o, d, t_max)
+    order = closest_hit.block_tile_order(rays, g.tile_aabb, 16)
+    launch = getattr(closest_hit, f"launch_{kernel}")
+    t, slot = launch(rays, g.tiles, g.tile_aabb, order)
+    t2, slot2, counts, cycles = launch(rays, g.tiles, g.tile_aabb, order, counts=True, cycles=True)
+    torch.cuda.synchronize()
+    assert torch.equal(t, t2) and torch.equal(slot, slot2)
+    assert cycles.shape == (2048 // closest_hit.GROUP_RAYS, 2) and cycles.dtype == torch.int64
+    walk, scan = cycles[:, 0], cycles[:, 1]
+    assert bool((walk > 0).all()) and bool((scan >= 0).all()) and bool((scan <= walk).all())
+    assert bool((scan[counts[:, 2] == 0] == 0).all()) and bool((scan[counts[:, 2] > 0] > 0).all())
 
 
 def test_mxu_kernel_bit_equal_to_pipe_kernel_and_counts_near_plain(cuda):
@@ -147,7 +181,9 @@ def test_mxu_kernel_bit_equal_to_pipe_kernel_and_counts_near_plain(cuda):
     torch.cuda.synchronize()
     assert closest_hit.launch_closest_hit_mxu.launches == before + 1
     assert torch.equal(t, t2) and torch.equal(slot, slot2)
-    assert torch.equal(counts[:, :3], counts2)
+    # the prefilter kernel keeps the 128-ray block walk; B2 walks in groups
+    assert counts.shape[0] == rays.shape[0] // 128
+    assert counts2.shape[0] == rays.shape[0] // closest_hit.GROUP_RAYS
     rt, rslot, rcounts = closest_hit.closest_hit_mxu_reference(rays, g.tiles, edge_tiles, wsum,
                                                                g.tile_aabb, order)
     same = slot == rslot

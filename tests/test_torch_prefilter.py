@@ -89,10 +89,12 @@ def _prepared(soup):
 
 def test_mxu_plain_equals_pipe_plain_bit_for_bit(soup):
     rays, order = _prepared(soup)
-    t0, s0, c0 = closest_hit.closest_hit_pipe_reference(rays, soup["tiles"], soup["aabb"], order)
+    t0, s0, _ = closest_hit.closest_hit_pipe_reference(rays, soup["tiles"], soup["aabb"], order)
+    _, _, c0 = closest_hit.closest_hit_block_reference(rays, soup["tiles"], soup["aabb"], order)
     t1, s1, c1 = closest_hit.closest_hit_mxu_reference(
         rays, soup["tiles"], soup["edge_tiles"], soup["wsum"], soup["aabb"], order)
     assert torch.equal(t0, t1) and torch.equal(s0, s1)
+    # the prefilter kernel keeps the 128-ray block walk
     assert c1.shape == (3, 5) and torch.equal(c0, c1[:, :3])
     passed, culled = c1[:, 3], c1[:, 4]
     assert torch.equal(passed + culled, c1[:, 2] * closest_hit.RAY_BLOCK * TILE)
@@ -163,13 +165,18 @@ def test_build_scene_routes_to_the_prefilter(mesh_host, monkeypatch):
     assert trace.pallas_big(g) and trace.edge_operand(g) is not None
 
     calls = []
-    pipe_walk = closest_hit._pipe_walk
+    pipe_walk, group_walk = closest_hit._pipe_walk, closest_hit._group_walk
 
     def recording(rays, tiles, aabb, order, edge):
         calls.append(edge is not None)
         return pipe_walk(rays, tiles, aabb, order, edge)
 
+    def recording_group(rays, tiles, aabb, order, ring):
+        calls.append(False)  # the group walk of closest_hit_pipe.cu: no prefilter
+        return group_walk(rays, tiles, aabb, order, ring)
+
     monkeypatch.setattr(closest_hit, "_pipe_walk", recording)
+    monkeypatch.setattr(closest_hit, "_group_walk", recording_group)
     rng = np.random.default_rng(5)
     o = np.tile(np.array([[0.5, 0.8, 2.2]], np.float32), (300, 1))
     d = rng.uniform([0.0, 0.0, 0.0], [1.0, 1.2, 1.0], (300, 3)).astype(np.float32) - o

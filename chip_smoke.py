@@ -14,9 +14,7 @@ Phases (any failure exits non-zero; nothing is caught):
      per-group counts against the group walk's plain version: a random
      triangle soup with dead rays and a ragged tail, and Cornell wavefronts
      at bounce 0 and bounce 3 (65,536 rays x 972 triangles, the Cornell main
-     path's shape), with both times and two bounds (from its own counts and
-     from the 128-ray block walk's: `closest_hit_mxu`'s counts on the same
-     rays);
+     path's shape), with its times and the bound from its own counts;
   4. the ring-buffered kernel (`closest_hit_pipe`, the same walk with TMA
      copies) on wavefronts of the 327,684-triangle mesh at bounce 0 and
      bounce 2: against its plain version (values and per-group counts) on a
@@ -24,8 +22,7 @@ Phases (any failure exits non-zero; nothing is caught):
      full 65,536 rays (and on a ragged tail), the per-group counts with the
      most tiles scanned by a group, both kernels' times in turns, the cycle
      split of the slowest group, the plain version's time, the host-side
-     preparation of a launch, and two bounds (its own counts; the 128-ray
-     block walk's, from `closest_hit_mxu`'s counts on the same rays);
+     preparation of a launch, and the bound from its own counts;
   5. the same uniforms through `trace_paths` on the card and on the CPU;
   6. the Cornell main path: `renderer.render_from_config` on a master file
      for the Cornell box with spheres at 512x512, 8 spp, level 8,
@@ -58,15 +55,17 @@ Phases (any failure exits non-zero; nothing is caught):
      after the init pass through `render_sppm`, whose gathers must run on
      `anyhit_pipe` alone; the kernels compared as in phase 10 on its fullest
      gather wavefront.
- 13. the kernel with the edge prefilter (`closest_hit_mxu`) against
-     `closest_hit_pipe` and its plain version: the soup, and the mesh
-     wavefronts at bounce 0 and bounce 2: (t, slot) bit-equal to
-     `closest_hit_pipe` on every ray (the 128-ray block walk against the
-     group walk), against the plain version on the 16,384-ray subset with its
-     walk counts equal to the plain version's (the block walk), the
+ 13. the kernel with the edge prefilter (`closest_hit_mxu`, the same group
+     walk and TMA ring) against `closest_hit_pipe` and its plain version: the
+     soup, and the mesh wavefronts at bounce 0 and bounce 2: (t, slot)
+     bit-equal to `closest_hit_pipe` on every ray and the walk counts
+     (walked, fetched, scanned) equal on every group, against the plain
+     version on the 16,384-ray subset with the walk counts per group and the
      prefilter's pair counts within 1% of the plain version's; both kernels'
-     times on the same rays, the share of pairs culled (per warp, as the
-     kernel culls, and per pair), `pack_edge_tiles`' time and bytes;
+     times in turns on the same rays, the slowest group's cycle split, the
+     bound from its own counts, the share of pairs culled (as the kernel
+     culls: the union over a group's 8 rays; and per pair and per 32 rays on
+     the nearest tiles), `pack_edge_tiles`' time and bytes;
  14. the mesh main path with the prefilter:
      `build_scene(..., edge_prefilter=True)` -> `render_image` at the main
      widths must run on `closest_hit_mxu` alone and give phase 7's image bit
@@ -231,13 +230,10 @@ def group_stats(counts) -> str:
             f"{int(scanned.max())})")
 
 
-def compare_plain_load(name, rays, tiles, aabb, stats, time_it=False, edge=None):
+def compare_plain_load(name, rays, tiles, aabb, stats, time_it=False):
     """`closest_hit` vs its plain version on the same prepared rays, and its
     per-group counts vs the group walk's plain version (ring 0); when asked,
-    its time and two bounds: from its own counts and from the 128-ray block
-    walk's (the walk of B1 before the group walk), which the prefilter kernel
-    keeps: its counts on the same rays (`edge` = `pack_edge_tiles` of the
-    scene)."""
+    its time and its bound from its own counts."""
     import torch
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
 
@@ -259,25 +255,19 @@ def compare_plain_load(name, rays, tiles, aabb, stats, time_it=False, edge=None)
     ms = [cuda_ms(lambda: ch.launch_closest_hit(rays, tiles, aabb, order), 20) for _ in range(2)]
     plain_ms = cuda_ms(lambda: ch.closest_hit_rays_reference(rays, tiles), 3)
     bound, by = bound_ms(rays, tiles, counts, unit=ch.GROUP_RAYS)
-    *_, bc = ch.launch_closest_hit_mxu(rays, tiles, *edge, aabb, order, counts=True)
-    block_bound, block_by = bound_ms(rays, tiles, bc[:, :3])
     log(f"{name}: kernel {ms[0]:.4f} / {ms[1]:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound:.5f} ms ({by}); the 128-ray block walk's bound {block_bound:.5f} ms ({block_by}, "
-        f"most tiles scanned by a block {int(bc[:, 2].max())})")
-    return dict(ms=min(ms), plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                bound_ms_block_walk=block_bound)
+        f"{bound:.5f} ms ({by})")
+    return dict(ms=min(ms), plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
 
 def compare_pipe(name, rays, tiles, aabb, stats, pipe_stats, time_it=False,
-                 plain_subset=PLAIN_SUBSET, edge=None):
+                 plain_subset=PLAIN_SUBSET):
     """`closest_hit_pipe` on prepared rays: bit-equal to `closest_hit` on all
     of them with the same walk (entries walked and tiles scanned per group),
     against its plain version (values and per-group counts) on a subset of
     whole 128-ray rows spread over the batch.  When asked, both kernels'
-    times in turns, the cycle split of the slowest group, and two bounds:
-    from the kernel's own counts and from the 128-ray block walk's, which the
-    prefilter kernel keeps (its counts on the same rays; `edge` =
-    `pack_edge_tiles` of the scene)."""
+    times in turns, the cycle split of the slowest group, and the bound from
+    the kernel's own counts."""
     import torch
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
 
@@ -300,12 +290,7 @@ def compare_pipe(name, rays, tiles, aabb, stats, pipe_stats, time_it=False,
     check(bool((extra >= 0).all()) and bool((extra <= ch.PIPE_RING).all()),
           f"{name}: a group fetched {int(extra.max())} tiles more than it scanned")
 
-    # the plain version on every k-th row
-    stride = max(1, rays.shape[0] // plain_subset)
-    blocks = torch.arange(0, n_blocks, stride, device=rays.device)
-    rows = (blocks[:, None] * ch.RAY_BLOCK
-            + torch.arange(ch.RAY_BLOCK, device=rays.device)[None, :]).reshape(-1)
-    sub_rays, sub_order = rays[rows].contiguous(), order[blocks].contiguous()
+    blocks, rows, sub_rays, sub_order = plain_rows(rays, order, plain_subset)
     t0 = time.perf_counter()
     rt, rslot, rc = ch.closest_hit_pipe_reference(sub_rays, tiles, aabb, sub_order)
     torch.cuda.synchronize()
@@ -326,102 +311,134 @@ def compare_pipe(name, rays, tiles, aabb, stats, pipe_stats, time_it=False,
     ms1b = cuda_ms(lambda: ch.launch_closest_hit(rays, tiles, aabb, order), 20)
     order_ms = cuda_ms(lambda: ch.block_tile_order(rays, aabb, n_blocks), 20)
     *_, cyc = ch.launch_closest_hit_pipe(rays, tiles, aabb, order, counts=True, cycles=True)
-    slow = int(torch.argmax(cyc[:, 0]))
-    split = float(cyc[slow, 1]) / max(float(cyc[slow, 0]), 1.0)
+    slow, split = slowest_split(cyc)
     bound, by = bound_ms(rays, tiles, c2, unit=ch.GROUP_RAYS)
-    *_, c5 = ch.launch_closest_hit_mxu(rays, tiles, *edge, aabb, order, counts=True)
-    block_bound, block_by = bound_ms(rays, tiles, c5[:, :3])
     log(f"{name}: closest_hit_pipe {ms2a:.4f} / {ms2b:.4f} ms, closest_hit {ms1a:.4f} / "
         f"{ms1b:.4f} ms (20 launches each, in turns), plain version {plain_s * 1e3:.1f} ms "
         f"(one launch, {sub_rays.shape[0]} rays), block_tile_order {order_ms:.4f} ms; the "
         f"slowest group (walked {int(c2[slow, 0])}, scanned {int(c2[slow, 2])}) spends {split:.3f} "
-        f"of its {int(cyc[slow, 0])} cycles staging and scanning; bound {bound:.5f} ms ({by}), "
-        f"the 128-ray block walk's {block_bound:.5f} ms ({block_by}; most tiles scanned by a "
-        f"block {int(c5[:, 2].max())})")
+        f"of its {int(cyc[slow, 0])} cycles staging and scanning; bound {bound:.5f} ms ({by})")
     pipe_stats.update(ms=min(ms2a, ms2b), plain_ms=plain_s * 1e3, plain_rays=sub_rays.shape[0],
                       plain_load_ms=min(ms1a, ms1b), order_ms=order_ms, bound_ms=bound,
-                      bound_by=by, bound_ms_block_walk=block_bound, scan_share_slowest=split,
-                      most_scanned=int(c2[:, 2].max()))
+                      bound_by=by, scan_share_slowest=split, most_scanned=int(c2[:, 2].max()))
+
+
+def plain_rows(rays, order, plain_subset):
+    """Every k-th 128-ray row of a prepared batch, so that about
+    `plain_subset` rays remain: (rows, ray indices, rays, order rows)."""
+    import torch
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+
+    n_blocks = rays.shape[0] // ch.RAY_BLOCK
+    stride = max(1, rays.shape[0] // plain_subset)
+    blocks = torch.arange(0, n_blocks, stride, device=rays.device)
+    rows = (blocks[:, None] * ch.RAY_BLOCK
+            + torch.arange(ch.RAY_BLOCK, device=rays.device)[None, :]).reshape(-1)
+    return blocks, rows, rays[rows].contiguous(), order[blocks].contiguous()
+
+
+def slowest_split(cycles):
+    """The group with the most walk cycles, and the share of them spent
+    staging and scanning."""
+    import torch
+
+    slow = int(torch.argmax(cycles[:, 0]))
+    return slow, float(cycles[slow, 1]) / max(float(cycles[slow, 0]), 1.0)
 
 
 def compare_mxu(name, rays, g, stats, out, time_it=False, plain_subset=PLAIN_SUBSET):
     """`closest_hit_mxu` on prepared rays: (t, slot) bit-equal to
-    `closest_hit_pipe` on all of them with the same walk counts, against its
-    plain version on a subset of whole ray blocks spread over the batch, the
-    prefilter's pair counts within PREFILTER_COUNT_TOL of the plain
-    version's, and the share of pairs it culls."""
+    `closest_hit_pipe` on all of them, with the walk counts (walked,
+    fetched, scanned) equal group by group; against its plain version on a
+    subset of whole 128-ray rows spread over the batch (values, walk counts
+    per group, the prefilter's pairs passed within PREFILTER_COUNT_TOL); the
+    share of pairs it culls, and on the rows' nearest tiles the shares
+    culled pair by pair, after the union over an 8-ray group (the kernel's
+    cull) and after the union over a 32-ray warp (the cull of the 128-ray
+    block walk before).  When asked, both kernels' times in turns, the cycle
+    split of the slowest group and the bound from its own counts."""
     import torch
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
 
     tiles, aabb, edge, wsum = g.tiles, g.tile_aabb, g.edge_tiles, g.edge_wsum
     n_blocks = rays.shape[0] // ch.RAY_BLOCK
+    per_row = ch.RAY_BLOCK // ch.GROUP_RAYS
     order = ch.block_tile_order(rays, aabb, n_blocks)
-    t2, slot2 = ch.launch_closest_hit_pipe(rays, tiles, aabb, order)
+    t2, slot2, c2 = ch.launch_closest_hit_pipe(rays, tiles, aabb, order, counts=True)
     t5, slot5, c5 = ch.launch_closest_hit_mxu(rays, tiles, edge, wsum, aabb, order, counts=True)
     torch.cuda.synchronize()
     equal = bool(torch.equal(t2, t5)) and bool(torch.equal(slot2, slot5))
     differ = int(((t2 != t5) | (slot2 != slot5)).sum())
+    same_walk = bool(torch.equal(c5[:, :3], c2))
     walked, fetched, scanned, passed, culled = (int(x) for x in c5.long().sum(dim=0))
-    pairs = scanned * ch.RAY_BLOCK * tiles.shape[2]
+    pairs = scanned * ch.GROUP_RAYS * tiles.shape[2]
     share = culled / max(pairs, 1)
+    n_groups = c5.shape[0]
     log(f"{name}: {rays.shape[0]} rays x {tiles.shape[0]} tiles; closest_hit_mxu == "
-        f"closest_hit_pipe bit for bit: {equal} ({differ} rays differ); per block: steps "
-        f"{walked / n_blocks:.1f} (most {int(c5[:, 0].max())}), fetched {fetched / n_blocks:.2f}, "
-        f"scanned {scanned / n_blocks:.2f} (most {int(c5[:, 2].max())}); of {pairs} pairs of "
-        f"scanned tiles the prefilter passed {passed} to the exact test and culled {culled} "
-        f"({share:.4f})")
+        f"closest_hit_pipe bit for bit: {equal} ({differ} rays differ); walk counts equal "
+        f"closest_hit_pipe's on every group: {same_walk}; closest_hit_mxu {group_stats(c5)}; of "
+        f"{pairs} pairs of scanned tiles the prefilter passed {passed} to the exact test and "
+        f"culled {culled} ({share:.4f})")
     check(equal, f"{name}: closest_hit_mxu and closest_hit_pipe differ on {differ} rays")
-    check(passed + culled == pairs, f"{name}: passed + culled != the pairs of the scanned tiles")
+    check(same_walk, f"{name}: closest_hit_mxu walks differently from closest_hit_pipe")
+    check(bool(torch.equal(c5[:, 3].long() + c5[:, 4].long(),
+                           c5[:, 2].long() * ch.GROUP_RAYS * tiles.shape[2])),
+          f"{name}: passed + culled != the pairs of a group's scanned tiles")
+    check(culled > 0 or scanned == 0, f"{name}: the prefilter culled nothing")
 
-    # the plain version on every k-th block
-    stride = max(1, rays.shape[0] // plain_subset)
-    blocks = torch.arange(0, n_blocks, stride, device=rays.device)
-    rows = (blocks[:, None] * ch.RAY_BLOCK
-            + torch.arange(ch.RAY_BLOCK, device=rays.device)[None, :]).reshape(-1)
-    sub_rays, sub_order = rays[rows].contiguous(), order[blocks].contiguous()
+    blocks, rows, sub_rays, sub_order = plain_rows(rays, order, plain_subset)
     t0 = time.perf_counter()
     rt, rslot, rc = ch.closest_hit_mxu_reference(sub_rays, tiles, edge, wsum, aabb, sub_order)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     agreement(f"{name}, plain version on {sub_rays.shape[0]} rays", t5[rows], slot5[rows],
               rt, rslot, stats)
-    same_walk = float((rc[:, :3] == c5[blocks][:, :3]).all(dim=1).float().mean())
-    k_passed, p_passed = int(c5[blocks][:, 3].long().sum()), int(rc[:, 3].long().sum())
+    kc = c5[group_rows(blocks, per_row)]
+    same_counts = float((rc[:, :3] == kc[:, :3]).all(dim=1).float().mean())
+    k_passed, p_passed = int(kc[:, 3].long().sum()), int(rc[:, 3].long().sum())
     off = abs(k_passed - p_passed) / max(p_passed, 1)
-    log(f"{name}: plain version's walk counts equal the kernel's on {same_walk:.4f} of the "
-        f"subset's blocks; pairs passed: kernel {k_passed}, plain version {p_passed} "
+    log(f"{name}: plain version's walk counts equal the kernel's on {same_counts:.4f} of the "
+        f"subset's groups; pairs passed: kernel {k_passed}, plain version {p_passed} "
         f"(rel. difference {off:.6f}, tolerance {PREFILTER_COUNT_TOL})")
-    check(same_walk >= MIN_SLOT_AGREE, f"{name}: walk counts differ from the plain version's")
+    check(same_counts >= MIN_SLOT_AGREE, f"{name}: walk counts differ from the plain version's")
     check(off <= PREFILTER_COUNT_TOL, f"{name}: the prefilter's counts are off the plain version's")
-    check(culled > 0, f"{name}: the prefilter culled nothing")
 
-    # per pair, before the union over a warp's rays: each of 32 spread blocks
-    # against the first tile it scans with the rays' initial budgets
+    # on 32 spread rows' nearest tiles with the rays' initial budgets: pair by
+    # pair, after the union over a group's 8 rays, after the union over 32
     probe = blocks[:: max(1, blocks.shape[0] // 32)]
     first = order[probe, 0].long()
     rb = rays.reshape(n_blocks, ch.RAY_BLOCK, 8)[probe]
     cand = ch.prefilter_candidates(rb, edge[first], wsum[first], rb[..., 6:7])
     live = (rb[..., 6] > 0).sum() * tiles.shape[2]
     pair_share = 1.0 - float(cand.sum()) / max(int(live), 1)
-    union = cand.reshape(-1, ch.RAY_BLOCK // 32, 32, tiles.shape[2]).any(dim=2)
-    log(f"{name}: on {probe.shape[0]} blocks' nearest tiles the prefilter culls {pair_share:.4f} "
-        f"of the live rays' pairs one by one, {1.0 - float(union.float().mean()):.4f} of the "
-        f"columns after the union over a warp's 32 rays")
+    unions = {n: 1.0 - float(cand.reshape(-1, ch.RAY_BLOCK // n, n, tiles.shape[2])
+                             .any(dim=2).float().mean()) for n in (ch.GROUP_RAYS, 32)}
+    log(f"{name}: on {probe.shape[0]} rows' nearest tiles the prefilter culls {pair_share:.4f} "
+        f"of the live rays' pairs one by one, {unions[ch.GROUP_RAYS]:.4f} of the columns after "
+        f"the union over an 8-ray group, {unions[32]:.4f} after the union over 32 rays")
     if not time_it:
         return
     ms2a = cuda_ms(lambda: ch.launch_closest_hit_pipe(rays, tiles, aabb, order), 20)
     ms5a = cuda_ms(lambda: ch.launch_closest_hit_mxu(rays, tiles, edge, wsum, aabb, order), 20)
     ms5b = cuda_ms(lambda: ch.launch_closest_hit_mxu(rays, tiles, edge, wsum, aabb, order), 20)
     ms2b = cuda_ms(lambda: ch.launch_closest_hit_pipe(rays, tiles, aabb, order), 20)
+    *_, cyc = ch.launch_closest_hit_mxu(rays, tiles, edge, wsum, aabb, order, counts=True,
+                                        cycles=True)
+    slow, split = slowest_split(cyc)
     extra = edge[0].numel() * 2 + wsum[0].numel() * 4
-    bound, by = bound_ms(rays, tiles, c5, extra_tile_bytes=extra)
+    bound, by = bound_ms(rays, tiles, c5, extra_tile_bytes=extra, unit=ch.GROUP_RAYS)
     log(f"{name}: closest_hit_mxu {ms5a:.4f} / {ms5b:.4f} ms, closest_hit_pipe {ms2a:.4f} / "
         f"{ms2b:.4f} ms (20 launches each, in turns), plain version {plain_s * 1e3:.1f} ms (one "
-        f"launch, {sub_rays.shape[0]} rays), bound {bound:.5f} ms ({by})")
+        f"launch, {sub_rays.shape[0]} rays); the slowest group (walked {int(c5[slow, 0])}, "
+        f"scanned {int(c5[slow, 2])}, passed {int(c5[slow, 3])}) spends {split:.3f} of its "
+        f"{int(cyc[slow, 0])} cycles staging, prefiltering and scanning; bound {bound:.5f} ms "
+        f"({by})")
     out.update(ms=min(ms5a, ms5b), plain_ms=plain_s * 1e3, plain_rays=sub_rays.shape[0],
                pipe_ms=min(ms2a, ms2b), bound_ms=bound, bound_by=by, culled_share=share,
-               culled_share_per_pair=pair_share, scanned_per_block=scanned / n_blocks,
-               walked_per_block=walked / n_blocks)
+               culled_share_per_pair=pair_share, culled_share_group_union=unions[ch.GROUP_RAYS],
+               culled_share_warp_union=unions[32], scan_share_slowest=split,
+               most_scanned=int(c5[:, 2].max()), scanned_per_group=scanned / n_groups,
+               walked_per_group=walked / n_groups)
 
 
 def compare_anyhit(name, rays, tiles, aabb, err, out, plain_subset, time_it=False):
@@ -880,14 +897,12 @@ def main() -> int:
     camera = Camera.create(**CORNELL_CAM, width=MAIN["width"], height=MAIN["height"], device=dev)
     waves = wavefronts(scene, camera, WAVE_RAYS, 4, seed=1)
     g = scene.geom
-    cornell_edge = ch.pack_edge_tiles(g.p, g.valid)
     b1s = {}
     for bounce in (0, 3):
         compare_plain_load(f"cornell bounce {bounce} (ragged)", sorted_rays(g, waves[bounce], 100),
                            g.tiles, g.tile_aabb, stats)
         b1s[bounce] = compare_plain_load(f"cornell bounce {bounce}", sorted_rays(g, waves[bounce]),
-                                         g.tiles, g.tile_aabb, stats, time_it=True,
-                                         edge=cornell_edge)
+                                         g.tiles, g.tile_aabb, stats, time_it=True)
     b1 = b1s[3]
 
     phases.start(4)
@@ -910,14 +925,12 @@ def main() -> int:
     mwaves = wavefronts(mesh, mcam, WAVE_RAYS, 3, seed=2)
     check(ch.launch_closest_hit_pipe.launches == 3 and ch.launch_closest_hit.launches == 0,
           "the mesh wavefronts did not run on closest_hit_pipe alone")
-    mesh_edge = ch.pack_edge_tiles(mg.p, mg.valid)
     b2s = {0: {}, 2: {}}
     for bounce, b2 in b2s.items():
         compare_pipe(f"mesh bounce {bounce} (ragged)", sorted_rays(mg, mwaves[bounce], 100),
                      mg.tiles, mg.tile_aabb, pipe_err, {}, plain_subset=PLAIN_SUBSET // 4)
         compare_pipe(f"mesh bounce {bounce}", sorted_rays(mg, mwaves[bounce]),
-                     mg.tiles, mg.tile_aabb, pipe_err, b2, time_it=True, edge=mesh_edge)
-    del mesh_edge
+                     mg.tiles, mg.tile_aabb, pipe_err, b2, time_it=True)
     b2 = b2s[2]
     prep_ms = cuda_ms(lambda: sorted_rays(mg, mwaves[2]), 10)
     log(f"mesh bounce 2: coherence sort + prepare_rays {prep_ms:.4f} ms per launch "
@@ -1473,10 +1486,7 @@ def main() -> int:
             "bound_by": b1["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a closest hit
             "shape": "65,536 rays x 972 triangles, Cornell bounce 3",
-            # the same bound from the 128-ray block walk's counts (B5's on the same rays)
-            "bound_ms_block_walk": b1["bound_ms_block_walk"],
-            "bounce_0": {k: b1s[0][k] for k in ("ms", "bound_ms", "bound_by",
-                                                "bound_ms_block_walk")},
+            "bounce_0": {k: b1s[0][k] for k in ("ms", "bound_ms", "bound_by")},
         },
         {
             "name": "closest_hit_pipe",
@@ -1495,13 +1505,10 @@ def main() -> int:
             "closest_hit_ms_same_rays": b2["plain_load_ms"],
             "block_tile_order_ms": b2["order_ms"],
             "sort_and_prepare_ms": b2["prep_ms"],
-            # the same bound from the 128-ray block walk's counts (B5's on the same rays)
-            "bound_ms_block_walk": b2["bound_ms_block_walk"],
             "most_tiles_scanned_by_a_group": b2["most_scanned"],
             "slowest_group_scan_share": b2["scan_share_slowest"],
             "bounce_0": {k: b2s[0][k] for k in ("ms", "plain_load_ms", "bound_ms", "bound_by",
-                                                "bound_ms_block_walk", "most_scanned",
-                                                "scan_share_slowest")},
+                                                "most_scanned", "scan_share_slowest")},
         },
         {
             "name": "anyhit",
@@ -1561,11 +1568,16 @@ def main() -> int:
             "closest_hit_pipe_ms_same_rays": b5["pipe_ms"],
             "culled_share": b5["culled_share"],
             "culled_share_per_pair": b5["culled_share_per_pair"],
+            "culled_share_group_union": b5["culled_share_group_union"],
+            "culled_share_warp_union": b5["culled_share_warp_union"],
+            "most_tiles_scanned_by_a_group": b5["most_scanned"],
+            "slowest_group_scan_share": b5["scan_share_slowest"],
             "pack_edge_tiles_ms": pack_ms,
             "edge_operand_mb": edge_mb,
-            "bounce_0": {k: b5_bounce0[k] for k in ("ms", "pipe_ms", "plain_ms", "bound_ms",
-                                                    "bound_by", "culled_share",
-                                                    "culled_share_per_pair")},
+            "bounce_0": {k: b5_bounce0[k] for k in (
+                "ms", "pipe_ms", "plain_ms", "bound_ms", "bound_by", "culled_share",
+                "culled_share_per_pair", "culled_share_group_union", "culled_share_warp_union",
+                "most_scanned", "scan_share_slowest")},
         },
     ]}
     print(json.dumps(record), flush=True)

@@ -5,7 +5,8 @@
 // watertight-Woop hit among the scene's triangles, returned as (t, slot)
 // with slot a row of the Morton-sorted triangle SoA (-1 on a miss).
 // Layouts, the pair arithmetic and the walk are in closest_hit_common.cuh,
-// shared with the ring-buffered kernel of closest_hit_pipe.cu.
+// shared with the ring-buffered kernels closest_hit_pipe.cu and
+// closest_hit_mxu.cu.
 //
 // A block is a group of 8 rays with 8 threads per ray; it walks the tile
 // order of its 128-ray row 32 entries at a time (one batched cull, one
@@ -64,7 +65,8 @@ closest_hit_kernel(const float* __restrict__ rays, const float* __restrict__ tri
   extern __shared__ float s_tile[];  // (10, tile)
   __shared__ WalkShared s;
   PlainStager st{s_tile, tris, tile, nullptr, 0u, 0};
-  group_walk(rays, aabb, order, out_t, out_slot, out_counts, out_cycles, n_tiles, tile, s, st);
+  ExactScan sc;
+  group_walk(rays, aabb, order, out_t, out_slot, out_counts, out_cycles, n_tiles, tile, s, st, sc);
 }
 
 }  // namespace

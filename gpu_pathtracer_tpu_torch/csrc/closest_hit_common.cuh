@@ -1,12 +1,13 @@
 // Shared arithmetic of the tile kernels for Hopper (sm_90a): the closest-hit
-// kernels closest_hit.cu (candidate tiles staged with plain loads) and
-// closest_hit_pipe.cu (candidate tiles brought in ahead by TMA bulk copies),
-// which share the group walk below; the prefilter kernel closest_hit_mxu.cu
-// and the windowed any-hit kernels anyhit.cu and anyhit_pipe.cu, which walk
-// in 128-ray blocks (block_box, block_max_any).  All run exactly the pair
-// test below, so on the same rays, tiles and order the closest-hit kernels'
-// (t, slot) are bit-equal, the two any-hit kernels' bits are equal, and an
-// any-hit bit agrees with the closest hit's t on the same ray.
+// kernels closest_hit.cu (candidate tiles staged with plain loads),
+// closest_hit_pipe.cu (candidate tiles brought in ahead by TMA bulk copies,
+// tile_ring.cuh) and closest_hit_mxu.cu (the same ring, with a tensor-core
+// edge prefilter in front of the pair test), which share the group walk
+// below; the windowed any-hit kernels anyhit.cu and anyhit_pipe.cu, which
+// walk in 128-ray blocks (block_box, block_max_any).  All run exactly the
+// pair test below, so on the same rays, tiles and order the closest-hit
+// kernels' (t, slot) are bit-equal, the two any-hit kernels' bits are equal,
+// and an any-hit bit agrees with the closest hit's t on the same ray.
 //
 // Layout (packed by gpu_pathtracer_tpu_torch/ops/closest_hit.py):
 //   rays  (R, 8)            f32  [ox oy oz dx dy dz t_cap t_near], R % 128 == 0;
@@ -27,7 +28,7 @@
 
 namespace gpt {
 
-constexpr int kBlock = 128;  // rays per block, one thread per ray
+constexpr int kBlock = 128;  // rays per row of `order` (the any-hit kernels: a block, a thread a ray)
 constexpr int kWarps = kBlock / 32;
 constexpr int kTileRows = 10;
 constexpr float kInf = 3.4e38f;
@@ -203,7 +204,7 @@ __device__ __forceinline__ void scan_tile(const float* __restrict__ s_tile, int 
   }
 }
 
-// ---- the group walk of the closest-hit kernels (closest_hit.cu, closest_hit_pipe.cu) ----
+// ---- the group walk of the closest-hit kernels (closest_hit{,_pipe,_mxu}.cu) ----
 // A group of kGroupRays rays is one CUDA block, kRayThreads threads per ray
 // (ray = tid / kRayThreads, so a ray's threads are neighbouring lanes of one
 // warp).  The group walks the row of `order` of the 128-ray block it belongs
@@ -217,14 +218,16 @@ __device__ __forceinline__ void scan_tile(const float* __restrict__ s_tile, int 
 //      entry whose bound no ray can beat (lb * (1 - 1e-6) >= max best t *
 //      the row's max |d|_inf) ends the walk there;
 //   3. the candidates in order: the early exit re-checked against the
-//      group's up-to-date max best t, the tile staged, each thread testing
-//      every kRayThreads-th column, and a shuffle minimum over (t, column)
-//      giving the ray's best hit in the tile.
+//      group's up-to-date max best t, the tile staged, and the ray's best hit
+//      in the tile (the `Scan` of group_walk; ExactScan: each thread testing
+//      every kRayThreads-th column, and a shuffle minimum over (t, column)).
 // A tile voted in on an older best t can only be scanned without effect, and
 // a tile that none of the group's rays reaches within its best t holds no
 // pair that changes them, so (t, slot) are those of the 128-ray block walk.
-// The two kernels differ only in how a candidate tile reaches shared memory
-// (the `Stager` of group_walk).
+// The kernels differ only in how a candidate tile reaches shared memory (the
+// `Stager`) and in which of its pairs go through the exact test (the
+// `Scan`), never in the walk: on the same rays, tiles and order their walked
+// and scanned counts are equal group by group.
 
 constexpr int kGroupRays = 8;    // rays per group: one CUDA block
 constexpr int kRayThreads = 8;   // threads per ray
@@ -340,8 +343,24 @@ __device__ __forceinline__ void ray_min(float& t, int& c) {
   }
 }
 
-// The walk of one group (= this block).  `Stager` brings candidate tiles to
-// shared memory:
+// The Scan of B1 and B2: every pair of the tile through the exact test.
+//   scan(...)     this thread's ray's best (t, column) in the staged tile under
+//                 strict `<` from best_t (column -1: nothing below best_t), the
+//                 same on all of the ray's threads;
+//   kCounts       further per-group counts after the walk's three;
+//   count(out, scanned)  writes them (all threads call it, at the end).
+struct ExactScan {
+  static constexpr int kCounts = 0;
+  __device__ void scan(const float* __restrict__ s_tile, int tile, int part, const Ray& q,
+                       float best_t, float& t, int& c) {
+    scan_tile_part(s_tile, tile, part, q, best_t, t, c);
+    ray_min(t, c);
+  }
+  __device__ void count(int*, int) {}
+};
+
+// The walk of one group (= this block).  `Scan` tests a staged tile (see
+// ExactScan).  `Stager` brings candidate tiles to shared memory:
 //   begin_batch(ti, mask)  the batch's candidate tiles (ti[k] for the set bits
 //                          of mask, in rising k), after the vote's barrier;
 //   acquire()              the next candidate's staged tile, visible to all;
@@ -349,16 +368,17 @@ __device__ __forceinline__ void ray_min(float& t, int& c) {
 //   drain()                at the end: nothing in flight afterwards;
 //   fetched                tiles brought in.
 // out_counts (null or per group [entries walked, tiles fetched, tiles
-// scanned]) and out_cycles (null or per group [clock64 of the walk, of it in
-// staging + scanning + the reduction after each scan]) are written by thread 0.
-template <class Stager>
+// scanned] and the Scan's kCounts) and out_cycles (null or per group [clock64
+// of the walk, of it in staging + scanning + the reduction after each scan])
+// are written by thread 0.
+template <class Stager, class Scan>
 __device__ __forceinline__ void group_walk(const float* __restrict__ rays,
                                            const float* __restrict__ aabb,
                                            const int* __restrict__ order,
                                            float* __restrict__ out_t, int* __restrict__ out_slot,
                                            int* __restrict__ out_counts,
                                            long long* __restrict__ out_cycles, int n_tiles,
-                                           int tile, WalkShared& s, Stager& st) {
+                                           int tile, WalkShared& s, Stager& st, Scan& sc) {
   const int tid = threadIdx.x, lane = tid & 31, part = tid % kRayThreads;
   const long long ray = (long long)blockIdx.x * kGroupRays + tid / kRayThreads;
   const long long row = ((long long)blockIdx.x * kGroupRays) / kBlock;
@@ -410,8 +430,7 @@ __device__ __forceinline__ void group_walk(const float* __restrict__ rays,
       const float* buf = st.acquire();
       float t;
       int c;
-      scan_tile_part(buf, tile, part, q, best_t, t, c);
-      ray_min(t, c);
+      sc.scan(buf, tile, part, q, best_t, t, c);
       if (c >= 0) {
         best_t = t;
         best_slot = s.ti[bp][k] * tile + c;
@@ -438,9 +457,11 @@ __device__ __forceinline__ void group_walk(const float* __restrict__ rays,
     out_t[ray] = best_t;
     out_slot[ray] = best_slot;
   }
+  constexpr int kStride = 3 + Scan::kCounts;
+  if (out_counts != nullptr) sc.count(out_counts + (long long)blockIdx.x * kStride + 3, n_scanned);
   if (tid == 0) {
     if (out_counts != nullptr) {
-      int* c = out_counts + (long long)blockIdx.x * 3;
+      int* c = out_counts + (long long)blockIdx.x * kStride;
       c[0] = n_walked;
       c[1] = st.fetched;
       c[2] = n_scanned;

@@ -55,11 +55,12 @@ def find_nvcc() -> str:
 _LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 
-def sources(name: str) -> list[pathlib.Path]:
+def sources(name: str, csrc: pathlib.Path | None = None) -> list[pathlib.Path]:
     """csrc/<name>.cu and every file of csrc/ it includes with quotes,
-    transitively, in first-seen order."""
+    transitively, in first-seen order (`csrc`: another directory of
+    sources, e.g. an older version's)."""
     seen: list[pathlib.Path] = []
-    todo = [CSRC / f"{name}.cu"]
+    todo = [(csrc or CSRC) / f"{name}.cu"]
     while todo:
         path = todo.pop()
         if path in seen:

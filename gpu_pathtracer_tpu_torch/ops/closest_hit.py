@@ -10,25 +10,25 @@ test ever passes.  A slot (the kernel's output) is `tile * TILE + column`,
 i.e. a row of the sorted SoA.
 
 Three kernels answer the query on CUDA tensors, over the same packed tiles
-and with the same arithmetic (`csrc/closest_hit_common.cuh`), so their
-results are bit-equal.  `csrc/closest_hit.cu` (B1) and
-`csrc/closest_hit_pipe.cu` (B2, `big=True`, the route of scenes above
-`ops.trace.PALLAS_MAX` triangles) share the group walk: a CUDA block is a
-group of GROUP_RAYS = 8 rays with 8 threads per ray, which walks the tile
-order of its 128-ray row WALK_BATCH = 32 entries at a time (one batched
-cull, one candidate mask, the early exit re-checked per candidate); B1
-stages each candidate tile with plain loads, B2 brings up to PIPE_RING of
-them in ahead with TMA bulk copies.  `csrc/closest_hit_mxu.cu` (`big=True`
-with `edge=`, scenes built with `edge_prefilter=True`) walks in 128-ray
-blocks, one thread per ray, double-buffered, with a conservative bf16
-tensor-core test of the Pluecker edge values in front of the exact pair
-test (`pack_edge_tiles` packs its second operand).  CPU tensors run the
-plain PyTorch versions: `closest_hit_rays_reference` and, for `big=True`,
-`closest_hit_pipe_reference` (the group walk) / `closest_hit_mxu_reference`
-(the block walk with the prefilter).  Counts are per walking unit: per
-group for B1 and B2, per 128-ray block for B5.  Geometry on the card:
-128-triangle tiles (5 KB of shared memory, fine-grained enough that the
-tile cull prunes within a 972-triangle scene) and the tile order per 128
+and with the same arithmetic and walk (`csrc/closest_hit_common.cuh`), so
+their results are bit-equal: a CUDA block is a group of GROUP_RAYS = 8 rays
+with 8 threads per ray, which walks the tile order of its 128-ray row
+WALK_BATCH = 32 entries at a time (one batched cull, one candidate mask, the
+early exit re-checked per candidate).  `csrc/closest_hit.cu` (B1) stages
+each candidate tile with plain loads; `csrc/closest_hit_pipe.cu` (B2,
+`big=True`, the route of scenes above `ops.trace.PALLAS_MAX` triangles)
+brings them in with TMA bulk copies into a ring of PIPE_RING buffers
+(`csrc/tile_ring.cuh`); `csrc/closest_hit_mxu.cu` (B5, `big=True` with
+`edge=`, scenes built with `edge_prefilter=True`) fills the same ring with
+each tile's triangles, margin scales and edge weights and puts a
+conservative bf16 tensor-core test of the Pluecker edge values in front of
+the exact pair test (`pack_edge_tiles` packs its operand; the cull unites
+the candidates of a group's rays).  CPU tensors run the plain PyTorch
+versions: `closest_hit_rays_reference` and, for `big=True`,
+`closest_hit_pipe_reference` / `closest_hit_mxu_reference` (the group walk,
+with the prefilter for the latter).  Counts are per group.  Geometry on the
+card: 128-triangle tiles (5 KB of shared memory, fine-grained enough that
+the tile cull prunes within a 972-triangle scene) and the tile order per 128
 rays (one sort row per 128 rays at the 65,536-ray wavefront).
 """
 
@@ -39,12 +39,13 @@ import ctypes
 import torch
 
 TILE = 128  # triangles per tile (kernel maximum: 1024)
-RAY_BLOCK = 128  # rays per row of the tile order (and per block of the 128-ray kernels)
+RAY_BLOCK = 128  # rays per row of the tile order (and per block of the any-hit kernels)
 # The closest-hit kernels' group walk (csrc/closest_hit_common.cuh; the
-# kernels' constants kGroupRays, kBatch and closest_hit_pipe.cu's kRing)
+# kernels' constants kGroupRays, kBatch and the kRing of closest_hit_pipe.cu
+# and closest_hit_mxu.cu)
 GROUP_RAYS = 8  # rays per group: one CUDA block of 8 threads per ray
 WALK_BATCH = 32  # order entries culled together
-PIPE_RING = 2  # tile buffers of closest_hit_pipe.cu's TMA ring
+PIPE_RING = 1  # tile buffers of the TMA ring
 _INF = 3.4e38
 _LB_SLACK = 0.999999  # 1 - 1e-6, the kernels' kLbSlack
 _TILE_ROWS = 10
@@ -54,7 +55,6 @@ EDGE_K = 8  # contraction depth of the prefilter's product: 6 Pluecker slots, 2 
 # to bf16: 2^-8 each, 2^-7 for the product; the f32 accumulation is negligible),
 # applied to rmax_i * wsum_j >= sum_k |r_ik| |w_kj|
 MXU_MARGIN = 2.0 ** -6
-_WARP = 32  # rays whose candidates the prefilter unites: one warp of the kernel
 
 
 def pack_tiles(p: torch.Tensor, tol: torch.Tensor, valid: torch.Tensor):
@@ -257,13 +257,15 @@ def check_async_tiles(tiles) -> None:
 _CLOSEST_OUT = (torch.float32, torch.int32)
 
 
-def _launch_group_walk(kernel, max_tile, rays, tiles, tile_aabb, order, counts, cycles):
-    """B1 and B2: the group walk's kernels, counts and cycles per group."""
+def _launch_group_walk(kernel, max_tile, rays, tiles, tile_aabb, order, counts, cycles,
+                       extra=(), n_counts=3):
+    """B1, B2 and B5: the group walk's kernels, counts and cycles per group."""
     if tile_aabb.data_ptr() % 16:
         raise ValueError("the group walk reads tile boxes as 16-byte vectors: tile_aabb must be "
                          "16-byte aligned")
     t, slot, c, cy = launch_tile_kernel(kernel, max_tile, _CLOSEST_OUT, rays, tiles, tile_aabb,
-                                        order, counts, unit=GROUP_RAYS, cycles=cycles)
+                                        order, counts, extra=extra, n_counts=n_counts,
+                                        unit=GROUP_RAYS, cycles=cycles)
     return (t, slot) + ((c,) if counts else ()) + ((cy,) if cycles else ())
 
 
@@ -294,14 +296,17 @@ def launch_closest_hit_pipe(rays, tiles, tile_aabb, order, counts: bool = False,
     return out
 
 
-def launch_closest_hit_mxu(rays, tiles, edge_tiles, wsum, tile_aabb, order, counts: bool = False):
-    """Launch `csrc/closest_hit_mxu.cu` (the double-buffered kernel with the
-    tensor-core edge prefilter) on prepared rays and the tiles of
-    `pack_tiles` and `pack_edge_tiles`; (best_t, slot) as the other two
-    kernels, the same values bit for bit.  With `counts` also the
-    (R_pad / 128, 5) int32 per-block [tile steps walked, tiles fetched, tiles
-    scanned, pairs passed to the exact test, pairs the prefilter culled].
-    The kernel's tile width is fixed at 128."""
+def launch_closest_hit_mxu(rays, tiles, edge_tiles, wsum, tile_aabb, order, counts: bool = False,
+                           cycles: bool = False):
+    """Launch `csrc/closest_hit_mxu.cu` (the TMA ring with the tensor-core
+    edge prefilter) on prepared rays and the tiles of `pack_tiles` and
+    `pack_edge_tiles`; (best_t, slot) as the other two kernels, the same
+    values bit for bit.  With `counts` also the (R_pad / GROUP_RAYS, 5)
+    int32 per group [order entries walked, tiles fetched, tiles scanned (the
+    same as `launch_closest_hit_pipe`'s), pairs passed to the exact test,
+    pairs the prefilter culled], and with `cycles` the (R_pad / GROUP_RAYS,
+    2) int64 per group [clock64 cycles of the walk, of its waiting,
+    prefiltering and scanning].  The kernel's tile width is fixed at 128."""
     check_async_tiles(tiles)
     n_tiles, _, tile = tiles.shape
     if tile != TILE:
@@ -309,12 +314,11 @@ def launch_closest_hit_mxu(rays, tiles, edge_tiles, wsum, tile_aabb, order, coun
     _check("edge_tiles", edge_tiles, torch.bfloat16, (n_tiles, 3 * tile, EDGE_K), rays.device)
     _check("wsum", wsum, torch.float32, (n_tiles, 3, tile), rays.device)
     if edge_tiles.data_ptr() % 16 or wsum.data_ptr() % 16:
-        raise ValueError("the 16-byte async copies need 16-byte-aligned edge tiles and wsum")
-    t, slot, c, _ = launch_tile_kernel("closest_hit_mxu", TILE, _CLOSEST_OUT, rays, tiles,
-                                       tile_aabb, order, counts, extra=(edge_tiles, wsum),
-                                       n_counts=5)
+        raise ValueError("the 16-byte copies need 16-byte-aligned edge tiles and wsum")
+    out = _launch_group_walk("closest_hit_mxu", TILE, rays, tiles, tile_aabb, order, counts,
+                             cycles, extra=(edge_tiles, wsum), n_counts=5)
     launch_closest_hit_mxu.launches += 1
-    return (t, slot, c) if counts else (t, slot)
+    return out
 
 
 # kernel launches; set to 0 by callers that count
@@ -446,36 +450,36 @@ def closest_hit_pipe_reference(rays, tiles, tile_aabb, order, ring: int = PIPE_R
 
 
 def closest_hit_block_reference(rays, tiles, tile_aabb, order):
-    """The 128-ray block walk without the prefilter (`_pipe_walk`): the walk
-    of `csrc/closest_hit_mxu.cu` and, before the group walk, of B1 and B2.
-    Returns (best_t, slot, counts), counts (R_pad / 128, 3) int32 per block
-    [tile steps walked, tiles fetched, tiles scanned]; (best_t, slot) equal
-    the group walk's."""
-    return _pipe_walk(rays, tiles, tile_aabb, order, None)
+    """The 128-ray block walk (`_pipe_walk`): the TPU kernel's own walk and,
+    before the group walk, the port's.  Returns (best_t, slot, counts),
+    counts (R_pad / 128, 3) int32 per block [tile steps walked, tiles
+    fetched, tiles scanned]; (best_t, slot) equal the group walk's."""
+    return _pipe_walk(rays, tiles, tile_aabb, order)
 
 
 def closest_hit_mxu_reference(rays, tiles, edge_tiles, wsum, tile_aabb, order):
-    """Plain PyTorch version of `csrc/closest_hit_mxu.cu`: the 128-ray block
-    walk (`_pipe_walk`) with the edge prefilter in front of the pair test of
-    every scanned tile (`prefilter_candidates`; the exact test runs on the
-    columns that are candidates for some ray of a 32-ray group, the kernel's
-    warp).  Returns (best_t, slot, counts), counts (R_pad / 128, 5): walked,
-    fetched, scanned, pairs passed to the exact test, pairs culled.
-    (best_t, slot) equal `closest_hit_pipe_reference`'s bit for bit."""
-    return _pipe_walk(rays, tiles, tile_aabb, order, (edge_tiles, wsum))
+    """Plain PyTorch version of `csrc/closest_hit_mxu.cu`: the group walk
+    (`_group_walk`, with the ring of PIPE_RING buffers) with the edge
+    prefilter in front of the pair test of every scanned tile
+    (`prefilter_candidates`; the exact test runs on the columns that are
+    candidates for some ray of the group, for all of its rays).  Returns
+    (best_t, slot, counts), counts (R_pad / GROUP_RAYS, 5): walked, fetched,
+    scanned (equal to `closest_hit_pipe_reference`'s), pairs passed to the
+    exact test, pairs culled.  (best_t, slot) equal
+    `closest_hit_pipe_reference`'s bit for bit."""
+    return _group_walk(rays, tiles, tile_aabb, order, PIPE_RING, (edge_tiles, wsum))
 
 
-def _pipe_walk(rays, tiles, tile_aabb, order, edge):
-    """The 128-ray block walk of `csrc/closest_hit_mxu.cu` in plain PyTorch
-    (with `edge` = None: the walk B1 and B2 had before the group walk, kept
-    as the yardstick of their counts): every ray block walks its own row of
-    `order` tile by tile with the Chebyshev early exit, the block slab vote
-    and the lagging prefetch decision (tile j+1 is "fetched" on the best_t
-    from before tile j's pairs; tile j is scanned only if it was fetched and
-    the walk still goes on).  All blocks advance one tile step together; pair
-    work is done only for the blocks that scan at that step.  `edge` =
-    (edge_tiles, wsum) puts the prefilter in front of the pairs.  Returns
-    (best_t, slot, counts), counts (R_pad / 128, 3 or 5)."""
+def _pipe_walk(rays, tiles, tile_aabb, order):
+    """The 128-ray block walk in plain PyTorch (the walk of the TPU kernel
+    and, before the group walk, of B1, B2 and B5; kept as the yardstick of
+    the group walk): every ray block walks its own row of `order` tile by
+    tile with the Chebyshev early exit, the block slab vote and the lagging
+    prefetch decision (tile j+1 is "fetched" on the best_t from before tile
+    j's pairs; tile j is scanned only if it was fetched and the walk still
+    goes on).  All blocks advance one tile step together; pair work is done
+    only for the blocks that scan at that step.  Returns (best_t, slot,
+    counts), counts (R_pad / 128, 3)."""
     n_blocks, n_tiles = order.shape
     tile = tiles.shape[2]
     dev = rays.device
@@ -508,7 +512,7 @@ def _pipe_walk(rays, tiles, tile_aabb, order, edge):
     reach = torch.amax(best_t, dim=(1, 2)) * dmax
     fetched_cur = (lower_bound(ti_cur) * _LB_SLACK < reach) & slab_vote(ti_cur)
     walking = torch.ones((n_blocks,), dtype=torch.bool, device=dev)
-    counts = torch.zeros((n_blocks, 3 if edge is None else 5), dtype=torch.int32, device=dev)
+    counts = torch.zeros((n_blocks, 3), dtype=torch.int32, device=dev)
     counts[:, 1] += fetched_cur
     for j in range(n_tiles):
         if not bool(walking.any()):
@@ -532,16 +536,8 @@ def _pipe_walk(rays, tiles, tile_aabb, order, edge):
             ti = ti_cur[blk]
             tv = [tiles[ti, row][:, None, :] for row in range(_TILE_ROWS)]
             base = (ti * tile).to(torch.int32)[:, None, None]
-            columns = None
-            if edge is not None:
-                cand = prefilter_candidates(rb[blk], edge[0][ti], edge[1][ti], best_t[blk])
-                union = torch.any(cand.reshape(-1, RAY_BLOCK // _WARP, _WARP, tile), dim=2)
-                passed = (torch.sum(union, dim=(1, 2)) * _WARP).to(torch.int32)
-                counts[blk, 3] += passed
-                counts[blk, 4] += RAY_BLOCK * tile - passed
-                columns = union.repeat_interleave(_WARP, dim=1)
             best_t[blk], best_slot[blk] = _scan_tile(
-                woop_ctx(rb[blk]), tv, base, lane, best_t[blk], best_slot[blk], columns)
+                woop_ctx(rb[blk]), tv, base, lane, best_t[blk], best_slot[blk])
 
         walking = walking & improve
         fetched_cur, ti_cur = fetched_next, ti_next
@@ -551,7 +547,7 @@ def _pipe_walk(rays, tiles, tile_aabb, order, edge):
 _GROUP_REFERENCE_GROUPS = 256  # groups per pair step of the group walk's plain version
 
 
-def _group_walk(rays, tiles, tile_aabb, order, ring):
+def _group_walk(rays, tiles, tile_aabb, order, ring, edge=None):
     """The closest-hit kernels' group walk (`csrc/closest_hit_common.cuh`) in
     plain PyTorch.  Each group of GROUP_RAYS rays walks the row of `order`
     of its 128-ray block, WALK_BATCH entries at a time: the Chebyshev bound of
@@ -565,7 +561,10 @@ def _group_walk(rays, tiles, tile_aabb, order, ring):
     at that position.  Counts per group: [entries walked (up to the one at
     which the walk ended), tiles fetched, tiles scanned], where a ring of
     `ring` buffers fetches up to `ring` candidates of a batch ahead (0: only
-    what is scanned)."""
+    what is scanned).  `edge` = (edge_tiles, wsum) puts the prefilter in
+    front of the pairs (the union of a group's candidates, with the best_t
+    each ray starts the tile with) and adds two counts: pairs passed to the
+    exact test (the union's columns x GROUP_RAYS) and pairs culled."""
     n_rows, n_tiles = order.shape
     tile = tiles.shape[2]
     dev = rays.device
@@ -584,7 +583,7 @@ def _group_walk(rays, tiles, tile_aabb, order, ring):
 
     best_t = torch.clamp(gr[..., 6:7], max=_INF)  # (G, R, 1)
     best_slot = torch.full_like(best_t, -1, dtype=torch.int32)
-    counts = torch.zeros((n_groups, 3), dtype=torch.int32, device=dev)
+    counts = torch.zeros((n_groups, 3 if edge is None else 5), dtype=torch.int32, device=dev)
     walking = torch.ones((n_groups,), dtype=torch.bool, device=dev)
     for s in range(0, n_tiles, WALK_BATCH):
         if not bool(walking.any()):
@@ -624,8 +623,15 @@ def _group_walk(rays, tiles, tile_aabb, order, ring):
                 ti = ent[grp, k]
                 tv = [tiles[ti, r][:, None, :] for r in range(_TILE_ROWS)]
                 base = (ti * tile).to(torch.int32)[:, None, None]
+                columns = None
+                if edge is not None:
+                    pairs = prefilter_candidates(gr[grp], edge[0][ti], edge[1][ti], best_t[grp])
+                    columns = torch.any(pairs, dim=1, keepdim=True)  # (n, 1, TILE)
+                    passed = (torch.sum(columns, dim=(1, 2)) * GROUP_RAYS).to(torch.int32)
+                    counts[grp, 3] += passed
+                    counts[grp, 4] += GROUP_RAYS * tile - passed
                 best_t[grp], best_slot[grp] = _scan_tile(
-                    woop_ctx(gr[grp]), tv, base, lane, best_t[grp], best_slot[grp])
+                    woop_ctx(gr[grp]), tv, base, lane, best_t[grp], best_slot[grp], columns)
         ended = exit_at >= 0
         stopped = ~ended & (stop < nb)
         walked = torch.where(ended, s + exit_at + 1, torch.where(stopped, s + stop + 1, s + nb))
@@ -650,13 +656,13 @@ def closest_hit_tiles(tiles, tile_aabb, origin, direction, t_max=float("inf"), b
                       edge=None):
     """Closest hit for a ray batch: (t, slot, hit), slot a row of the sorted
     SoA and -1 on a miss, t = +inf on a miss.  CUDA tensors go through a
-    kernel (one launch per call): with `big` the double-buffered one, or,
-    when `edge` = (edge_tiles, wsum) of `pack_edge_tiles` is given, the one
-    with the edge prefilter; else the plain-load one.  CPU tensors go through
+    kernel (one launch per call): with `big` the ring-buffered one, or, when
+    `edge` = (edge_tiles, wsum) of `pack_edge_tiles` is given, the one with
+    the edge prefilter; else the plain-load one.  CPU tensors go through
     the matching plain version.  Not differentiable: recompute winner
     attributes outside (`ops.trace.winner_bary`)."""
     if edge is not None and not big:
-        raise ValueError("the edge prefilter belongs to the double-buffered route (big=True)")
+        raise ValueError("the edge prefilter belongs to the ring-buffered route (big=True)")
     r = origin.shape[0]
     with torch.no_grad():
         rays = prepare_rays(tile_aabb, origin, direction, t_max)
@@ -679,9 +685,7 @@ def _reference(rays, tiles, tile_aabb, big, edge=None):
     if not big:
         return closest_hit_rays_reference(rays, tiles)
     order = block_tile_order(rays, tile_aabb, rays.shape[0] // RAY_BLOCK)
-    if edge is not None:
-        return _pipe_walk(rays, tiles, tile_aabb, order, edge)[:2]
-    return _group_walk(rays, tiles, tile_aabb, order, PIPE_RING)[:2]
+    return _group_walk(rays, tiles, tile_aabb, order, PIPE_RING, edge)[:2]
 
 
 def closest_hit_tiles_reference(tiles, tile_aabb, origin, direction, t_max=float("inf"),

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where a render of the PyTorch port spends its time on the card.
 
-    python3 scripts/profile_torch_render.py [cornell|mesh|panel|sss] [--gradient]
+    python3 scripts/profile_torch_render.py [cornell|mesh|mesh_prefilter|panel|sss] [--gradient]
 
 Builds the scene of one `chip_smoke.py` main path (the Cornell box with
-spheres, the 327,684-triangle mesh, the 2,048-emitter panel of the sparse
-light-tree regime, or the SSS box with its 4,096-point cloud attached),
+spheres, the 327,684-triangle mesh, the same mesh with the closest-hit edge
+prefilter, the 2,048-emitter panel of the sparse light-tree regime, or the
+SSS box with its 4,096-point cloud attached),
 renders 512x512 at level 8 with
 hittable_pdf_weight 0.5, one sample per pixel (4 chunks x 8 bounces = 32
 wavefront steps of 65,536 rays), and prints:
@@ -55,14 +56,15 @@ SIZE, LEVEL, WEIGHT = 512, 8, 0.5
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("scene", nargs="?", default="cornell",
-                    choices=("cornell", "mesh", "panel", "sss"))
+                    choices=("cornell", "mesh", "mesh_prefilter", "panel", "sss"))
     ap.add_argument("--gradient", action="store_true")
     args = ap.parse_args()
     dev = require_cuda()
     print(f"card: {chip_smoke.nvidia_smi()}; torch {torch.__version__}", flush=True)
 
-    if args.scene == "mesh":
-        scene = build_scene(testscenes.make_mesh_scene_host(subdiv=7), dev)
+    if args.scene in ("mesh", "mesh_prefilter"):
+        scene = build_scene(testscenes.make_mesh_scene_host(subdiv=7), dev,
+                            edge_prefilter=args.scene == "mesh_prefilter")
         cam = Camera.create(**chip_smoke.MESH_CAM, width=SIZE, height=SIZE, device=dev)
     else:
         folder = pathlib.Path(tempfile.mkdtemp(prefix="profile_torch_"))
@@ -147,12 +149,18 @@ def main() -> int:
     perm = trace.coherence_perm(g, wo, wd, live)
     rays = ch.prepare_rays(g.tile_aabb, wo[perm], wd[perm], tm[perm])
     order = ch.block_tile_order(rays, g.tile_aabb, rays.shape[0] // ch.RAY_BLOCK)
-    launch = ch.launch_closest_hit_pipe if trace.pallas_big(g) else ch.launch_closest_hit
+    edge = trace.edge_operand(g)
+    if edge is not None:
+        kernel = ("launch_closest_hit_mxu",
+                  lambda: ch.launch_closest_hit_mxu(rays, g.tiles, *edge, g.tile_aabb, order))
+    else:
+        launch = ch.launch_closest_hit_pipe if trace.pallas_big(g) else ch.launch_closest_hit
+        kernel = (launch.__name__, lambda: launch(rays, g.tiles, g.tile_aabb, order))
     pieces = {
         "coherence_perm": lambda: trace.coherence_perm(g, wo, wd, live),
         "gather + prepare_rays": lambda: ch.prepare_rays(g.tile_aabb, wo[perm], wd[perm], tm[perm]),
         "block_tile_order": lambda: ch.block_tile_order(rays, g.tile_aabb, order.shape[0]),
-        f"kernel ({launch.__name__})": lambda: launch(rays, g.tiles, g.tile_aabb, order),
+        f"kernel ({kernel[0]})": kernel[1],
         "trace.closest_hit, whole": lambda: trace.closest_hit(g, wo, wd, live=live),
     }
     print(f"one closest-hit query, bounce-2 wavefront, {g.tiles.shape[0]} tiles (CUDA events, "

@@ -1,30 +1,39 @@
 #!/usr/bin/env python3
-"""Time and take apart the closest-hit kernels B1 (`csrc/closest_hit.cu`) and
-B2 (`csrc/closest_hit_pipe.cu`) on an NVIDIA GPU.
+"""Time and take apart the closest-hit kernels B1 (`csrc/closest_hit.cu`), B2
+(`csrc/closest_hit_pipe.cu`) and B5 (`csrc/closest_hit_mxu.cu`, the edge
+prefilter) on an NVIDIA GPU.
 
     python3 scripts/sweep_closest_hit_walk.py                   # the cycle split
     python3 scripts/sweep_closest_hit_walk.py --baseline DIR    # + older sources in turns
-    python3 scripts/sweep_closest_hit_walk.py --sweep           # + the shape sweep
+    python3 scripts/sweep_closest_hit_walk.py --sweep           # + the build-time sweep
+    python3 scripts/sweep_closest_hit_walk.py --kernels closest_hit_mxu --sweep
 
 Run from the repo root with one CUDA card.  The rays are the main paths'
 queries as `chip_smoke.py` makes them: the bounce-0 and bounce-2 wavefronts
-(65,536 rays, coherence-sorted) of the 327,684-triangle mesh and the bounce-0
-and bounce-3 wavefronts of the 972-triangle Cornell box.
+(65,536 rays, coherence-sorted) of the 327,684-triangle mesh (built with the
+prefilter's edge tiles) and the bounce-0 and bounce-3 wavefronts of the
+972-triangle Cornell box.  B5 runs on the mesh's only.
 
 - The cycle split: each kernel's per-unit cycles output (`clock64()` of the
-  whole walk and of the part spent staging and scanning tiles; a unit is the
-  group of rays that walks together) beside its per-unit counts: the slowest
-  unit, the mean, and a least-squares fit of a unit's cycles to its walked
-  and scanned tiles.
-- `--baseline DIR`: DIR holds another version's `closest_hit.cu`,
-  `closest_hit_pipe.cu` and `closest_hit_common.cuh` (e.g. the parent
-  commit's `csrc/`, unpacked into the git-ignored `build/`).  They are built
-  beside the tree's and timed in turns on the same rays (baseline, tree,
-  tree, baseline), CUDA events over 20 launches; (t, slot) must be equal bit
-  for bit.
-- `--sweep`: variants of the tree's kernels rebuilt with other values of the
-  walk's constants (rays per group, threads per ray; B2's ring depth), each
-  checked bit for bit against the tree's build and timed.
+  whole walk and of the part spent staging, prefiltering and scanning
+  tiles; a unit is the group of rays that walks together) beside its
+  per-unit counts: the slowest unit, the mean, and a least-squares fit of a
+  unit's cycles to its walked and scanned tiles; for B5 also the share of
+  the scanned tiles' pairs it culls.
+- `--baseline DIR`: DIR holds another version's kernel sources and headers
+  (e.g. the parent commit's `csrc/`, unpacked into the git-ignored
+  `build/`).  They are built beside the tree's and timed in turns on the
+  same rays (baseline, tree, tree, baseline), CUDA events over 20 launches;
+  (t, slot) must be equal bit for bit.  A baseline kernel without the
+  cycles output walks in 128-ray blocks (B5 before the group walk).
+- `--sweep`: variants of the tree's kernels rebuilt with other values of
+  their build-time constants, each checked bit for bit against the tree's
+  B2 and timed twice: B1 and B2's walk shape (rays per group, threads per
+  ray) and B2's ring depth; for B5 every combination of the cull's
+  granularity (kPerRay: the group's union or each ray's own), the product
+  split over the group's two warps (kSplitMma), the staging (kCpAsync: TMA
+  or cp.async) and the ring depth (kRing 1 or 2).
+- `--kernels`: the kernels to time, split and sweep (default all three).
 
 Prints the card's name and power limit first and one line per measurement.
 """
@@ -33,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import pathlib
 import re
 import shutil
@@ -43,8 +53,7 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ("closest_hit", "closest_hit_pipe")
-HEADER = "closest_hit_common.cuh"
+KERNELS = ("closest_hit", "closest_hit_pipe", "closest_hit_mxu")
 REPS = 20
 
 
@@ -57,15 +66,15 @@ def sm_clock_mhz() -> float:
 def build(variants: dict, out: pathlib.Path) -> dict:
     """variants: {label: (csrc dir, kernel name, {constant: value})} -> {label:
     CDLL}; one nvcc per variant, all started together.  Each constant
-    (`constexpr int <name> = <value>;` in the kernel's source or the header)
-    is rewritten in a copy of the sources."""
+    (`constexpr int <name> = <value>;` in the kernel's source or a header it
+    includes) is rewritten in a copy of the sources."""
     from gpu_pathtracer_tpu_torch.ops import _build
 
     running = []
     for label, (src_dir, kernel, consts) in variants.items():
         work = out / label
         work.mkdir(parents=True)
-        texts = {f: (pathlib.Path(src_dir) / f).read_text() for f in (f"{kernel}.cu", HEADER)}
+        texts = {f.name: f.read_text() for f in _build.sources(kernel, pathlib.Path(src_dir))}
         for name, value in consts.items():
             found = 0
             for f, text in texts.items():
@@ -94,12 +103,15 @@ def build(variants: dict, out: pathlib.Path) -> dict:
 class Kernel:
     """One built closest-hit kernel behind its C entry point.  `unit` is the
     rays per walking unit (counts and cycles have one row per unit);
-    `has_cycles`: whether the entry point takes the cycles pointer."""
+    `has_cycles`: whether the entry point takes the cycles pointer.  B5
+    (`closest_hit_mxu`) also takes the scene's edge tiles and margin scales
+    and reports two more counts."""
 
     def __init__(self, lib, kernel: str, unit: int, has_cycles: bool):
         from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
 
-        self.fn = ch.bind_tile_entry(lib, kernel, cycles=has_cycles)
+        self.mxu = kernel == "closest_hit_mxu"
+        self.fn = ch.bind_tile_entry(lib, kernel, 2 if self.mxu else 0, cycles=has_cycles)
         self.unit, self.has_cycles = unit, has_cycles
 
     def __call__(self, rays, g, order, counts=False, cycles=False):
@@ -108,10 +120,13 @@ class Kernel:
         dev, n = rays.device, rays.shape[0]
         t = torch.empty(n, dtype=torch.float32, device=dev)
         slot = torch.empty(n, dtype=torch.int32, device=dev)
-        c = torch.zeros((n // self.unit, 3), dtype=torch.int32, device=dev) if counts else None
+        c = (torch.zeros((n // self.unit, 5 if self.mxu else 3), dtype=torch.int32, device=dev)
+             if counts else None)
         cy = torch.zeros((n // self.unit, 2), dtype=torch.int64, device=dev) if cycles else None
-        ptrs = [rays.data_ptr(), g.tiles.data_ptr(), g.tile_aabb.data_ptr(), order.data_ptr(),
-                t.data_ptr(), slot.data_ptr(), c.data_ptr() if counts else None]
+        ptrs = [rays.data_ptr(), g.tiles.data_ptr(), g.tile_aabb.data_ptr(), order.data_ptr()]
+        if self.mxu:
+            ptrs += [g.edge_tiles.data_ptr(), g.edge_wsum.data_ptr()]
+        ptrs += [t.data_ptr(), slot.data_ptr(), c.data_ptr() if counts else None]
         if self.has_cycles:
             ptrs.append(cy.data_ptr() if cycles else None)
         err = self.fn(*ptrs, n, g.tiles.shape[0], g.tiles.shape[2],
@@ -145,6 +160,8 @@ def split(name, kernel, rays, g, order, clock_mhz):
                mean_scan_share=float(scan.sum() / max(float(total.sum()), 1.0)),
                fit_us_per_walked=float(coef[0]) * us, fit_us_per_scanned=float(coef[1]) * us,
                fit_us_fixed=float(coef[2]) * us)
+    if kernel.mxu:
+        out["culled_share"] = float(c[:, 4].sum() / max(float(c[:, 3:].sum()), 1.0))
     print(f"{name}: " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                                   for k, v in out.items()), flush=True)
     return out
@@ -159,7 +176,8 @@ def queries(dev):
     from gpu_pathtracer_tpu_torch.utils import obj_io, testscenes
 
     out = []
-    mesh = build_scene(testscenes.make_mesh_scene_host(subdiv=cs.MESH_SUBDIV), dev)
+    mesh = build_scene(testscenes.make_mesh_scene_host(subdiv=cs.MESH_SUBDIV), dev,
+                       edge_prefilter=True)
     cam = Camera.create(**cs.MESH_CAM, width=512, height=512, device=dev)
     waves = cs.wavefronts(mesh, cam, cs.WAVE_RAYS, 3, seed=2)
     for bounce in (0, 2):
@@ -176,10 +194,11 @@ def queries(dev):
             for label, g, rays in out]
 
 
-def sweep_variants() -> dict:
-    """{label: (kernel, {constant: value}, rays per group)} of the shape sweep:
-    rays per group x threads per ray (whole warps, at most 512 threads) at
-    the committed ring; B2's ring depth at the committed shape."""
+def sweep_variants(kernels) -> dict:
+    """{label: (kernel, {constant: value}, rays per group)} of the sweep: B1
+    and B2's rays per group x threads per ray (whole warps, at most 512
+    threads) at the committed ring, B2's ring depth at the committed shape,
+    and B5's four build-time choices in every combination."""
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
 
     out = {}
@@ -187,19 +206,25 @@ def sweep_variants() -> dict:
         for threads in (1, 2, 4, 8, 16):
             if (rays_per_group * threads) % 32 or rays_per_group * threads > 512:
                 continue
-            for kernel in KERNELS:
+            for kernel in ("closest_hit", "closest_hit_pipe"):
                 out[f"{kernel}_g{rays_per_group}x{threads}"] = (
                     kernel, {"kGroupRays": rays_per_group, "kRayThreads": threads}, rays_per_group)
     for ring in (1, 2, 3, 4):
         out[f"closest_hit_pipe_r{ring}"] = ("closest_hit_pipe", {"kRing": ring}, ch.GROUP_RAYS)
-    return out
+    for per_ray, split_mma, cp_async, ring in itertools.product((0, 1), (0, 1), (0, 1), (1, 2)):
+        out[f"closest_hit_mxu_{'ray' if per_ray else 'union'}_{'split' if split_mma else 'whole'}"
+            f"_{'cpasync' if cp_async else 'tma'}_r{ring}"] = (
+            "closest_hit_mxu", {"kPerRay": per_ray, "kSplitMma": split_mma, "kCpAsync": cp_async,
+                                "kRing": ring}, ch.GROUP_RAYS)
+    return {k: v for k, v in out.items() if v[0] in kernels}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", type=pathlib.Path, default=None,
-                        help="a directory with older closest_hit{,_pipe}.cu and the header")
-    parser.add_argument("--sweep", action="store_true", help="also the shape sweep")
+                        help="a directory with older kernel sources and their headers")
+    parser.add_argument("--sweep", action="store_true", help="also the build-time sweep")
+    parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
     args = parser.parse_args()
 
     import torch
@@ -211,32 +236,41 @@ def main() -> int:
 
     dev = require_cuda()
     print(cs.nvidia_smi(), flush=True)
+    kernels = [k for k in KERNELS if k in args.kernels]
     out = pathlib.Path(tempfile.mkdtemp(prefix="sweep_walk_"))
-    specs = {k: (_build.CSRC, k, {}) for k in KERNELS}
+    # B2 is every variant's yardstick, so it is always built
+    specs = {k: (_build.CSRC, k, {}) for k in KERNELS if k in kernels or k == "closest_hit_pipe"}
     if args.baseline is not None:
-        specs.update({f"baseline_{k}": (args.baseline, k, {}) for k in KERNELS})
-    sweep = sweep_variants() if args.sweep else {}
+        specs.update({f"baseline_{k}": (args.baseline, k, {}) for k in kernels})
+    sweep = sweep_variants(kernels) if args.sweep else {}
     specs.update({label: (_build.CSRC, k, consts) for label, (k, consts, _) in sweep.items()})
     libs = build(specs, out)
-    tree = {k: Kernel(libs[k], k, ch.GROUP_RAYS, True) for k in KERNELS}
-    base = ({k: Kernel(libs[f"baseline_{k}"], k, ch.RAY_BLOCK,
-                       "out_cycles" in (args.baseline / f"{k}.cu").read_text()) for k in KERNELS}
-            if args.baseline is not None else {})
+    tree = {k: Kernel(libs[k], k, ch.GROUP_RAYS, True) for k in specs if k in KERNELS}
+    base = {}
+    for k in kernels if args.baseline is not None else ():
+        walks_groups = "out_cycles" in (args.baseline / f"{k}.cu").read_text()
+        base[k] = Kernel(libs[f"baseline_{k}"], k, ch.GROUP_RAYS if walks_groups else ch.RAY_BLOCK,
+                         walks_groups)
     qs = queries(dev)
     print(f"SM clock {sm_clock_mhz():.0f} MHz", flush=True)
     for label, g, rays, order in qs:
-        ref = {k: kern(rays, g, order)[:2] for k, kern in tree.items()}
+        here = [k for k in kernels if k != "closest_hit_mxu" or g.edge_tiles is not None]
+        ref = tree["closest_hit_pipe"](rays, g, order)[:2]
         torch.cuda.synchronize()
-        if not (torch.equal(ref[KERNELS[0]][0], ref[KERNELS[1]][0])
-                and torch.equal(ref[KERNELS[0]][1], ref[KERNELS[1]][1])):
-            raise SystemExit(f"{label}: closest_hit and closest_hit_pipe differ")
-        for k, kern in base.items():
-            t, slot = kern(rays, g, order)[:2]
+        for k in here:
+            t, slot = tree[k](rays, g, order)[:2]
             torch.cuda.synchronize()
-            same = torch.equal(t, ref[k][0]) and torch.equal(slot, ref[k][1])
+            if not (torch.equal(t, ref[0]) and torch.equal(slot, ref[1])):
+                raise SystemExit(f"{label}: {k} and closest_hit_pipe differ")
+        for k in here:
+            if k not in base:
+                continue
+            t, slot = base[k](rays, g, order)[:2]
+            torch.cuda.synchronize()
+            same = torch.equal(t, ref[0]) and torch.equal(slot, ref[1])
             print(f"{label}: baseline {k} equals the tree's bit for bit: {same} "
-                  f"({int(((t != ref[k][0]) | (slot != ref[k][1])).sum())} rays differ)", flush=True)
-        for k in KERNELS:
+                  f"({int(((t != ref[0]) | (slot != ref[1])).sum())} rays differ)", flush=True)
+        for k in here:
             if k in base:  # in turns: baseline, tree, tree, baseline
                 ms = [cs.cuda_ms(lambda: base[k](rays, g, order), REPS),
                       cs.cuda_ms(lambda: tree[k](rays, g, order), REPS),
@@ -251,13 +285,19 @@ def main() -> int:
             if k in base and base[k].has_cycles:
                 split(f"{label}, baseline {k}, split", base[k], rays, g, order, sm_clock_mhz())
         for name, (k, _, unit) in sweep.items():
+            if k not in here:
+                continue
             kern = Kernel(libs[name], k, unit, True)
             t, slot = kern(rays, g, order)[:2]
             torch.cuda.synchronize()
-            if not (torch.equal(t, ref[k][0]) and torch.equal(slot, ref[k][1])):
-                raise SystemExit(f"{label}: {name} differs from the tree's {k}")
+            if not (torch.equal(t, ref[0]) and torch.equal(slot, ref[1])):
+                raise SystemExit(f"{label}: {name} differs from the tree's closest_hit_pipe")
             ms = [cs.cuda_ms(lambda: kern(rays, g, order), REPS) for _ in range(2)]
-            print(f"{label}, sweep {name}: {ms[0]:.4f} / {ms[1]:.4f} ms", flush=True)
+            culled = ""
+            if kern.mxu:
+                c = kern(rays, g, order, counts=True)[2].double()
+                culled = f", culled {float(c[:, 4].sum() / max(float(c[:, 3:].sum()), 1.0)):.4f}"
+            print(f"{label}, sweep {name}: {ms[0]:.4f} / {ms[1]:.4f} ms{culled}", flush=True)
     shutil.rmtree(out)
     return 0
 

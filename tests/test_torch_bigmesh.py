@@ -6,8 +6,8 @@ plain version of `csrc/closest_hit_pipe.cu`: per group of 8 rays the
 front-to-back tile walk of its 128-ray row, 32 entries at a time, with the
 slab votes and the early exit (tests/test_torch_group_walk.py holds its
 counts).  The count tests below hold the 128-ray block walk with the lagging
-prefetch decision (`closest_hit_block_reference`), which the prefilter
-kernel `csrc/closest_hit_mxu.cu` keeps.  It is held against the JAX package's `_closest_kernel_big_pipe`
+prefetch decision (`closest_hit_block_reference`), the TPU kernel's own
+walk.  It is held against the JAX package's `_closest_kernel_big_pipe`
 in interpret mode (`closest_hit_pallas(..., big=True)`, as
 tests/test_bigmesh.py runs it) on the displaced icosphere at subdiv=4 (5,124
 triangles), built by both packages from the same host arrays.

@@ -209,10 +209,13 @@ def test_build_hash_covers_included_headers(monkeypatch, tmp_path):
     (tmp_path / "b.cuh").write_text("#pragma once\nconstexpr int kB = 2;\n")
     second = _build.library_path("k")
     assert second != first and second.name == "libk.so"
-    # the real kernels share one header
+    # the real kernels share the walk's header, the ring kernels also the ring's
     monkeypatch.undo()
-    for name in ("closest_hit", "closest_hit_pipe", "closest_hit_mxu"):
-        assert [p.name for p in _build.sources(name)] == [f"{name}.cu", "closest_hit_common.cuh"]
+    assert [p.name for p in _build.sources("closest_hit")] == ["closest_hit.cu",
+                                                              "closest_hit_common.cuh"]
+    for name in ("closest_hit_pipe", "closest_hit_mxu"):
+        assert sorted(p.name for p in _build.sources(name)) == sorted(
+            [f"{name}.cu", "closest_hit_common.cuh", "tile_ring.cuh"])
 
 
 def test_launch_refuses_cpu_tensors():

@@ -11,10 +11,10 @@ package's tests.)  Tolerances: the kernel and its plain version compute the
 same float32 expressions without FMA contraction, so where slots agree t
 agrees to rtol 1e-6; slots agree on >= 99.9% of rays (a ray may split only
 at an exact tie between triangles that the two visit in another order).
-The two closest-hit kernels share their arithmetic, their walk (groups of
-8 rays over each 128-ray row of the tile order) and the order, so the
+The three closest-hit kernels share their arithmetic, their walk (groups
+of 8 rays over each 128-ray row of the tile order) and the order, so the
 ring-buffered one equals the plain-load one bit for bit, and the prefilter
-kernel (the 128-ray block walk) equals both.  The any-hit
+kernel (the same ring and walk) equals both, with the same walk counts.  The any-hit
 kernels return bits: both bits equal their plain versions', each other's and
 the bits derived from the closest-hit kernel on every ray, and the per-block
 counts equal the plain versions'.
@@ -165,10 +165,12 @@ def test_group_walk_cycles(cuda, kernel):
 
 def test_mxu_kernel_bit_equal_to_pipe_kernel_and_counts_near_plain(cuda):
     """The kernel with the tensor-core edge prefilter: (t, slot) equal the
-    double-buffered kernel's bit for bit and the walk counts are the same;
-    the prefilter's pair counts are within 1% of the plain version's (the
-    accumulation order inside the mma is the hardware's, so a pair at the
-    margin may fall on either side), and it culls pairs."""
+    ring kernel's bit for bit and the walk counts (walked, fetched, scanned)
+    are the same group by group; the prefilter's pair counts are within 1%
+    of the plain version's (the accumulation order inside the mma is the
+    hardware's, so a pair at the margin may fall on either side), add up to
+    the scanned tiles' pairs, and it culls pairs.  Asking for the cycles
+    changes no result."""
     g, o, d, t_max = _mesh_query(cuda, 3000)
     edge_tiles, wsum = closest_hit.pack_edge_tiles(g.p, g.valid)
     rays = closest_hit.prepare_rays(g.tile_aabb, o, d, t_max)
@@ -178,12 +180,15 @@ def test_mxu_kernel_bit_equal_to_pipe_kernel_and_counts_near_plain(cuda):
                                                          g.tile_aabb, order, counts=True)
     t2, slot2, counts2 = closest_hit.launch_closest_hit_pipe(rays, g.tiles, g.tile_aabb, order,
                                                              counts=True)
+    t4, slot4, counts4, cycles = closest_hit.launch_closest_hit_mxu(
+        rays, g.tiles, edge_tiles, wsum, g.tile_aabb, order, counts=True, cycles=True)
     torch.cuda.synchronize()
-    assert closest_hit.launch_closest_hit_mxu.launches == before + 1
+    assert closest_hit.launch_closest_hit_mxu.launches == before + 2
     assert torch.equal(t, t2) and torch.equal(slot, slot2)
-    # the prefilter kernel keeps the 128-ray block walk; B2 walks in groups
-    assert counts.shape[0] == rays.shape[0] // 128
-    assert counts2.shape[0] == rays.shape[0] // closest_hit.GROUP_RAYS
+    assert torch.equal(t4, t) and torch.equal(slot4, slot) and torch.equal(counts4, counts)
+    assert counts.shape == (rays.shape[0] // closest_hit.GROUP_RAYS, 5)
+    assert torch.equal(counts[:, :3], counts2)
+    assert cycles.shape == (counts.shape[0], 2) and bool((cycles[:, 1] <= cycles[:, 0]).all())
     rt, rslot, rcounts = closest_hit.closest_hit_mxu_reference(rays, g.tiles, edge_tiles, wsum,
                                                                g.tile_aabb, order)
     same = slot == rslot
@@ -191,10 +196,11 @@ def test_mxu_kernel_bit_equal_to_pipe_kernel_and_counts_near_plain(cuda):
     hit = same & (slot >= 0)
     torch.testing.assert_close(t[hit], rt[hit], rtol=1e-6, atol=0.0)
     assert torch.equal(counts[:, :3], rcounts[:, :3])
-    passed, culled = (int(x) for x in counts[:, 3:].sum(dim=0))
+    passed, culled = counts[:, 3].long(), counts[:, 4].long()
+    pairs = counts[:, 2].long() * closest_hit.GROUP_RAYS * closest_hit.TILE
+    assert torch.equal(passed + culled, pairs) and int(culled.sum()) > 0
     rpassed = int(rcounts[:, 3].sum())
-    assert culled > 0 and passed + culled == int(counts[:, 2].sum()) * 128 * 128
-    assert abs(passed - rpassed) <= 0.01 * rpassed, (passed, rpassed)
+    assert abs(int(passed.sum()) - rpassed) <= 0.01 * rpassed, (int(passed.sum()), rpassed)
     # through the public entry point
     t3, slot3, _ = closest_hit.closest_hit_tiles(g.tiles, g.tile_aabb, o, d, t_max, big=True,
                                                  edge=(edge_tiles, wsum))

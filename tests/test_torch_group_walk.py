@@ -1,10 +1,11 @@
-"""The group walk of the closest-hit kernels B1 and B2 (`csrc/closest_hit.cu`,
-`csrc/closest_hit_pipe.cu`): its plain version on the CPU.
+"""The group walk of the closest-hit kernels B1, B2 and B5 (`csrc/closest_hit.cu`,
+`csrc/closest_hit_pipe.cu`, `csrc/closest_hit_mxu.cu`): its plain version on
+the CPU.
 
 `closest_hit_pipe_reference` walks the tile order in groups of GROUP_RAYS
 rays, WALK_BATCH entries at a time (`ops.closest_hit._group_walk`).  It is
-held bit for bit against the 128-ray block walk that the prefilter kernel
-keeps (`closest_hit_block_reference`) and, to >= 99.9% of the slots with t
+held bit for bit against the TPU kernel's 128-ray block walk
+(`closest_hit_block_reference`) and, to >= 99.9% of the slots with t
 to rtol 1e-6, against the plain version that scans every tile in index order
 (`closest_hit_rays_reference`; a ray may split only at an exact tie between
 triangles that the two visit in another order), on a triangle soup and on
@@ -125,20 +126,22 @@ def _two_walls():
 
 def test_ring_fetches_ahead_of_the_early_exit():
     """Both walls are candidates of the first batch (every ray's budget is
-    unbounded when the batch is voted), so the ring starts both copies; the
-    nearer wall's hits then end the walk at the farther one's re-check: two
-    entries walked, two fetched, one scanned.  The plain-load kernel stages
-    only the one it scans."""
+    unbounded when the batch is voted), so the ring starts the farther wall's
+    copy before its re-check (a ring of two with the nearer one's, a ring of
+    one as soon as the nearer one is scanned); the nearer wall's hits then
+    end the walk at that re-check: two entries walked, two fetched, one
+    scanned.  The plain-load kernel stages only the one it scans."""
     tiles, aabb, o, d = _two_walls()
     rays = closest_hit.prepare_rays(aabb, o, d)
     order = closest_hit.block_tile_order(rays, aabb, 1)
     assert order.tolist() == [[0, 1]]
     groups = closest_hit.RAY_BLOCK // closest_hit.GROUP_RAYS
     t, slot, counts = closest_hit.closest_hit_pipe_reference(rays, tiles, aabb, order)
-    assert counts.tolist() == [[2, min(2, closest_hit.PIPE_RING), 1]] * groups
+    assert counts.tolist() == [[2, min(2, 1 + closest_hit.PIPE_RING), 1]] * groups
     assert (slot == 0).all() and torch.allclose(t, torch.ones(128))
-    _, _, counts0 = closest_hit.closest_hit_pipe_reference(rays, tiles, aabb, order, ring=0)
-    assert counts0.tolist() == [[2, 1, 1]] * groups
+    for ring, fetched in ((0, 1), (1, 2), (2, 2)):
+        _, _, c = closest_hit.closest_hit_pipe_reference(rays, tiles, aabb, order, ring=ring)
+        assert c.tolist() == [[2, fetched, 1]] * groups, ring
     # seen from behind with a t_max of 1.5: the batch's bound ends the walk
     # at the second entry before it is voted in
     rays = closest_hit.prepare_rays(aabb, o - torch.tensor([0.0, 0.0, 3.0]), -d,
@@ -184,4 +187,7 @@ def test_kernel_constants_match_the_plain_version():
     assert constant("closest_hit_common.cuh", "kBatch") == closest_hit.WALK_BATCH
     assert constant("closest_hit_common.cuh", "kBlock") == closest_hit.RAY_BLOCK
     assert constant("closest_hit_pipe.cu", "kRing") == closest_hit.PIPE_RING
+    # B5 fetches what B2 fetches, and culls at the plain version's granularity
+    assert constant("closest_hit_mxu.cu", "kRing") == closest_hit.PIPE_RING
+    assert constant("closest_hit_mxu.cu", "kPerRay") == 0
     assert closest_hit.RAY_BLOCK % closest_hit.GROUP_RAYS == 0

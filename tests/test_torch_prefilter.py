@@ -2,11 +2,13 @@
 
 `ops.closest_hit.pack_edge_tiles` is the port's `pack_edge_cols`, and
 `closest_hit_mxu_reference` the plain version of `csrc/closest_hit_mxu.cu`
-(the double-buffered closest hit with a bf16 Pluecker-edge test in front of
-the exact pair test).  Both are held against the JAX package's packer and its
+(the ring-buffered closest hit's group walk with a bf16 Pluecker-edge test in
+front of the exact pair test, its cull the union of a group's candidates).
+Both are held against the JAX package's packer and its
 `_closest_kernel_big_pipe_mxu` in interpret mode (`closest_hit_pallas(...,
 big=True, edge_cols=)`, as tests/test_pallas.py runs it) on inputs made with
-numpy from a seed.
+numpy from a seed; the walk's counts and the cull's guarantees are held
+without JAX.
 
 Tolerances: the packed weights are the same bfloat16 values after re-layout
 (both round the same float32 products; XLA may contract a product and a sum,
@@ -89,15 +91,13 @@ def _prepared(soup):
 
 def test_mxu_plain_equals_pipe_plain_bit_for_bit(soup):
     rays, order = _prepared(soup)
-    t0, s0, _ = closest_hit.closest_hit_pipe_reference(rays, soup["tiles"], soup["aabb"], order)
-    _, _, c0 = closest_hit.closest_hit_block_reference(rays, soup["tiles"], soup["aabb"], order)
+    t0, s0, c0 = closest_hit.closest_hit_pipe_reference(rays, soup["tiles"], soup["aabb"], order)
     t1, s1, c1 = closest_hit.closest_hit_mxu_reference(
         rays, soup["tiles"], soup["edge_tiles"], soup["wsum"], soup["aabb"], order)
     assert torch.equal(t0, t1) and torch.equal(s0, s1)
-    # the prefilter kernel keeps the 128-ray block walk
-    assert c1.shape == (3, 5) and torch.equal(c0, c1[:, :3])
+    # the prefilter kernel walks as the ring kernel: the same counts, group by group
+    assert c1.shape == (384 // closest_hit.GROUP_RAYS, 5) and torch.equal(c0, c1[:, :3])
     passed, culled = c1[:, 3], c1[:, 4]
-    assert torch.equal(passed + culled, c1[:, 2] * closest_hit.RAY_BLOCK * TILE)
     assert int(culled.sum()) > 0 and int(passed.sum()) > 0
     assert 0.2 < float((s1[:384] >= 0).float().mean()) < 0.9
 
@@ -165,18 +165,13 @@ def test_build_scene_routes_to_the_prefilter(mesh_host, monkeypatch):
     assert trace.pallas_big(g) and trace.edge_operand(g) is not None
 
     calls = []
-    pipe_walk, group_walk = closest_hit._pipe_walk, closest_hit._group_walk
+    group_walk = closest_hit._group_walk
 
-    def recording(rays, tiles, aabb, order, edge):
+    def recording(rays, tiles, aabb, order, ring, edge=None):
         calls.append(edge is not None)
-        return pipe_walk(rays, tiles, aabb, order, edge)
+        return group_walk(rays, tiles, aabb, order, ring, edge)
 
-    def recording_group(rays, tiles, aabb, order, ring):
-        calls.append(False)  # the group walk of closest_hit_pipe.cu: no prefilter
-        return group_walk(rays, tiles, aabb, order, ring)
-
-    monkeypatch.setattr(closest_hit, "_pipe_walk", recording)
-    monkeypatch.setattr(closest_hit, "_group_walk", recording_group)
+    monkeypatch.setattr(closest_hit, "_group_walk", recording)
     rng = np.random.default_rng(5)
     o = np.tile(np.array([[0.5, 0.8, 2.2]], np.float32), (300, 1))
     d = rng.uniform([0.0, 0.0, 0.0], [1.0, 1.2, 1.0], (300, 3)).astype(np.float32) - o
@@ -225,3 +220,78 @@ def test_prefilter_entry_points_refuse(soup, what):
         with pytest.raises(ValueError, match="big"):
             closest_hit.closest_hit_tiles(soup["tiles"], soup["aabb"], _t(soup["o"]),
                                           _t(soup["d"]), edge=(soup["edge_tiles"], soup["wsum"]))
+
+
+def _mesh_tiles(mesh_host):
+    g = build_scene(mesh_host, "cpu").geom
+    edge_tiles, wsum = closest_hit.pack_edge_tiles(g.p, g.valid)
+    rng = np.random.default_rng(9)
+    n = 512
+    o = np.tile(np.array([[0.5, 0.8, 2.2]], np.float32), (n, 1))
+    d = rng.uniform([0.0, 0.0, 0.0], [1.0, 1.2, 1.0], (n, 3)).astype(np.float32) - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    t_max = np.where(np.arange(n) % 6 == 0, -1.0, np.inf).astype(np.float32)
+    return dict(tiles=g.tiles, aabb=g.tile_aabb, edge_tiles=edge_tiles, wsum=wsum, o=o, d=d,
+                t_max=t_max)
+
+
+@pytest.mark.parametrize("scene", ["soup", "mesh3"])
+def test_prefilter_walk_counts_add_up(scene, soup, mesh_host):
+    """Per group: the pairs passed and culled make up the scanned tiles'
+    GROUP_RAYS x TILE pairs, the passed pairs are whole columns for the
+    group's rays, and the walk's counts are the ring kernel's."""
+    s = soup if scene == "soup" else _mesh_tiles(mesh_host)
+    rays, order = _prepared(s)
+    _, _, c0 = closest_hit.closest_hit_pipe_reference(rays, s["tiles"], s["aabb"], order)
+    _, _, c = closest_hit.closest_hit_mxu_reference(rays, s["tiles"], s["edge_tiles"], s["wsum"],
+                                                    s["aabb"], order)
+    assert torch.equal(c[:, :3], c0)
+    assert torch.equal(c[:, 3] + c[:, 4], c[:, 2] * closest_hit.GROUP_RAYS * TILE)
+    assert bool((c[:, 3] % closest_hit.GROUP_RAYS == 0).all()) and int(c[:, 4].sum()) > 0
+
+
+def test_prefilter_dead_group_culls_every_pair(soup):
+    """A group whose rays are all dead has no candidate on any tile, and its
+    walk scans nothing; a live group's candidates on the same tiles are not
+    empty."""
+    rays, order = _prepared(soup)
+    rays = rays.clone()
+    g = closest_hit.GROUP_RAYS
+    rays[g:2 * g, 6] = -1.0  # the second group: every ray dead
+    group = rays[:2 * g].reshape(2, g, 8)
+    for ti in range(soup["tiles"].shape[0]):
+        cand = closest_hit.prefilter_candidates(group, soup["edge_tiles"][ti], soup["wsum"][ti],
+                                                torch.clamp(group[..., 6:7], max=3.4e38))
+        assert not bool(cand[1].any())
+    live_cand = closest_hit.prefilter_candidates(group[0], soup["edge_tiles"], soup["wsum"],
+                                                 torch.clamp(group[0, :, 6:7], max=3.4e38))
+    assert bool(live_cand.any())
+    _, slot, c = closest_hit.closest_hit_mxu_reference(rays, soup["tiles"], soup["edge_tiles"],
+                                                       soup["wsum"], soup["aabb"], order)
+    assert int(c[1, 2]) == int(c[1, 3]) == int(c[1, 4]) == 0
+    assert bool((slot[g:2 * g] == -1).all())
+
+
+@pytest.mark.parametrize("scene", ["soup", "mesh3"])
+def test_group_union_keeps_every_accepted_pair(scene, soup, mesh_host):
+    """Pair by pair on every tile, with each ray's initial budget: every pair
+    the exact test accepts lies in a column of its group's union (the
+    granularity the kernel culls at), and the union still culls most
+    columns."""
+    s = soup if scene == "soup" else _mesh_tiles(mesh_host)
+    rays = closest_hit.prepare_rays(s["aabb"], _t(s["o"]), _t(s["d"]), _t(s["t_max"]))
+    ctx = closest_hit.woop_ctx(rays)
+    best_t = torch.clamp(rays[:, 6:7], max=3.4e38)
+    n_groups = rays.shape[0] // closest_hit.GROUP_RAYS
+    kept = total = 0
+    for ti in range(s["tiles"].shape[0]):
+        tv = [row[None, :] for row in s["tiles"][ti]]
+        t, ok = closest_hit.pair_t(ctx, tv)
+        accepted = ok & (t <= rays[:, 6:7]) & (t < best_t)
+        cand = closest_hit.prefilter_candidates(rays, s["edge_tiles"][ti], s["wsum"][ti], best_t)
+        union = cand.reshape(n_groups, closest_hit.GROUP_RAYS, TILE).any(dim=1)
+        columns = union.repeat_interleave(closest_hit.GROUP_RAYS, dim=0)
+        assert not bool((accepted & ~columns).any())
+        kept += int(union.sum())
+        total += union.numel()
+    assert kept < 0.5 * total

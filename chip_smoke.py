@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. the CUDA device, and the card's name and power limit from nvidia-smi;
   2. the five kernels (closest hit and windowed any hit, each with plain
-     loads and double-buffered, and the double-buffered closest hit with the
-     tensor-core edge prefilter) built with nvcc from the checkout's sources
-     (one nvcc per source, started together), with their ptxas lines;
+     loads and with a TMA ring, and the ring-buffered closest hit with the
+     tensor-core edge prefilter; all five walk the tile order in 8-ray
+     groups) built with nvcc from the checkout's sources (one nvcc per
+     source, started together), with their ptxas lines;
   3. the plain-load kernel (`closest_hit`, the group walk: 8-ray groups,
      8 threads a ray) against its plain PyTorch version on the card, and its
      per-group counts against the group walk's plain version: a random
@@ -43,10 +44,13 @@ Phases (any failure exits non-zero; nothing is caught):
      launches and host synchronizations; its direct component against a CPU
      render at 48x48 with the photons scaled to the pixels; one pass on the
      same inputs (photon pass, eye pass, both gathers), card against CPU;
- 10. both any-hit kernels on a soup with dead rays and a ragged tail and on
-     the fullest gather wavefront recorded in phase 9: bits and per-block
-     counts against the plain versions, `anyhit_pipe` bit-equal to `anyhit`,
-     both against the bits derived from `closest_hit`, and their times; the
+ 10. both any-hit kernels (the same group walk as the closest-hit kernels,
+     with per-ray budgets) on a soup with dead rays and a ragged tail and on
+     the fullest gather wavefront recorded in phase 9: bits and per-group
+     counts against the plain versions, `anyhit_pipe` bit-equal to `anyhit`
+     with the same walk (entries walked and tiles scanned per group), both
+     against the bits derived from `closest_hit`, their times in turns, the
+     slowest group's cycle split and the bound from their own counts; the
      same on a query of that shape in which every ray is live (hit point to
      hit point), since few slots of the recorded one hold a photon;
  11. the fog configuration at the same size, one pass after the init pass:
@@ -443,16 +447,21 @@ def compare_mxu(name, rays, g, stats, out, time_it=False, plain_subset=PLAIN_SUB
 
 def compare_anyhit(name, rays, tiles, aabb, err, out, plain_subset, time_it=False):
     """Both any-hit kernels on prepared window rays: `anyhit_pipe` bit-equal
-    to `anyhit` on all of them, each against its plain version (bits and
-    per-block counts) on a subset of whole ray blocks spread over the batch,
-    and both bits against those derived from `closest_hit` on the same rays
-    (hit & t < t_near, hit within t_far), coplanar ties aside.  `err` counts
-    the rays whose bits differ from the plain versions'."""
+    to `anyhit` on all of them with the same walk (entries walked and tiles
+    scanned per group; at most PIPE_RING tiles fetched and not scanned),
+    each against its plain version (bits and per-group counts) on a subset of
+    whole 128-ray rows spread over the batch, and both bits against those
+    derived from `closest_hit` on the same rays (hit & t < t_near, hit
+    within t_far), coplanar ties aside.  `err` counts the rays whose bits
+    differ from the plain versions'.  When asked, both kernels' times in
+    turns, the slowest group's cycle split and the bound from their own
+    counts."""
     import torch
     from gpu_pathtracer_tpu_torch.ops import anyhit as ah
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
 
     n_blocks = rays.shape[0] // ch.RAY_BLOCK
+    per_row = ch.RAY_BLOCK // ch.GROUP_RAYS
     order = ch.block_tile_order(rays, aabb, n_blocks)
     n3, f3, c3 = ah.launch_anyhit(rays, tiles, aabb, order, counts=True)
     n4, f4, c4 = ah.launch_anyhit_pipe(rays, tiles, aabb, order, counts=True)
@@ -460,23 +469,21 @@ def compare_anyhit(name, rays, tiles, aabb, err, out, plain_subset, time_it=Fals
     equal = bool(torch.equal(n3, n4)) and bool(torch.equal(f3, f4))
     extra = c4[:, 1].long() - c4[:, 2].long()
     live = float((rays[:, 6] > 0).float().mean())
-    log(f"{name}: {rays.shape[0]} rays (live {live:.3f}) x {tiles.shape[0]} tiles; far {float(f3.float().mean()):.3f}, "
-        f"near {float(n3.float().mean()):.3f}; anyhit_pipe == anyhit on every ray: {equal}; per block: "
-        f"steps {float(c3[:, 0].float().mean()):.1f}, anyhit scans {float(c3[:, 2].float().mean()):.2f}, "
-        f"anyhit_pipe fetches {float(c4[:, 1].float().mean()):.2f} and scans "
-        f"{float(c4[:, 2].float().mean()):.2f}")
+    log(f"{name}: {rays.shape[0]} rays (live {live:.3f}) x {tiles.shape[0]} tiles; far "
+        f"{float(f3.float().mean()):.3f}, near {float(n3.float().mean()):.3f}; anyhit_pipe == anyhit "
+        f"on every ray: {equal} ({int(((n3 != n4) | (f3 != f4)).sum())} rays differ); anyhit "
+        f"{group_stats(c3)}; anyhit_pipe {group_stats(c4)}; fetched but not scanned: "
+        f"{int(extra.sum())} tiles in {c4.shape[0]} groups")
     check(equal, f"{name}: anyhit_pipe and anyhit differ")
-    check(bool(torch.equal(c3[:, 0], c4[:, 0])), f"{name}: the two kernels walk different steps")
-    check(bool((extra >= 0).all()) and bool((extra <= 1).all()),
-          f"{name}: a block fetched {int(extra.max())} tiles more than it scanned")
-    check(bool((c4[:, 2] >= c3[:, 2]).all()), f"{name}: anyhit_pipe scanned fewer tiles")
+    check(bool(torch.equal(c3[:, 0], c4[:, 0])) and bool(torch.equal(c3[:, 2], c4[:, 2])),
+          f"{name}: the two any-hit kernels walk differently")
+    check(bool(torch.equal(c3[:, 1], c3[:, 2])), f"{name}: anyhit staged a tile it did not scan")
+    check(bool((extra >= 0).all()) and bool((extra <= ch.PIPE_RING).all()),
+          f"{name}: a group fetched {int(extra.max())} tiles more than it scanned")
 
-    # the plain versions on every k-th block
-    stride = max(1, rays.shape[0] // plain_subset)
-    blocks = torch.arange(0, n_blocks, stride, device=rays.device)
-    rows = (blocks[:, None] * ch.RAY_BLOCK
-            + torch.arange(ch.RAY_BLOCK, device=rays.device)[None, :]).reshape(-1)
-    sub_rays, sub_order = rays[rows].contiguous(), order[blocks].contiguous()
+    # the plain versions on every k-th 128-ray row
+    blocks, rows, sub_rays, sub_order = plain_rows(rays, order, plain_subset)
+    groups = group_rows(blocks, per_row)
     plain_s = {}
     for kernel, reference, (kn, kf, kc) in (("anyhit", ah.anyhit_reference, (n3, f3, c3)),
                                             ("anyhit_pipe", ah.anyhit_pipe_reference, (n4, f4, c4))):
@@ -485,11 +492,12 @@ def compare_anyhit(name, rays, tiles, aabb, err, out, plain_subset, time_it=Fals
         torch.cuda.synchronize()
         plain_s[kernel] = time.perf_counter() - t0
         differ = int(((kn[rows] != rn) | (kf[rows] != rf)).sum())
-        same_counts = bool(torch.equal(rc, kc[blocks]))
+        same_counts = float((rc == kc[groups]).all(dim=1).float().mean())
         log(f"{name}: {kernel} against its plain version on {sub_rays.shape[0]} rays: "
-            f"{differ} rays differ, per-block counts equal: {same_counts}")
+            f"{differ} rays differ, per-group counts equal on {same_counts:.4f} of the groups")
         check(differ == 0, f"{name}: {kernel} differs from its plain version on {differ} rays")
-        check(same_counts, f"{name}: {kernel}'s per-block counts differ from the plain version's")
+        check(same_counts == 1.0, f"{name}: {kernel}'s per-group counts differ from the plain "
+              f"version's on {1 - same_counts:.4f} of the groups")
         err[kernel] = max(err[kernel], differ)
 
     # the bits derived from the closest-hit kernel: the same rays with the
@@ -509,17 +517,27 @@ def compare_anyhit(name, rays, tiles, aabb, err, out, plain_subset, time_it=Fals
     ms3b = cuda_ms(lambda: ah.launch_anyhit(rays, tiles, aabb, order), 20)
     ms1 = cuda_ms(lambda: ch.launch_closest_hit(as_closest, tiles, aabb, order), 20)
     order_ms = cuda_ms(lambda: ch.block_tile_order(rays, aabb, n_blocks), 20)
-    b3, by3 = bound_ms(rays, tiles, c3, out_bytes=2)
-    b4, by4 = bound_ms(rays, tiles, c4, out_bytes=2)
+    splits = {}
+    for kernel, launch, kc in (("anyhit", ah.launch_anyhit, c3),
+                               ("anyhit_pipe", ah.launch_anyhit_pipe, c4)):
+        *_, cyc = launch(rays, tiles, aabb, order, cycles=True)
+        slow, split = slowest_split(cyc)
+        bound, by = bound_ms(rays, tiles, kc, out_bytes=2, unit=ch.GROUP_RAYS)
+        splits[kernel] = (slow, split, int(cyc[slow, 0]), bound, by)
+        log(f"{name}: {kernel}'s slowest group (walked {int(kc[slow, 0])}, scanned "
+            f"{int(kc[slow, 2])}) spends {split:.3f} of its {int(cyc[slow, 0])} cycles staging and "
+            f"scanning; the most tiles scanned by a group: {int(kc[:, 2].max())}; bound from its "
+            f"own counts {bound:.5f} ms ({by})")
     log(f"{name}: anyhit {ms3a:.4f} / {ms3b:.4f} ms, anyhit_pipe {ms4a:.4f} / {ms4b:.4f} ms, "
         f"closest_hit on the same rays {ms1:.4f} ms (20 launches each, in turns); plain versions "
         f"{plain_s['anyhit'] * 1e3:.1f} / {plain_s['anyhit_pipe'] * 1e3:.1f} ms (one call, "
-        f"{sub_rays.shape[0]} rays); block_tile_order {order_ms:.4f} ms; bounds {b3:.5f} ms ({by3}) / "
-        f"{b4:.5f} ms ({by4})")
-    out["anyhit"] = dict(ms=min(ms3a, ms3b), plain_ms=plain_s["anyhit"] * 1e3, bound_ms=b3,
-                         bound_by=by3)
-    out["anyhit_pipe"] = dict(ms=min(ms4a, ms4b), plain_ms=plain_s["anyhit_pipe"] * 1e3,
-                              bound_ms=b4, bound_by=by4)
+        f"{sub_rays.shape[0]} rays); block_tile_order {order_ms:.4f} ms")
+    for kernel, ms, plain, kc in (("anyhit", min(ms3a, ms3b), plain_s["anyhit"], c3),
+                                  ("anyhit_pipe", min(ms4a, ms4b), plain_s["anyhit_pipe"], c4)):
+        _, split, _, bound, by = splits[kernel]
+        out[kernel] = dict(ms=ms, plain_ms=plain * 1e3, bound_ms=bound, bound_by=by,
+                           most_tiles_scanned_by_a_group=int(kc[:, 2].max()),
+                           slowest_group_scan_share=split)
     out.update(plain_rays=sub_rays.shape[0], rays=rays.shape[0], closest_ms=ms1, order_ms=order_ms)
 
 
@@ -1155,7 +1173,7 @@ def main() -> int:
           and b3_launches == sum(p["anyhit_launches"] for p in sppm_log),
           f"SPPM main path: {b3_launches} anyhit launches for {box_gather.calls} queries")
     check(b4_on_box == 0 and ch.launch_closest_hit_pipe.launches == 0,
-          "the SPPM box ran on a double-buffered kernel")
+          "the SPPM box ran on a ring-buffered kernel")
     check(all(p["grid"] for p in sppm_log), "the SPPM main path did not take the grid gathers")
     check(simg.shape == (SPPM["height"], SPPM["width"], 3), f"SPPM image shape {simg.shape}")
     check(bool(np.isfinite(simg).all()) and simg.mean() > 0, "SPPM image not finite or black")
@@ -1205,7 +1223,7 @@ def main() -> int:
     # ---- 10. the any-hit kernels on the recorded gather wavefront ------------------
     box_scene = build_scene(obj_io.load_scene(sppm_folder, "box.obj"), dev)
     bg = box_scene.geom
-    check(not box_gather.big, "the box's gather went to the double-buffered kernel")
+    check(not box_gather.big, "the box's gather went to the ring-buffered kernel")
     b34_box = {}
     compare_anyhit("SPPM box gather (ragged)", box_gather.rays(bg.tile_aabb, 100), bg.tiles,
                    bg.tile_aabb, anyhit_err, {}, plain_subset=PLAIN_SUBSET)
@@ -1265,7 +1283,7 @@ def main() -> int:
     check(mesh_log[0]["grid"], "the mesh pass did not take the grid gathers")
     check(msimg.shape == (SPPM["height"], SPPM["width"], 3) and bool(np.isfinite(msimg).all())
           and msimg.mean() > 0, "mesh SPPM image not finite or black")
-    check(mesh_gather.big, "the mesh's gather did not go to the double-buffered kernel")
+    check(mesh_gather.big, "the mesh's gather did not go to the ring-buffered kernel")
     b34_mesh = {}
     compare_anyhit("mesh gather (ragged)", mesh_gather.rays(mg.tile_aabb, 100), mg.tiles,
                    mg.tile_aabb, anyhit_err, {}, plain_subset=PLAIN_SUBSET)

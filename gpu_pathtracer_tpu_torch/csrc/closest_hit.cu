@@ -6,12 +6,12 @@
 // with slot a row of the Morton-sorted triangle SoA (-1 on a miss).
 // Layouts, the pair arithmetic and the walk are in closest_hit_common.cuh,
 // shared with the ring-buffered kernels closest_hit_pipe.cu and
-// closest_hit_mxu.cu.
+// closest_hit_mxu.cu and with the any-hit kernels.
 //
 // A block is a group of 8 rays with 8 threads per ray; it walks the tile
 // order of its 128-ray row 32 entries at a time (one batched cull, one
 // candidate mask) and stages each candidate tile with plain loads into one
-// shared-memory buffer (`group_walk`).
+// shared-memory buffer (`group_walk`, `PlainStager`).
 //
 // What bounds it on this card: fp32 ALU work per (ray, triangle) pair
 // (~42 flops plus a division for pairs that pass the edge tests), and, on a
@@ -30,32 +30,6 @@ namespace {
 
 constexpr int kMaxTile = 1024;  // 10 rows * 1024 * 4 B = 40 KB of shared memory
 
-// Stages a candidate tile with plain loads, all threads, one barrier.
-struct PlainStager {
-  float* buf;
-  const float* tris;
-  int tile;
-  const int* ti;
-  unsigned pending;
-  int fetched;
-
-  __device__ void begin_batch(const int* batch_ti, unsigned mask) {
-    ti = batch_ti;
-    pending = mask;
-  }
-  __device__ const float* acquire() {
-    const int k = __ffs(pending) - 1;
-    pending &= pending - 1;
-    const float* src = tris + (long long)ti[k] * kTileRows * tile;
-    for (int i = threadIdx.x; i < kTileRows * tile; i += kGroupThreads) buf[i] = src[i];
-    __syncthreads();
-    ++fetched;
-    return buf;
-  }
-  __device__ void release() {}
-  __device__ void drain() {}
-};
-
 __global__ void __launch_bounds__(kGroupThreads)
 closest_hit_kernel(const float* __restrict__ rays, const float* __restrict__ tris,
                    const float* __restrict__ aabb, const int* __restrict__ order,
@@ -65,8 +39,8 @@ closest_hit_kernel(const float* __restrict__ rays, const float* __restrict__ tri
   extern __shared__ float s_tile[];  // (10, tile)
   __shared__ WalkShared s;
   PlainStager st{s_tile, tris, tile, nullptr, 0u, 0};
-  ExactScan sc;
-  group_walk(rays, aabb, order, out_t, out_slot, out_counts, out_cycles, n_tiles, tile, s, st, sc);
+  ExactScan sc(out_t, out_slot);
+  group_walk(blockIdx.x, rays, aabb, order, out_counts, out_cycles, n_tiles, tile, s, st, sc);
 }
 
 }  // namespace

@@ -1,13 +1,13 @@
-// Shared arithmetic of the tile kernels for Hopper (sm_90a): the closest-hit
-// kernels closest_hit.cu (candidate tiles staged with plain loads),
-// closest_hit_pipe.cu (candidate tiles brought in ahead by TMA bulk copies,
-// tile_ring.cuh) and closest_hit_mxu.cu (the same ring, with a tensor-core
-// edge prefilter in front of the pair test), which share the group walk
-// below; the windowed any-hit kernels anyhit.cu and anyhit_pipe.cu, which
-// walk in 128-ray blocks (block_box, block_max_any).  All run exactly the
-// pair test below, so on the same rays, tiles and order the closest-hit
-// kernels' (t, slot) are bit-equal, the two any-hit kernels' bits are equal,
-// and an any-hit bit agrees with the closest hit's t on the same ray.
+// Shared arithmetic and walk of the tile kernels for Hopper (sm_90a): the
+// closest-hit kernels closest_hit.cu (candidate tiles staged with plain
+// loads), closest_hit_pipe.cu (candidate tiles brought in ahead by TMA bulk
+// copies, tile_ring.cuh) and closest_hit_mxu.cu (the same ring, with a
+// tensor-core edge prefilter in front of the pair test), and the windowed
+// any-hit kernels anyhit.cu (plain loads) and anyhit_pipe.cu (the ring).  All
+// five walk the tile order in the group walk below and run exactly the pair
+// test below, so on the same rays, tiles and order the closest-hit kernels'
+// (t, slot) are bit-equal, the two any-hit kernels' bits are equal, and an
+// any-hit bit agrees with the closest hit's t on the same ray.
 //
 // Layout (packed by gpu_pathtracer_tpu_torch/ops/closest_hit.py):
 //   rays  (R, 8)            f32  [ox oy oz dx dy dz t_cap t_near], R % 128 == 0;
@@ -28,8 +28,7 @@
 
 namespace gpt {
 
-constexpr int kBlock = 128;  // rays per row of `order` (the any-hit kernels: a block, a thread a ray)
-constexpr int kWarps = kBlock / 32;
+constexpr int kBlock = 128;  // rays per row of `order`
 constexpr int kTileRows = 10;
 constexpr float kInf = 3.4e38f;
 constexpr float kLbSlack = 0.999999f;  // 1 - 1e-6
@@ -89,75 +88,30 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ r) {
   return q;
 }
 
-// The block's origin box and its max |d|_inf.
-struct BlockBox {
+// The origin box and max |d|_inf of a 128-ray row of `order`.
+struct RowBox {
   float lo_x, lo_y, lo_z, hi_x, hi_y, hi_z, dmax;
 };
 
-// One block-wide reduction; s_box is (7, kWarps) floats of shared memory.
-// Ends with every thread holding the same BlockBox.
-__device__ __forceinline__ BlockBox block_box(const Ray& q, float (*s_box)[kWarps]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float red[7] = {q.ox, q.oy, q.oz, q.ox, q.oy, q.oz, q.dinf};
-  for (int i = 0; i < 3; ++i) red[i] = warp_min(red[i]);
-  for (int i = 3; i < 7; ++i) red[i] = warp_max(red[i]);
-  if (lane == 0)
-    for (int i = 0; i < 7; ++i) s_box[i][warp] = red[i];
-  __syncthreads();
-  BlockBox b = {s_box[0][0], s_box[1][0], s_box[2][0], s_box[3][0],
-                s_box[4][0], s_box[5][0], s_box[6][0]};
-  for (int w = 1; w < kWarps; ++w) {
-    b.lo_x = fminf(b.lo_x, s_box[0][w]);
-    b.lo_y = fminf(b.lo_y, s_box[1][w]);
-    b.lo_z = fminf(b.lo_z, s_box[2][w]);
-    b.hi_x = fmaxf(b.hi_x, s_box[3][w]);
-    b.hi_y = fmaxf(b.hi_y, s_box[4][w]);
-    b.hi_z = fmaxf(b.hi_z, s_box[5][w]);
-    b.dmax = fmaxf(b.dmax, s_box[6][w]);
-  }
-  return b;
-}
-
-// Chebyshev lower bound from the block's origin box to a tile box (the host
+// Chebyshev lower bound from the row's origin box to a tile box (the host
 // sorted `order` by the same formula).
-__device__ __forceinline__ float tile_lb(const float* __restrict__ b, const BlockBox& bb) {
+__device__ __forceinline__ float tile_lb(const float* __restrict__ b, const RowBox& bb) {
   return fmaxf(
       fmaxf(fmaxf(b[0] - bb.hi_x, bb.lo_x - b[3]), fmaxf(b[1] - bb.hi_y, bb.lo_y - b[4])),
       fmaxf(fmaxf(b[2] - bb.hi_z, bb.lo_z - b[5]), 0.0f));
 }
 
-// Per-ray slab test within the ray's current best t; max(tlo, 0) makes a
-// dead ray's budget of -1 (or a padding ray's 0) cull every box.
+// Per-ray slab test within the ray's budget (its best t, or what is left of
+// its any-hit window); max(tlo, 0) makes a dead ray's budget of -1 (or a
+// padding ray's 0) cull every box.
 __device__ __forceinline__ bool slab_hit(const float* __restrict__ b, const Ray& q,
-                                         float best_t) {
+                                         float budget) {
   const float t0x = (b[0] - q.ox) * q.inv_dx, t1x = (b[3] - q.ox) * q.inv_dx;
   const float t0y = (b[1] - q.oy) * q.inv_dy, t1y = (b[4] - q.oy) * q.inv_dy;
   const float t0z = (b[2] - q.oz) * q.inv_dz, t1z = (b[5] - q.oz) * q.inv_dz;
   const float tlo = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
   const float thi = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-  return (thi >= tlo) && (thi > 0.0f) && (fmaxf(tlo, 0.0f) < best_t);
-}
-
-// Block max of `v` and block OR of `p` in one pass through shared memory
-// (s_best, s_any: kWarps entries each).  Contains one __syncthreads(); the
-// caller separates two calls on the same scratch by another barrier.
-__device__ __forceinline__ void block_max_any(float v, bool p, float* s_best, int* s_any,
-                                              float& block_max, bool& any) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float m = warp_max(v);
-  const unsigned vote = __any_sync(kFull, p);
-  if (lane == 0) {
-    s_best[warp] = m;
-    s_any[warp] = (int)vote;
-  }
-  __syncthreads();
-  block_max = s_best[0];
-  int a = s_any[0];
-  for (int w = 1; w < kWarps; ++w) {
-    block_max = fmaxf(block_max, s_best[w]);
-    a |= s_any[w];
-  }
-  any = a != 0;
+  return (thi >= tlo) && (thi > 0.0f) && (fmaxf(tlo, 0.0f) < budget);
 }
 
 // The watertight Woop test of column `c` of a staged tile (s_tile: (10, tile)
@@ -190,44 +144,39 @@ __device__ __forceinline__ bool woop_pair(const float* __restrict__ s_tile, int 
   return t >= s_tile[9 * tile + c];
 }
 
-// Every triangle of one staged tile against this thread's ray, in column
-// order.  Strict `<` keeps the first triangle at the minimum t within a tile
-// and, across tiles, the earlier-visited tile, as the TPU kernel does.
-__device__ __forceinline__ void scan_tile(const float* __restrict__ s_tile, int tile, int base,
-                                          const Ray& q, float& best_t, int& best_slot) {
-  for (int c = 0; c < tile; ++c) {
-    float t;
-    if (woop_pair(s_tile, tile, c, q, t) && t < best_t && t <= q.t_cap) {
-      best_t = t;
-      best_slot = base + c;
-    }
-  }
-}
-
-// ---- the group walk of the closest-hit kernels (closest_hit{,_pipe,_mxu}.cu) ----
+// ---- the group walk of all five kernels ------------------------------------
 // A group of kGroupRays rays is one CUDA block, kRayThreads threads per ray
 // (ray = tid / kRayThreads, so a ray's threads are neighbouring lanes of one
-// warp).  The group walks the row of `order` of the 128-ray block it belongs
-// to, kBatch entries at a time:
+// warp).  Each ray has a budget, the reach within which a tile can still
+// change its answer (the `Scan` keeps the ray's state and says: its best t
+// for the closest hit, what is left of its window for the any hit).  A group
+// none of whose rays has a budget above 0 (dead, padding or settled rays)
+// ends its walk at the row's first entry, before reading the row; the walk
+// below would end there too.  The others walk the row of `order` of the
+// 128-ray block they belong to, kBatch entries at a time:
 //   1. kBatch threads load the entries and their tile boxes together; the
 //      Chebyshev bound of each box from the row's origin box (the quantity
 //      the row is sorted by, so it rises along the row);
-//   2. every ray's slab test of the batch's boxes against its best t, the
+//   2. every ray's slab test of the batch's boxes against its budget, the
 //      votes OR-ed into one candidate bit per entry (warp reduction, one
-//      barrier), the group's max best t in the same pass; the batch's first
-//      entry whose bound no ray can beat (lb * (1 - 1e-6) >= max best t *
+//      barrier), the group's max budget in the same pass; the batch's first
+//      entry whose bound no ray can reach (lb * (1 - 1e-6) >= max budget *
 //      the row's max |d|_inf) ends the walk there;
 //   3. the candidates in order: the early exit re-checked against the
-//      group's up-to-date max best t, the tile staged, and the ray's best hit
-//      in the tile (the `Scan` of group_walk; ExactScan: each thread testing
-//      every kRayThreads-th column, and a shuffle minimum over (t, column)).
-// A tile voted in on an older best t can only be scanned without effect, and
-// a tile that none of the group's rays reaches within its best t holds no
-// pair that changes them, so (t, slot) are those of the 128-ray block walk.
-// The kernels differ only in how a candidate tile reaches shared memory (the
-// `Stager`) and in which of its pairs go through the exact test (the
-// `Scan`), never in the walk: on the same rays, tiles and order their walked
-// and scanned counts are equal group by group.
+//      group's up-to-date max budget, the tile staged, and the tile scanned
+//      for each ray (ExactScan: each thread testing every kRayThreads-th
+//      column, and a shuffle minimum over (t, column); WindowScan: the same
+//      columns against the window, the two bits OR-ed over the ray's threads).
+// Budgets only shrink.  A tile voted in on an older budget can only be
+// scanned without effect, and a tile that none of the group's rays reaches
+// within its budget holds no pair that changes their answers, so the answers
+// are those of a walk that scans every tile the ray reaches (the 128-ray
+// block walk of the TPU kernels).  Once every ray of a group is settled (an
+// any-hit ray with its near bit set has budget -1) the next re-check fails
+// and the group leaves.  The kernels differ only in how a candidate tile
+// reaches shared memory (the `Stager`) and in how a tile is scanned (the
+// `Scan`), never in the walk: on the same rays, tiles and order the kernels
+// of one query walk and scan the same entries group by group.
 
 constexpr int kGroupRays = 8;    // rays per group: one CUDA block
 constexpr int kRayThreads = 8;   // threads per ray
@@ -251,10 +200,10 @@ struct WalkShared {
   float red[7][kGroupWarps];
 };
 
-// The origin box and max |d|_inf of the 128 rays of `row` (block_box of the
-// 128-ray kernels, read by the group's threads together).  One barrier.
-__device__ __forceinline__ BlockBox row_box(const float* __restrict__ rays, long long row,
-                                            float (*s_red)[kGroupWarps]) {
+// The origin box and max |d|_inf of the 128 rays of `row`, read by the
+// group's threads together.  One barrier.
+__device__ __forceinline__ RowBox row_box(const float* __restrict__ rays, long long row,
+                                          float (*s_red)[kGroupWarps]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float red[7] = {kInf, kInf, kInf, -kInf, -kInf, -kInf, 0.0f};
   for (int i = threadIdx.x; i < kBlock; i += kGroupThreads) {
@@ -272,8 +221,8 @@ __device__ __forceinline__ BlockBox row_box(const float* __restrict__ rays, long
   if (lane == 0)
     for (int i = 0; i < 7; ++i) s_red[i][warp] = red[i];
   __syncthreads();
-  BlockBox b = {s_red[0][0], s_red[1][0], s_red[2][0], s_red[3][0],
-                s_red[4][0], s_red[5][0], s_red[6][0]};
+  RowBox b = {s_red[0][0], s_red[1][0], s_red[2][0], s_red[3][0],
+              s_red[4][0], s_red[5][0], s_red[6][0]};
   for (int w = 1; w < kGroupWarps; ++w) {
     b.lo_x = fminf(b.lo_x, s_red[0][w]);
     b.lo_y = fminf(b.lo_y, s_red[1][w]);
@@ -343,55 +292,183 @@ __device__ __forceinline__ void ray_min(float& t, int& c) {
   }
 }
 
+// Whether any of this ray's threads holds `p` (every thread of the warp
+// calls it; every thread of the ray gets the same answer).
+__device__ __forceinline__ bool ray_any(bool p) {
+  const unsigned lanes = ((1u << kRayThreads) - 1u) << ((threadIdx.x & 31) & ~(kRayThreads - 1));
+  return (__ballot_sync(kFull, p) & lanes) != 0u;
+}
+
+// ---- the Scans: a query's per-ray state, its tile scan and its outputs ----
+//   start(q)            the ray's state before the walk;
+//   budget(q)           what the walk culls against (above);
+//   scan(buf, tile, part, q, base)  the staged tile (slot of its column 0:
+//                       base) against the ray, on all of the ray's threads;
+//   write(ray, part)    the ray's outputs (all threads call it, at the end);
+//   kCounts, count(out, scanned)  further per-group counts after the walk's
+//                       three (all threads call it, at the end).
+
+// The closest hit's state: the best (t, slot) so far; the budget is best t.
+struct ClosestHit {
+  float* out_t;
+  int* out_slot;
+  float best_t = 0.0f;
+  int best_slot = -1;
+
+  __device__ ClosestHit(float* t, int* slot) : out_t(t), out_slot(slot) {}
+  __device__ void start(const Ray& q) {
+    best_t = fminf(kInf, q.t_cap);
+    best_slot = -1;
+  }
+  __device__ float budget(const Ray&) const { return best_t; }
+  // the ray's best (t, column) in a tile, column -1: nothing below best t
+  __device__ void take(float t, int c, int base) {
+    if (c >= 0) {
+      best_t = t;
+      best_slot = base + c;
+    }
+  }
+  __device__ void write(long long ray, int part) const {
+    if (part == 0) {
+      out_t[ray] = best_t;
+      out_slot[ray] = best_slot;
+    }
+  }
+};
+
 // The Scan of B1 and B2: every pair of the tile through the exact test.
-//   scan(...)     this thread's ray's best (t, column) in the staged tile under
-//                 strict `<` from best_t (column -1: nothing below best_t), the
-//                 same on all of the ray's threads;
-//   kCounts       further per-group counts after the walk's three;
-//   count(out, scanned)  writes them (all threads call it, at the end).
-struct ExactScan {
+struct ExactScan : ClosestHit {
   static constexpr int kCounts = 0;
+  using ClosestHit::ClosestHit;
   __device__ void scan(const float* __restrict__ s_tile, int tile, int part, const Ray& q,
-                       float best_t, float& t, int& c) {
+                       int base) {
+    float t;
+    int c;
     scan_tile_part(s_tile, tile, part, q, best_t, t, c);
     ray_min(t, c);
+    take(t, c, base);
   }
   __device__ void count(int*, int) {}
 };
 
-// The walk of one group (= this block).  `Scan` tests a staged tile (see
-// ExactScan).  `Stager` brings candidate tiles to shared memory:
+// ---- windowed any-hit (anyhit.cu, anyhit_pipe.cu) --------------------------
+// Per ray two bits: far = some accepted hit with t <= t_cap, near = some
+// accepted hit with t <= t_cap and t < t_near (strict).  near implies far.
+
+// What is left of a ray's window: nothing (-1) once near is set, [.., t_near)
+// once only far is set, else [.., t_cap].  Drives the tile culls only.
+__device__ __forceinline__ float anyhit_budget(const Ray& q, bool near, bool far) {
+  return near ? -1.0f : (far ? q.t_near : q.t_cap);
+}
+
+// The Scan of B3 and B4.  A ray with nothing left of its window at the
+// tile's start (budget < 0: near set, a dead or padding ray, or far set and
+// no near window) does no pair test.  Otherwise each of its threads tests
+// columns part, part + kRayThreads, ... against t_cap and t_near, never
+// against the budget, and stops at its own near hit; the bits are ORs over
+// the ray's threads (a thread that stopped early still joins them), so no
+// order between columns matters.  A tile scanned on a budget that was already
+// out of date can only find hits that the ray's bits record.
+struct WindowScan {
+  static constexpr int kCounts = 0;
+  unsigned char* out_near;
+  unsigned char* out_far;
+  bool near = false, far = false;
+
+  __device__ WindowScan(unsigned char* n, unsigned char* f) : out_near(n), out_far(f) {}
+  __device__ void start(const Ray&) { near = far = false; }
+  __device__ float budget(const Ray& q) const { return anyhit_budget(q, near, far); }
+  __device__ void scan(const float* __restrict__ s_tile, int tile, int part, const Ray& q, int) {
+    bool n = false, f = false;
+    if (!(budget(q) < 0.0f)) {
+      for (int c = part; c < tile; c += kRayThreads) {
+        float t;
+        if (woop_pair(s_tile, tile, c, q, t) && t <= q.t_cap) {
+          f = true;
+          if (t < q.t_near) {
+            n = true;
+            break;
+          }
+        }
+      }
+    }
+    near = ray_any(n) || near;
+    far = ray_any(f) || far;
+  }
+  __device__ void write(long long ray, int part) const {
+    if (part == 0) {
+      out_near[ray] = near ? 1 : 0;
+      out_far[ray] = far ? 1 : 0;
+    }
+  }
+  __device__ void count(int*, int) {}
+};
+
+// ---- staging and the walk ---------------------------------------------------
+// A `Stager` brings candidate tiles to shared memory:
 //   begin_batch(ti, mask)  the batch's candidate tiles (ti[k] for the set bits
 //                          of mask, in rising k), after the vote's barrier;
 //   acquire()              the next candidate's staged tile, visible to all;
 //   release()              after the barrier that ends that tile's scan;
 //   drain()                at the end: nothing in flight afterwards;
 //   fetched                tiles brought in.
-// out_counts (null or per group [entries walked, tiles fetched, tiles
-// scanned] and the Scan's kCounts) and out_cycles (null or per group [clock64
-// of the walk, of it in staging + scanning + the reduction after each scan])
-// are written by thread 0.
+// PlainStager (B1, B3) stages a candidate with plain loads when its scan
+// begins; tile_ring.cuh's RingStager (B2, B4, B5) brings candidates in ahead.
+
+struct PlainStager {
+  float* buf;
+  const float* tris;
+  int tile;
+  const int* ti;
+  unsigned pending;
+  int fetched;
+
+  __device__ void begin_batch(const int* batch_ti, unsigned mask) {
+    ti = batch_ti;
+    pending = mask;
+  }
+  __device__ const float* acquire() {
+    const int k = __ffs(pending) - 1;
+    pending &= pending - 1;
+    const float* src = tris + (long long)ti[k] * kTileRows * tile;
+    for (int i = threadIdx.x; i < kTileRows * tile; i += kGroupThreads) buf[i] = src[i];
+    __syncthreads();
+    ++fetched;
+    return buf;
+  }
+  __device__ void release() {}
+  __device__ void drain() {}
+};
+
+// The walk of group `group` by this block (all its threads).  out_counts
+// (null or per group [entries walked, tiles fetched, tiles scanned] and the
+// Scan's kCounts) and out_cycles (null or per group [clock64 of the walk, of
+// it in staging + scanning + the reduction after each scan]) are written by
+// thread 0.  A block may walk several groups one after another with the same
+// Stager and Scan (the Scan's start() resets the ray's state).
 template <class Stager, class Scan>
-__device__ __forceinline__ void group_walk(const float* __restrict__ rays,
+__device__ __forceinline__ void group_walk(long long group, const float* __restrict__ rays,
                                            const float* __restrict__ aabb,
                                            const int* __restrict__ order,
-                                           float* __restrict__ out_t, int* __restrict__ out_slot,
                                            int* __restrict__ out_counts,
                                            long long* __restrict__ out_cycles, int n_tiles,
                                            int tile, WalkShared& s, Stager& st, Scan& sc) {
   const int tid = threadIdx.x, lane = tid & 31, part = tid % kRayThreads;
-  const long long ray = (long long)blockIdx.x * kGroupRays + tid / kRayThreads;
-  const long long row = ((long long)blockIdx.x * kGroupRays) / kBlock;
-  const Ray q = load_ray(rays + ray * 8);
-  const BlockBox bb = row_box(rays, row, s.red);
+  const long long ray = group * kGroupRays + tid / kRayThreads;
+  const long long row = (group * kGroupRays) / kBlock;
   const long long walk_start = clock64();
+  const Ray q = load_ray(rays + ray * 8);
+  sc.start(q);
 
-  float best_t = fminf(kInf, q.t_cap);
-  int best_slot = -1;
-  const int* my_order = order + row * n_tiles;
-  int n_walked = 0, n_scanned = 0, ph = 0;
+  const int fetched_before = st.fetched;
+  int n_walked = 1, n_scanned = 0, ph = 0;
   long long scan_cycles = 0;
-  bool walking = true;
+  unsigned none;
+  // a group without a budget: the walk would end at the first entry
+  const bool live = group_max_or(sc.budget(q), 0u, s, ph, none) > 0.0f;
+  const RowBox bb = live ? row_box(rays, row, s.red) : RowBox{};
+  const int* my_order = order + row * n_tiles;
+  bool walking = live;
   for (int s0 = 0; walking && s0 < n_tiles; s0 += kBatch) {
     const int bp = (s0 / kBatch) & 1;
     const int nb = min(kBatch, n_tiles - s0);
@@ -406,14 +483,15 @@ __device__ __forceinline__ void group_walk(const float* __restrict__ rays,
       s.lb[bp][tid] = tile_lb(b, bb);
     }
     __syncthreads();
+    const float budget = sc.budget(q);
     unsigned bits = 0;
     for (int k = part; k < nb; k += kRayThreads)
-      if (slab_hit(s.box[bp][k], q, best_t)) bits |= 1u << k;
+      if (slab_hit(s.box[bp][k], q, budget)) bits |= 1u << k;
     unsigned mask;
-    float group_best = group_max_or(best_t, bits, s, ph, mask);
-    // the batch's first entry that no ray of the group can improve on
+    float group_budget = group_max_or(budget, bits, s, ph, mask);
+    // the batch's first entry that no ray of the group can reach
     const unsigned stops = __ballot_sync(
-        kFull, lane < nb && !(s.lb[bp][lane] * kLbSlack < group_best * bb.dmax));
+        kFull, lane < nb && !(s.lb[bp][lane] * kLbSlack < group_budget * bb.dmax));
     const int stop = stops ? __ffs(stops) - 1 : nb;
     mask &= stop >= 32 ? kFull : (1u << stop) - 1u;
 
@@ -422,21 +500,14 @@ __device__ __forceinline__ void group_walk(const float* __restrict__ rays,
     while (mask) {
       const int k = __ffs(mask) - 1;
       mask &= mask - 1;
-      if (!(s.lb[bp][k] * kLbSlack < group_best * bb.dmax)) {
+      if (!(s.lb[bp][k] * kLbSlack < group_budget * bb.dmax)) {
         exit_at = k;
         break;
       }
       const long long scan_start = clock64();
-      const float* buf = st.acquire();
-      float t;
-      int c;
-      sc.scan(buf, tile, part, q, best_t, t, c);
-      if (c >= 0) {
-        best_t = t;
-        best_slot = s.ti[bp][k] * tile + c;
-      }
-      unsigned none;
-      group_best = group_max_or(best_t, 0u, s, ph, none);  // also: every thread is done with buf
+      sc.scan(st.acquire(), tile, part, q, s.ti[bp][k] * tile);
+      // also: every thread is done with the staged tile
+      group_budget = group_max_or(sc.budget(q), 0u, s, ph, none);
       st.release();
       ++n_scanned;
       scan_cycles += clock64() - scan_start;
@@ -453,54 +524,134 @@ __device__ __forceinline__ void group_walk(const float* __restrict__ rays,
   }
   st.drain();
 
-  if (part == 0) {
-    out_t[ray] = best_t;
-    out_slot[ray] = best_slot;
-  }
+  sc.write(ray, part);
   constexpr int kStride = 3 + Scan::kCounts;
-  if (out_counts != nullptr) sc.count(out_counts + (long long)blockIdx.x * kStride + 3, n_scanned);
+  if (out_counts != nullptr) sc.count(out_counts + group * kStride + 3, n_scanned);
   if (tid == 0) {
     if (out_counts != nullptr) {
-      int* c = out_counts + (long long)blockIdx.x * kStride;
+      int* c = out_counts + group * kStride;
       c[0] = n_walked;
-      c[1] = st.fetched;
+      c[1] = st.fetched - fetched_before;
       c[2] = n_scanned;
     }
     if (out_cycles != nullptr) {
-      out_cycles[2 * (long long)blockIdx.x] = clock64() - walk_start;
-      out_cycles[2 * (long long)blockIdx.x + 1] = scan_cycles;
+      out_cycles[2 * group] = clock64() - walk_start;
+      out_cycles[2 * group + 1] = scan_cycles;
     }
   }
 }
 
-// ---- windowed any-hit (anyhit.cu, anyhit_pipe.cu) --------------------------
-// Per ray two bits: far = some accepted hit with t <= t_cap, near = some
-// accepted hit with t <= t_cap and t < t_near (strict).  near implies far.
+// ---- the any-hit kernels' launch: dead groups apart, live groups pulled ----
+// A gather's visibility query holds mostly dead slots (4,194,304 rays of
+// which a few thousand are live on the SPPM box), and a block per 8-ray group
+// would spend the launch scheduling blocks that only find their rays dead.
+// So the any-hit kernels run in two launches on one stream:
+//   1. settle_dead_groups: a thread a ray; a group none of whose rays has a
+//      window (t_cap <= 0 or NaN, its budget before the walk) gets what its
+//      walk would give (bits 0, counts [1, 0, 0]), and the other groups are
+//      appended to the live list (one atomic a block);
+//   2. a grid that fills the card once walks the live groups, each block
+//      pulling the list's next entry with an atomic when it is done with a
+//      group (walk_live; measured against a static share of the list, which
+//      lost 25% on the mesh's all-live gather rays, whose groups' walks
+//      differ by up to 10x).
+// The live list: [n_live, next, group ids...] int32, both counters zeroed
+// before the first launch; its order (the blocks' atomics) changes no
+// group's result.
 
-// What is left of a ray's window: nothing (-1) once near is set, [.., t_near)
-// once only far is set, else [.., t_cap].  Drives the tile culls only.
-__device__ __forceinline__ float anyhit_budget(const Ray& q, bool near, bool far) {
-  return near ? -1.0f : (far ? q.t_near : q.t_cap);
+// Rays' outputs and counts of the groups without a window; the others listed.
+static __global__ void __launch_bounds__(kBlock)
+settle_dead_groups(const float* __restrict__ rays, unsigned char* __restrict__ out_near,
+                   unsigned char* __restrict__ out_far, int* __restrict__ out_counts,
+                   long long* __restrict__ out_cycles, int* __restrict__ live) {
+  static_assert(kGroupRays <= 32 && 32 % kGroupRays == 0, "a group's rays share a warp");
+  constexpr int kWarpsHere = kBlock / 32;
+  __shared__ unsigned s_leaders[kWarpsHere];
+  __shared__ int s_base;
+  const long long start = clock64();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long ray = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const long long group = ray / kGroupRays;
+  const unsigned lanes = kGroupRays == 32 ? kFull
+                                          : ((1u << (kGroupRays % 32)) - 1u)
+                                                << (lane & ~(kGroupRays - 1));
+  const bool group_live = (__ballot_sync(kFull, rays[ray * 8 + 6] > 0.0f) & lanes) != 0u;
+  // the live groups' first lanes, counted over the block for one atomic
+  const bool leader = group_live && threadIdx.x % kGroupRays == 0;
+  const unsigned leaders = __ballot_sync(kFull, leader);
+  if (lane == 0) s_leaders[warp] = leaders;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int w = 0; w < kWarpsHere; ++w) n += __popc(s_leaders[w]);
+    s_base = n > 0 ? atomicAdd(live, n) : 0;
+  }
+  __syncthreads();
+  if (leader) {
+    int at = s_base + __popc(leaders & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) at += __popc(s_leaders[w]);
+    live[2 + at] = (int)group;
+  }
+  if (group_live) return;
+  out_near[ray] = 0;
+  out_far[ray] = 0;
+  if (threadIdx.x % kGroupRays != 0) return;
+  if (out_counts != nullptr) {
+    int* c = out_counts + group * 3;
+    c[0] = 1;
+    c[1] = 0;
+    c[2] = 0;
+  }
+  if (out_cycles != nullptr) {
+    out_cycles[2 * group] = clock64() - start;
+    out_cycles[2 * group + 1] = 0;
+  }
 }
 
-// One staged tile against this thread's ray.  A ray with nothing left of its
-// window (`budget` < 0: near set, a dead or padding ray, or far set and no
-// near window) does no pair test, and one that sets near stops there: no
-// later triangle can change its bits.
-__device__ __forceinline__ void scan_tile_anyhit(const float* __restrict__ s_tile, int tile,
-                                                 const Ray& q, float budget, bool& near,
-                                                 bool& far) {
-  if (budget < 0.0f) return;
-  for (int c = 0; c < tile; ++c) {
-    float t;
-    if (woop_pair(s_tile, tile, c, q, t) && t <= q.t_cap) {
-      far = true;
-      if (t < q.t_near) {
-        near = true;
-        return;
-      }
-    }
+// The live groups that this block pulls, each walked in turn.
+template <class Stager>
+__device__ __forceinline__ void walk_live(const float* __restrict__ rays,
+                                          const float* __restrict__ aabb,
+                                          const int* __restrict__ order,
+                                          int* __restrict__ out_counts,
+                                          long long* __restrict__ out_cycles, int n_tiles,
+                                          int tile, int* __restrict__ live, WalkShared& s,
+                                          Stager& st, WindowScan& sc) {
+  __shared__ int s_next;
+  const int n_live = live[0];
+  for (;;) {
+    // the barrier also ends the last group's reads of the walk's shared
+    // memory; every thread reads s_next before the walk's first barrier
+    if (threadIdx.x == 0) s_next = atomicAdd(live + 1, 1);
+    __syncthreads();
+    const int i = s_next;
+    if (i >= n_live) break;
+    group_walk(live[2 + i], rays, aabb, order, out_counts, out_cycles, n_tiles, tile, s, st, sc);
   }
+}
+
+// Both launches of an any-hit kernel (`walk` its kernel of walk_live, `smem`
+// its dynamic shared memory); returns cudaGetLastError().  `live` is the
+// live list, (n_rays / kGroupRays + 2) int32.
+template <class Walk>
+__host__ int launch_window(Walk walk, size_t smem, const float* rays, const float* tris,
+                           const float* aabb, const int* order, unsigned char* out_near,
+                           unsigned char* out_far, int* out_counts, long long* out_cycles,
+                           int* live, int n_rays, int n_tiles, int tile, cudaStream_t stream) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, walk, kGroupThreads, smem);
+  if (err == cudaSuccess) err = cudaMemsetAsync(live, 0, 2 * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  settle_dead_groups<<<n_rays / kBlock, kBlock, 0, stream>>>(rays, out_near, out_far, out_counts,
+                                                             out_cycles, live);
+  const long long groups = n_rays / kGroupRays;
+  const int grid = (int)(groups < (long long)sms * per_sm ? groups : (long long)sms * per_sm);
+  walk<<<grid > 0 ? grid : 1, kGroupThreads, smem, stream>>>(
+      rays, tris, aabb, order, out_near, out_far, out_counts, out_cycles, live, n_tiles, tile);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace gpt

@@ -130,7 +130,7 @@ struct PrefilterShared {
 };
 
 // The Scan of group_walk with the prefilter in front of the exact test.
-struct PrefilterScan {
+struct PrefilterScan : ClosestHit {
   static constexpr int kCounts = 2;  // pairs passed to the exact test, pairs culled
   PrefilterShared& s;
   unsigned b0;     // B fragment: k = 2t, 2t + 1 of ray g
@@ -139,7 +139,9 @@ struct PrefilterScan {
   int passed = 0;  // pairs passed: the group's (union) or this ray's (per ray)
 
   // Before group_walk, whose first barrier publishes s.best[0].
-  __device__ PrefilterScan(PrefilterShared& s_, const float* __restrict__ rays) : s(s_) {
+  __device__ PrefilterScan(PrefilterShared& s_, const float* __restrict__ rays, float* out_t,
+                           int* out_slot)
+      : ClosestHit(out_t, out_slot), s(s_) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const float* group = rays + (long long)blockIdx.x * kGroupRays * 8;
     float v[kK];
@@ -152,8 +154,7 @@ struct PrefilterScan {
     if (threadIdx.x % kRayThreads == 0) s.best[0][r] = fminf(kInf, group[r * 8 + 6]);
   }
 
-  __device__ void scan(const float* __restrict__ buf, int, int part, const Ray& q, float best_t,
-                       float& t_out, int& c_out) {
+  __device__ void scan(const float* __restrict__ buf, int, int part, const Ray& q, int base) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
     const int r = threadIdx.x / kRayThreads;
     const float* s_wsum = buf + kTriBytes / 4;
@@ -272,8 +273,7 @@ struct PrefilterScan {
       }
     }
     ray_min(bt, bc);
-    t_out = bt;
-    c_out = bc;
+    take(bt, bc, base);
     if (part == 0) s.best[(n + 1) & 1][r] = bt;
     ++n;
     passed += kPerRay ? n_cand : n_cand * kGroupRays;
@@ -312,10 +312,9 @@ closest_hit_mxu_kernel(const float* __restrict__ rays, const float* __restrict__
                             {kTriBytes, kWsumBytes, kEdgeBytes}};
   Stager st(s_buf, s_bar, ops);
   st.init();
-  PrefilterScan sc(ps, rays);
+  PrefilterScan sc(ps, rays, out_t, out_slot);
   __syncthreads();
-  group_walk(rays, aabb, order, out_t, out_slot, out_counts, out_cycles, n_tiles, kTile, s, st,
-             sc);
+  group_walk(blockIdx.x, rays, aabb, order, out_counts, out_cycles, n_tiles, kTile, s, st, sc);
 }
 
 }  // namespace

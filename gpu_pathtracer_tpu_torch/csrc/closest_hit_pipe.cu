@@ -50,8 +50,8 @@ closest_hit_pipe_kernel(const float* __restrict__ rays, const float* __restrict_
   RingStager<kRing, 1> st(s_buf, s_bar, ops);
   st.init();
   __syncthreads();
-  ExactScan sc;
-  group_walk(rays, aabb, order, out_t, out_slot, out_counts, out_cycles, n_tiles, tile, s, st, sc);
+  ExactScan sc(out_t, out_slot);
+  group_walk(blockIdx.x, rays, aabb, order, out_counts, out_cycles, n_tiles, tile, s, st, sc);
 }
 
 }  // namespace

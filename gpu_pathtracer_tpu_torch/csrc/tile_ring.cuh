@@ -1,7 +1,7 @@
-// The ring of tile buffers that the ring-buffered closest-hit kernels share:
-// closest_hit_pipe.cu (one operand a tile: the triangles) and
-// closest_hit_mxu.cu (three: the triangles, the margin scales and the edge
-// weights).  A `Stager` of `group_walk` (closest_hit_common.cuh): the batch's
+// The ring of tile buffers that the ring-buffered kernels share:
+// closest_hit_pipe.cu and anyhit_pipe.cu (one operand a tile: the
+// triangles) and closest_hit_mxu.cu (three: the triangles, the margin scales
+// and the edge weights).  A `Stager` of `group_walk` (closest_hit_common.cuh): the batch's
 // vote names its candidate tiles before any is scanned, so the copies of the
 // first `Ring` candidates start at once, and the copy of candidate i + Ring as
 // soon as the group is done with candidate i's buffer.

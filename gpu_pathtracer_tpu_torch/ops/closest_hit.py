@@ -39,10 +39,10 @@ import ctypes
 import torch
 
 TILE = 128  # triangles per tile (kernel maximum: 1024)
-RAY_BLOCK = 128  # rays per row of the tile order (and per block of the any-hit kernels)
-# The closest-hit kernels' group walk (csrc/closest_hit_common.cuh; the
-# kernels' constants kGroupRays, kBatch and the kRing of closest_hit_pipe.cu
-# and closest_hit_mxu.cu)
+RAY_BLOCK = 128  # rays per row of the tile order
+# The tile kernels' group walk (csrc/closest_hit_common.cuh; the kernels'
+# constants kGroupRays, kBatch and the kRing of closest_hit_pipe.cu,
+# closest_hit_mxu.cu and anyhit_pipe.cu)
 GROUP_RAYS = 8  # rays per group: one CUDA block of 8 threads per ray
 WALK_BATCH = 32  # order entries culled together
 PIPE_RING = 1  # tile buffers of the TMA ring
@@ -185,18 +185,16 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def launch_tile_kernel(kernel: str, max_tile: int, out_dtypes, rays, tiles, tile_aabb, order,
-                       counts: bool, extra=(), n_counts: int = 3, unit: int = RAY_BLOCK,
-                       cycles=None):
+def launch_group_walk(kernel: str, max_tile: int, out_dtypes, rays, tiles, tile_aabb, order,
+                      counts: bool, cycles: bool, extra=(), n_counts: int = 3):
     """Check the inputs (`max_tile` is the kernel's kMaxTile), launch
     `csrc/<kernel>.cu` on the current stream and return its two per-ray
-    outputs (of `out_dtypes`), the (R_pad / `unit`, `n_counts`) int32 counts
-    (one row per `unit` rays that walk together) or None, and the
-    (R_pad / `unit`, 2) int64 cycles or None.  Every tile kernel, closest-hit
-    or any-hit, has this one C signature; `extra` are further input tensors
-    (checked by the caller) whose pointers follow `order`'s, and the
-    closest-hit kernels' entry points take a cycles pointer after the counts'
-    (`cycles` a bool for them, None for the others)."""
+    outputs (of `out_dtypes`), then with `counts` the (R_pad / GROUP_RAYS,
+    `n_counts`) int32 counts per group and with `cycles` the (R_pad /
+    GROUP_RAYS, 2) int64 cycles per group.  Every tile kernel, closest-hit
+    or any-hit, walks in groups (`csrc/closest_hit_common.cuh`) and has this
+    one C signature; `extra` are further input tensors (checked by the
+    caller) whose pointers follow `order`'s."""
     from gpu_pathtracer_tpu_torch.ops import _build
 
     dev = rays.device
@@ -213,31 +211,34 @@ def launch_tile_kernel(kernel: str, max_tile: int, out_dtypes, rays, tiles, tile
     _check("tiles", tiles, torch.float32, (n_tiles, _TILE_ROWS, tile), dev)
     _check("tile_aabb", tile_aabb, torch.float32, (n_tiles, 8), dev)
     _check("order", order, torch.int32, (n_rays // RAY_BLOCK, n_tiles), dev)
+    if tile_aabb.data_ptr() % 16:
+        raise ValueError("the group walk reads tile boxes as 16-byte vectors: tile_aabb must be "
+                         "16-byte aligned")
 
-    fn = bind_tile_entry(_build.load(kernel), kernel, len(extra), cycles is not None)
+    fn = bind_tile_entry(_build.load(kernel), kernel, len(extra))
     out_a = torch.empty((n_rays,), dtype=out_dtypes[0], device=dev)
     out_b = torch.empty((n_rays,), dtype=out_dtypes[1], device=dev)
-    out_counts = (torch.empty((n_rays // unit, n_counts), dtype=torch.int32, device=dev)
-                  if counts else None)
-    out_cycles = torch.empty((n_rays // unit, 2), dtype=torch.int64, device=dev) if cycles else None
-    cycles_arg = () if cycles is None else (out_cycles.data_ptr() if cycles else None,)
+    groups = n_rays // GROUP_RAYS
+    out_counts = torch.empty((groups, n_counts), dtype=torch.int32, device=dev) if counts else None
+    out_cycles = torch.empty((groups, 2), dtype=torch.int64, device=dev) if cycles else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(rays.data_ptr(), tiles.data_ptr(), tile_aabb.data_ptr(), order.data_ptr(),
                  *(x.data_ptr() for x in extra), out_a.data_ptr(), out_b.data_ptr(),
-                 out_counts.data_ptr() if counts else None, *cycles_arg,
-                 n_rays, n_tiles, tile, stream)
+                 out_counts.data_ptr() if counts else None,
+                 out_cycles.data_ptr() if cycles else None, n_rays, n_tiles, tile, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
-    return out_a, out_b, out_counts, out_cycles
+    return (out_a, out_b) + ((out_counts,) if counts else ()) + ((out_cycles,) if cycles else ())
 
 
-def bind_tile_entry(lib, kernel: str, n_extra: int = 0, cycles: bool = False):
+def bind_tile_entry(lib, kernel: str, n_extra: int = 0, cycles: bool = True):
     """The C entry point `gpt_<kernel>` of a loaded tile-kernel library with
     its signature set: rays, tiles, tile boxes, order, `n_extra` further
-    inputs, the two per-ray outputs, counts (and cycles, for the closest-hit
-    kernels: `cycles`) as pointers, then n_rays, n_tiles, tile and the
-    stream; it returns a cudaError_t."""
+    inputs, the two per-ray outputs, counts and cycles as pointers, then
+    n_rays, n_tiles, tile and the stream; it returns a cudaError_t.
+    `cycles=False` binds an older kernel's entry point without the cycles
+    pointer (the 128-ray block walks)."""
     fn = getattr(lib, f"gpt_{kernel}")
     fn.argtypes = ([ctypes.c_void_p] * (7 + n_extra + cycles) + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
@@ -257,18 +258,6 @@ def check_async_tiles(tiles) -> None:
 _CLOSEST_OUT = (torch.float32, torch.int32)
 
 
-def _launch_group_walk(kernel, max_tile, rays, tiles, tile_aabb, order, counts, cycles,
-                       extra=(), n_counts=3):
-    """B1, B2 and B5: the group walk's kernels, counts and cycles per group."""
-    if tile_aabb.data_ptr() % 16:
-        raise ValueError("the group walk reads tile boxes as 16-byte vectors: tile_aabb must be "
-                         "16-byte aligned")
-    t, slot, c, cy = launch_tile_kernel(kernel, max_tile, _CLOSEST_OUT, rays, tiles, tile_aabb,
-                                        order, counts, extra=extra, n_counts=n_counts,
-                                        unit=GROUP_RAYS, cycles=cycles)
-    return (t, slot) + ((c,) if counts else ()) + ((cy,) if cycles else ())
-
-
 def launch_closest_hit(rays, tiles, tile_aabb, order, counts: bool = False, cycles: bool = False):
     """Launch `csrc/closest_hit.cu` on prepared rays; returns (best_t, slot),
     each (R_pad,); with `counts` also the (R_pad / GROUP_RAYS, 3) int32 per
@@ -276,7 +265,8 @@ def launch_closest_hit(rays, tiles, tile_aabb, order, counts: bool = False, cycl
     `cycles` the (R_pad / GROUP_RAYS, 2) int64 per group [clock64 cycles of
     the walk, of its staging and scanning].  Raises on any input the kernel
     does not take and on a refused launch."""
-    out = _launch_group_walk("closest_hit", 1024, rays, tiles, tile_aabb, order, counts, cycles)
+    out = launch_group_walk("closest_hit", 1024, _CLOSEST_OUT, rays, tiles, tile_aabb, order,
+                            counts, cycles)
     launch_closest_hit.launches += 1
     return out
 
@@ -290,8 +280,8 @@ def launch_closest_hit_pipe(rays, tiles, tile_aabb, order, counts: bool = False,
     tiles that are not 16-byte aligned (its bulk copies move whole 16-byte
     chunks)."""
     check_async_tiles(tiles)
-    out = _launch_group_walk("closest_hit_pipe", 512, rays, tiles, tile_aabb, order, counts,
-                             cycles)
+    out = launch_group_walk("closest_hit_pipe", 512, _CLOSEST_OUT, rays, tiles, tile_aabb, order,
+                            counts, cycles)
     launch_closest_hit_pipe.launches += 1
     return out
 
@@ -315,8 +305,8 @@ def launch_closest_hit_mxu(rays, tiles, edge_tiles, wsum, tile_aabb, order, coun
     _check("wsum", wsum, torch.float32, (n_tiles, 3, tile), rays.device)
     if edge_tiles.data_ptr() % 16 or wsum.data_ptr() % 16:
         raise ValueError("the 16-byte copies need 16-byte-aligned edge tiles and wsum")
-    out = _launch_group_walk("closest_hit_mxu", TILE, rays, tiles, tile_aabb, order, counts,
-                             cycles, extra=(edge_tiles, wsum), n_counts=5)
+    out = launch_group_walk("closest_hit_mxu", TILE, _CLOSEST_OUT, rays, tiles, tile_aabb, order,
+                            counts, cycles, extra=(edge_tiles, wsum), n_counts=5)
     launch_closest_hit_mxu.launches += 1
     return out
 
@@ -547,24 +537,32 @@ def _pipe_walk(rays, tiles, tile_aabb, order):
 _GROUP_REFERENCE_GROUPS = 256  # groups per pair step of the group walk's plain version
 
 
-def _group_walk(rays, tiles, tile_aabb, order, ring, edge=None):
-    """The closest-hit kernels' group walk (`csrc/closest_hit_common.cuh`) in
-    plain PyTorch.  Each group of GROUP_RAYS rays walks the row of `order`
-    of its 128-ray block, WALK_BATCH entries at a time: the Chebyshev bound of
-    each entry from the row's origin box, the first entry that no ray of the
-    group can improve on (bound * (1 - 1e-6) >= max best_t * the row's max
-    |d|_inf) ending the walk there, the slab votes of every ray against its
-    best_t at the start of the batch, then the voted entries in order, each
-    re-checked against the group's up-to-date max best_t (a failed re-check
-    ends the walk) and scanned.  All groups advance one batch, then one
-    batch position, together; pair work is done only for the groups that scan
-    at that position.  Counts per group: [entries walked (up to the one at
-    which the walk ended), tiles fetched, tiles scanned], where a ring of
-    `ring` buffers fetches up to `ring` candidates of a batch ahead (0: only
-    what is scanned).  `edge` = (edge_tiles, wsum) puts the prefilter in
-    front of the pairs (the union of a group's candidates, with the best_t
+def _group_walk(rays, tiles, tile_aabb, order, ring, edge=None, window=False):
+    """The tile kernels' group walk (`csrc/closest_hit_common.cuh`) in plain
+    PyTorch.  Each group of GROUP_RAYS rays walks the row of `order` of its
+    128-ray block, WALK_BATCH entries at a time, against its rays' budgets:
+    the Chebyshev bound of each entry from the row's origin box, the first
+    entry that no ray of the group can reach (bound * (1 - 1e-6) >= max
+    budget * the row's max |d|_inf) ending the walk there, the slab votes of
+    every ray against its budget at the start of the batch, then the voted
+    entries in order, each re-checked against the group's up-to-date max
+    budget (a failed re-check ends the walk) and scanned.  All groups advance
+    one batch, then one batch position, together; pair work is done only for
+    the groups that scan at that position.  Counts per group: [entries walked
+    (up to the one at which the walk ended), tiles fetched, tiles scanned],
+    where a ring of `ring` buffers fetches up to `ring` candidates of a batch
+    ahead (0: only what is scanned).
+
+    The closest hit (default): the budget is the ray's best t; returns
+    (best_t, slot, counts).  `edge` = (edge_tiles, wsum) puts the prefilter
+    in front of the pairs (the union of a group's candidates, with the best_t
     each ray starts the tile with) and adds two counts: pairs passed to the
-    exact test (the union's columns x GROUP_RAYS) and pairs culled."""
+    exact test (the union's columns x GROUP_RAYS) and pairs culled.
+
+    `window`: the any hit of window rays; the budget is -1 once the near bit
+    is set, t_near once only the far bit is, else t_cap; a ray whose budget
+    is below 0 at a tile's start does no pair test; returns (occ_near,
+    occ_far, counts)."""
     n_rows, n_tiles = order.shape
     tile = tiles.shape[2]
     dev = rays.device
@@ -581,8 +579,39 @@ def _group_walk(rays, tiles, tile_aabb, order, ring, edge=None):
     lane = torch.arange(tile, dtype=torch.int32, device=dev)
     order = order.long()[row]  # (G, NT)
 
-    best_t = torch.clamp(gr[..., 6:7], max=_INF)  # (G, R, 1)
-    best_slot = torch.full_like(best_t, -1, dtype=torch.int32)
+    if window:
+        t_cap, t_near = gr[..., 6:7], gr[..., 7:8]  # (G, R, 1)
+        near = torch.zeros_like(t_cap, dtype=torch.bool)
+        far = torch.zeros_like(near)
+    else:
+        best_t = torch.clamp(gr[..., 6:7], max=_INF)  # (G, R, 1)
+        best_slot = torch.full_like(best_t, -1, dtype=torch.int32)
+
+    def budget(at):
+        if window:
+            return torch.where(near[at], -1.0, torch.where(far[at], t_near[at], t_cap[at]))
+        return best_t[at]
+
+    def scan(grp, ti):
+        tv = [tiles[ti, r][:, None, :] for r in range(_TILE_ROWS)]
+        if window:
+            t, ok = pair_t(woop_ctx(gr[grp]), tv)
+            hit_far = ok & (t <= t_cap[grp]) & (budget(grp) >= 0.0)
+            near[grp] |= torch.any(hit_far & (t < t_near[grp]), dim=-1, keepdim=True)
+            far[grp] |= torch.any(hit_far, dim=-1, keepdim=True)
+            return
+        columns = None
+        if edge is not None:
+            pairs = prefilter_candidates(gr[grp], edge[0][ti], edge[1][ti], best_t[grp])
+            columns = torch.any(pairs, dim=1, keepdim=True)  # (n, 1, TILE)
+            passed = (torch.sum(columns, dim=(1, 2)) * GROUP_RAYS).to(torch.int32)
+            counts[grp, 3] += passed
+            counts[grp, 4] += GROUP_RAYS * tile - passed
+        base = (ti * tile).to(torch.int32)[:, None, None]
+        best_t[grp], best_slot[grp] = _scan_tile(
+            woop_ctx(gr[grp]), tv, base, lane, best_t[grp], best_slot[grp], columns)
+
+    everyone = torch.arange(n_groups, device=dev)
     counts = torch.zeros((n_groups, 3 if edge is None else 5), dtype=torch.int32, device=dev)
     walking = torch.ones((n_groups,), dtype=torch.bool, device=dev)
     for s in range(0, n_tiles, WALK_BATCH):
@@ -593,14 +622,15 @@ def _group_walk(rays, tiles, tile_aabb, order, ring, edge=None):
         box = tile_aabb[ent]  # (G, nb, 8)
         gap = torch.maximum(box[..., 0:3] - b_hi, b_lo - box[..., 3:6])
         lb = torch.clamp(torch.amax(gap, dim=-1), min=0.0)  # (G, nb)
-        reach = torch.amax(best_t, dim=(1, 2)) * dmax
+        start = budget(everyone)  # (G, R, 1)
+        reach = torch.amax(start, dim=(1, 2)) * dmax
         stops = ~(lb * _LB_SLACK < reach[:, None])
         stop = torch.where(stops.any(dim=1), torch.argmax(stops.to(torch.int32), dim=1), nb)
         t0 = (box[:, None, :, 0:3] - o) * inv_d  # (G, R, nb, 3)
         t1 = (box[:, None, :, 3:6] - o) * inv_d
         tlo = torch.amax(torch.minimum(t0, t1), dim=-1)
         thi = torch.amin(torch.maximum(t0, t1), dim=-1)
-        votes = ((thi >= tlo) & (thi > 0.0) & (torch.clamp(tlo, min=0.0) < best_t)).any(dim=1)
+        votes = ((thi >= tlo) & (thi > 0.0) & (torch.clamp(tlo, min=0.0) < start)).any(dim=1)
         pos = torch.arange(nb, device=dev)
         cand = votes & (pos[None, :] < stop[:, None]) & walking[:, None]
         n_cand = cand.sum(dim=1, dtype=torch.int32)
@@ -611,7 +641,7 @@ def _group_walk(rays, tiles, tile_aabb, order, ring, edge=None):
             at = torch.nonzero(in_batch & cand[:, k])[:, 0]
             if at.shape[0] == 0:
                 continue
-            reach = torch.amax(best_t[at], dim=(1, 2)) * dmax[at]
+            reach = torch.amax(budget(at), dim=(1, 2)) * dmax[at]
             ok = lb[at, k] * _LB_SLACK < reach
             fail = at[~ok]
             in_batch[fail] = False
@@ -620,18 +650,7 @@ def _group_walk(rays, tiles, tile_aabb, order, ring, edge=None):
             scanned[go] += 1
             for c0 in range(0, go.shape[0], _GROUP_REFERENCE_GROUPS):
                 grp = go[c0:c0 + _GROUP_REFERENCE_GROUPS]
-                ti = ent[grp, k]
-                tv = [tiles[ti, r][:, None, :] for r in range(_TILE_ROWS)]
-                base = (ti * tile).to(torch.int32)[:, None, None]
-                columns = None
-                if edge is not None:
-                    pairs = prefilter_candidates(gr[grp], edge[0][ti], edge[1][ti], best_t[grp])
-                    columns = torch.any(pairs, dim=1, keepdim=True)  # (n, 1, TILE)
-                    passed = (torch.sum(columns, dim=(1, 2)) * GROUP_RAYS).to(torch.int32)
-                    counts[grp, 3] += passed
-                    counts[grp, 4] += GROUP_RAYS * tile - passed
-                best_t[grp], best_slot[grp] = _scan_tile(
-                    woop_ctx(gr[grp]), tv, base, lane, best_t[grp], best_slot[grp], columns)
+                scan(grp, ent[grp, k])
         ended = exit_at >= 0
         stopped = ~ended & (stop < nb)
         walked = torch.where(ended, s + exit_at + 1, torch.where(stopped, s + stop + 1, s + nb))
@@ -639,6 +658,8 @@ def _group_walk(rays, tiles, tile_aabb, order, ring, edge=None):
         counts[:, 1] += torch.where(ended, torch.minimum(n_cand, scanned + ring), n_cand)
         counts[:, 2] += scanned
         walking = walking & ~ended & ~stopped
+    if window:
+        return near.reshape(-1), far.reshape(-1), counts
     return best_t.reshape(-1), best_slot.reshape(-1), counts
 
 

@@ -38,8 +38,8 @@ RAY_SORT_MIN_TILES = 2
 
 def coherence_perm(g, origin, direction, live=None) -> torch.Tensor:
     """Permutation putting rays in (live, origin-Morton, direction-octant)
-    order; dead rays sort last, into dead-only blocks whose budget of -1
-    culls all their tile work.  Stable, so equal keys keep ray order."""
+    order; dead rays sort last, into dead-only groups whose budget of -1
+    ends their walk at once.  Stable, so equal keys keep ray order."""
     lo = torch.amin(g.tile_aabb[:, 0:3], dim=0)
     hi = torch.amax(g.tile_aabb[:, 3:6], dim=0)
     span = torch.clamp(hi - lo, min=1e-12)
@@ -68,9 +68,9 @@ def pallas_big(g) -> bool:
 def park_dead(g, origin, direction, live):
     """Dead rays moved to a corner of the scene's root box, pointing along z.
     A dead ray's result is never used, but its origin and direction still
-    enter its block's origin box and |d| bound, and a stale NaN or infinity
-    there (an absorbed photon's direction, an invalid hit point) would cull
-    the block's live rays too."""
+    enter its 128-ray row's origin box and |d| bound, and a stale NaN or
+    infinity there (an absorbed photon's direction, an invalid hit point)
+    would cull the row's live rays too."""
     corner = torch.amin(g.tile_aabb[:, 0:3], dim=0)
     z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=origin.device)
     return (torch.where(live[:, None], origin, corner),
@@ -145,7 +145,8 @@ def closest_hit(g, origin, direction, t_max=float("inf"), live=None):
 
 def occluded_window_sorted(g, origin, direction, t_near, t_far=float("inf"), live=None):
     """Windowed any-hit with coherence-sorted rays: first accepted hit, no
-    best-t refinement, a block leaves once every ray of it is settled.
+    best-t refinement, a group of rays leaves its walk once every ray of it
+    is settled.
     Returns (occ_near, occ_far) in the caller's ray order; dead rays
     (live False) get both caps -1 and report (False, False)."""
     r = origin.shape[0]

@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Time and take apart the closest-hit kernels B1 (`csrc/closest_hit.cu`), B2
-(`csrc/closest_hit_pipe.cu`) and B5 (`csrc/closest_hit_mxu.cu`, the edge
-prefilter) on an NVIDIA GPU.
+"""Time and take apart the tile kernels' group walk on an NVIDIA GPU: the
+closest-hit kernels B1 (`csrc/closest_hit.cu`), B2 (`csrc/closest_hit_pipe.cu`)
+and B5 (`csrc/closest_hit_mxu.cu`, the edge prefilter) and the any-hit
+kernels B3 (`csrc/anyhit.cu`) and B4 (`csrc/anyhit_pipe.cu`).
 
     python3 scripts/sweep_closest_hit_walk.py                   # the cycle split
     python3 scripts/sweep_closest_hit_walk.py --baseline DIR    # + older sources in turns
     python3 scripts/sweep_closest_hit_walk.py --sweep           # + the build-time sweep
     python3 scripts/sweep_closest_hit_walk.py --kernels closest_hit_mxu --sweep
+    python3 scripts/sweep_closest_hit_walk.py --kernels anyhit,anyhit_pipe --baseline DIR
 
 Run from the repo root with one CUDA card.  The rays are the main paths'
-queries as `chip_smoke.py` makes them: the bounce-0 and bounce-2 wavefronts
-(65,536 rays, coherence-sorted) of the 327,684-triangle mesh (built with the
-prefilter's edge tiles) and the bounce-0 and bounce-3 wavefronts of the
-972-triangle Cornell box.  B5 runs on the mesh's only.
+queries as `chip_smoke.py` makes them.  Closest hit: the bounce-0 and
+bounce-2 wavefronts (65,536 rays, coherence-sorted) of the 327,684-triangle
+mesh (built with the prefilter's edge tiles) and the bounce-0 and bounce-3
+wavefronts of the 972-triangle Cornell box; B5 runs on the mesh's only.  Any
+hit: the fullest gather query of the SPPM box's main path (2 passes at
+512x512, 50,000 photons) and of one mesh SPPM pass, each recorded as the
+renderer makes it, and on each scene a query of that shape in which every
+ray is live (`chip_smoke.visibility_rays`).
 
 - The cycle split: each kernel's per-unit cycles output (`clock64()` of the
   whole walk and of the part spent staging, prefiltering and scanning
@@ -24,16 +30,19 @@ prefilter's edge tiles) and the bounce-0 and bounce-3 wavefronts of the
   (e.g. the parent commit's `csrc/`, unpacked into the git-ignored
   `build/`).  They are built beside the tree's and timed in turns on the
   same rays (baseline, tree, tree, baseline), CUDA events over 20 launches;
-  (t, slot) must be equal bit for bit.  A baseline kernel without the
-  cycles output walks in 128-ray blocks (B5 before the group walk).
+  the closest hit's (t, slot) and the any hit's bits must be equal bit for
+  bit.  A baseline kernel without the cycles output walks in 128-ray blocks
+  (B3, B4 and B5 before the group walk).
 - `--sweep`: variants of the tree's kernels rebuilt with other values of
-  their build-time constants, each checked bit for bit against the tree's
-  B2 and timed twice: B1 and B2's walk shape (rays per group, threads per
-  ray) and B2's ring depth; for B5 every combination of the cull's
-  granularity (kPerRay: the group's union or each ray's own), the product
-  split over the group's two warps (kSplitMma), the staging (kCpAsync: TMA
-  or cp.async) and the ring depth (kRing 1 or 2).
-- `--kernels`: the kernels to time, split and sweep (default all three).
+  their build-time constants, each checked bit for bit against the tree
+  (B2 for the closest hit, B3 for the any hit) and timed twice: the walk's
+  shape (rays per group, threads per ray) and the ring depth of B2 and B4;
+  for B5 every combination of the cull's granularity (kPerRay: the group's
+  union or each ray's own), the product split over the group's two warps
+  (kSplitMma), the staging (kCpAsync: TMA or cp.async) and the ring depth
+  (kRing 1 or 2).
+- `--kernels`: the kernels to time, split and sweep (default all five;
+  names separated by spaces or commas).
 
 Prints the card's name and power limit first and one line per measurement.
 """
@@ -53,7 +62,8 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ("closest_hit", "closest_hit_pipe", "closest_hit_mxu")
+KERNELS = ("closest_hit", "closest_hit_pipe", "closest_hit_mxu", "anyhit", "anyhit_pipe")
+WINDOW = ("anyhit", "anyhit_pipe")  # kernels of the windowed any-hit query
 REPS = 20
 
 
@@ -101,39 +111,47 @@ def build(variants: dict, out: pathlib.Path) -> dict:
 
 
 class Kernel:
-    """One built closest-hit kernel behind its C entry point.  `unit` is the
-    rays per walking unit (counts and cycles have one row per unit);
-    `has_cycles`: whether the entry point takes the cycles pointer.  B5
-    (`closest_hit_mxu`) also takes the scene's edge tiles and margin scales
-    and reports two more counts."""
+    """One built tile kernel behind its C entry point.  `unit` is the rays
+    per walking unit (counts and cycles have one row per unit);
+    `walks_groups`: whether it is a group-walk kernel, whose entry point
+    takes the cycles pointer (and, for the any hit, the live list's
+    scratch).  B5 (`closest_hit_mxu`) also takes the scene's edge tiles and
+    margin scales and reports two more counts; the any-hit kernels write two
+    bytes a ray (near, far) where the closest-hit ones write (t, slot)."""
 
-    def __init__(self, lib, kernel: str, unit: int, has_cycles: bool):
+    def __init__(self, lib, kernel: str, unit: int, walks_groups: bool):
         from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
 
         self.mxu = kernel == "closest_hit_mxu"
-        self.fn = ch.bind_tile_entry(lib, kernel, 2 if self.mxu else 0, cycles=has_cycles)
-        self.unit, self.has_cycles = unit, has_cycles
+        self.window = kernel in WINDOW
+        self.live_list = self.window and walks_groups
+        n_extra = 2 if self.mxu else (1 if self.live_list else 0)
+        self.fn = ch.bind_tile_entry(lib, kernel, n_extra, cycles=walks_groups)
+        self.unit, self.has_cycles = unit, walks_groups
 
     def __call__(self, rays, g, order, counts=False, cycles=False):
         import torch
 
         dev, n = rays.device, rays.shape[0]
-        t = torch.empty(n, dtype=torch.float32, device=dev)
-        slot = torch.empty(n, dtype=torch.int32, device=dev)
+        a = torch.empty(n, dtype=torch.uint8 if self.window else torch.float32, device=dev)
+        b = torch.empty(n, dtype=torch.uint8 if self.window else torch.int32, device=dev)
         c = (torch.zeros((n // self.unit, 5 if self.mxu else 3), dtype=torch.int32, device=dev)
              if counts else None)
         cy = torch.zeros((n // self.unit, 2), dtype=torch.int64, device=dev) if cycles else None
         ptrs = [rays.data_ptr(), g.tiles.data_ptr(), g.tile_aabb.data_ptr(), order.data_ptr()]
         if self.mxu:
             ptrs += [g.edge_tiles.data_ptr(), g.edge_wsum.data_ptr()]
-        ptrs += [t.data_ptr(), slot.data_ptr(), c.data_ptr() if counts else None]
+        if self.live_list:
+            live = torch.empty(n // self.unit + 2, dtype=torch.int32, device=dev)
+            ptrs.append(live.data_ptr())
+        ptrs += [a.data_ptr(), b.data_ptr(), c.data_ptr() if counts else None]
         if self.has_cycles:
             ptrs.append(cy.data_ptr() if cycles else None)
         err = self.fn(*ptrs, n, g.tiles.shape[0], g.tiles.shape[2],
                       torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"launch failed: cudaError {err}")
-        return t, slot, c, cy
+        return a, b, c, cy
 
 
 def split(name, kernel, rays, g, order, clock_mhz):
@@ -167,38 +185,71 @@ def split(name, kernel, rays, g, order, clock_mhz):
     return out
 
 
-def queries(dev):
-    """[(label, geometry, prepared rays, order)] of the four wavefronts."""
+def queries(dev, closest: bool, window: bool):
+    """[(label, geometry, prepared rays, order, kind)] of the closest-hit
+    wavefronts (kind "closest") and of the any-hit queries (kind
+    "window")."""
+    import torch
+
     import chip_smoke as cs
+    from gpu_pathtracer_tpu_torch import renderer
     from gpu_pathtracer_tpu_torch.models.camera import Camera
     from gpu_pathtracer_tpu_torch.models.scene import build_scene
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
-    from gpu_pathtracer_tpu_torch.utils import obj_io, testscenes
+    from gpu_pathtracer_tpu_torch.ops import trace
+    from gpu_pathtracer_tpu_torch.render import sppm
+    from gpu_pathtracer_tpu_torch.utils import config, obj_io, testscenes
 
     out = []
     mesh = build_scene(testscenes.make_mesh_scene_host(subdiv=cs.MESH_SUBDIV), dev,
                        edge_prefilter=True)
-    cam = Camera.create(**cs.MESH_CAM, width=512, height=512, device=dev)
-    waves = cs.wavefronts(mesh, cam, cs.WAVE_RAYS, 3, seed=2)
-    for bounce in (0, 2):
-        out.append((f"mesh bounce {bounce}", mesh.geom, cs.sorted_rays(mesh.geom, waves[bounce])))
-    folder = pathlib.Path(tempfile.mkdtemp(prefix="sweep_walk_cornell_"))
-    testscenes.make_cornell_box(folder, spheres=True, sphere_subdiv=2)
-    box = build_scene(obj_io.load_scene(folder, "box.obj"), dev)
-    cam = Camera.create(**cs.CORNELL_CAM, width=512, height=512, device=dev)
-    waves = cs.wavefronts(box, cam, cs.WAVE_RAYS, 4, seed=1)
-    for bounce in (0, 3):
-        out.append((f"cornell bounce {bounce}", box.geom, cs.sorted_rays(box.geom, waves[bounce])))
+    mcam = Camera.create(**cs.MESH_CAM, width=512, height=512, device=dev)
+    folder = pathlib.Path(tempfile.mkdtemp(prefix="sweep_walk_scenes_"))
+    if closest:
+        waves = cs.wavefronts(mesh, mcam, cs.WAVE_RAYS, 3, seed=2)
+        for bounce in (0, 2):
+            out.append((f"mesh bounce {bounce}", mesh.geom, cs.sorted_rays(mesh.geom, waves[bounce]),
+                        "closest"))
+        testscenes.make_cornell_box(folder, spheres=True, sphere_subdiv=2)
+        box = build_scene(obj_io.load_scene(folder, "box.obj"), dev)
+        cam = Camera.create(**cs.CORNELL_CAM, width=512, height=512, device=dev)
+        waves = cs.wavefronts(box, cam, cs.WAVE_RAYS, 4, seed=1)
+        for bounce in (0, 3):
+            out.append((f"cornell bounce {bounce}", box.geom, cs.sorted_rays(box.geom, waves[bounce]),
+                        "closest"))
+    if window:
+        scfg = cs.sppm_box_master(folder, False, config, testscenes)
+        with cs.RecordedGather(trace) as box_gather:
+            renderer.render_from_config(scfg)
+        box_scene = build_scene(obj_io.load_scene(folder, "box.obj"), dev)
+        bg = box_scene.geom
+        out.append(("SPPM box gather (recorded)", bg, box_gather.rays(bg.tile_aabb), "window"))
+        box_cam = Camera.create(**cs.CORNELL_CAM, width=512, height=512, device=dev)
+        out.append(("SPPM box, live gather rays", bg,
+                    cs.visibility_rays(box_scene, box_cam, 512, cs.GATHER_CHUNK, sppm.K_NEAREST, 21),
+                    "window"))
+        mcfg = config.RenderConfig(image_width=512, image_height=512,
+                                   ppm_num_photon_per_pass=cs.SPPM["photons"], ppm_num_pass=1,
+                                   ppm_max_bounce=cs.SPPM["max_bounce"])
+        with cs.RecordedGather(trace) as mesh_gather, torch.no_grad():
+            sppm.render_sppm(mesh, mcam, mcfg, 12)
+        mg = mesh.geom
+        out.append(("mesh gather (recorded)", mg, mesh_gather.rays(mg.tile_aabb), "window"))
+        out.append(("mesh, live gather rays", mg,
+                    cs.visibility_rays(mesh, mcam, 512, cs.GATHER_CHUNK, sppm.K_NEAREST, 22),
+                    "window"))
     shutil.rmtree(folder)
-    return [(label, g, rays, ch.block_tile_order(rays, g.tile_aabb, rays.shape[0] // ch.RAY_BLOCK))
-            for label, g, rays in out]
+    return [(label, g, rays, ch.block_tile_order(rays, g.tile_aabb, rays.shape[0] // ch.RAY_BLOCK),
+             kind) for label, g, rays, kind in out]
 
 
 def sweep_variants(kernels) -> dict:
-    """{label: (kernel, {constant: value}, rays per group)} of the sweep: B1
-    and B2's rays per group x threads per ray (whole warps, at most 512
-    threads) at the committed ring, B2's ring depth at the committed shape,
-    and B5's four build-time choices in every combination."""
+    """{label: (kernel, {constant: value}, rays per group)} of the sweep: the
+    walk's rays per group x threads per ray (whole warps, at most 512
+    threads; at most 32 rays for B3 and B4, whose first pass finds a
+    group's rays in one warp) for B1-B4 at the committed ring, B2's and B4's ring depth at
+    the committed shape, and B5's four build-time choices in every
+    combination."""
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
 
     out = {}
@@ -206,11 +257,14 @@ def sweep_variants(kernels) -> dict:
         for threads in (1, 2, 4, 8, 16):
             if (rays_per_group * threads) % 32 or rays_per_group * threads > 512:
                 continue
-            for kernel in ("closest_hit", "closest_hit_pipe"):
+            for kernel in ("closest_hit", "closest_hit_pipe", "anyhit", "anyhit_pipe"):
+                if kernel in WINDOW and rays_per_group > 32:  # a group's rays share a warp there
+                    continue
                 out[f"{kernel}_g{rays_per_group}x{threads}"] = (
                     kernel, {"kGroupRays": rays_per_group, "kRayThreads": threads}, rays_per_group)
     for ring in (1, 2, 3, 4):
-        out[f"closest_hit_pipe_r{ring}"] = ("closest_hit_pipe", {"kRing": ring}, ch.GROUP_RAYS)
+        for kernel in ("closest_hit_pipe", "anyhit_pipe"):
+            out[f"{kernel}_r{ring}"] = (kernel, {"kRing": ring}, ch.GROUP_RAYS)
     for per_ray, split_mma, cp_async, ring in itertools.product((0, 1), (0, 1), (0, 1), (1, 2)):
         out[f"closest_hit_mxu_{'ray' if per_ray else 'union'}_{'split' if split_mma else 'whole'}"
             f"_{'cpasync' if cp_async else 'tma'}_r{ring}"] = (
@@ -219,13 +273,31 @@ def sweep_variants(kernels) -> dict:
     return {k: v for k, v in out.items() if v[0] in kernels}
 
 
+def answer(kernel, rays, g, order):
+    """A launch's per-ray outputs, synchronised."""
+    import torch
+
+    a, b = kernel(rays, g, order)[:2]
+    torch.cuda.synchronize()
+    return a, b
+
+
+def differ(got, ref) -> int:
+    """Rays whose outputs differ."""
+    return int(((got[0] != ref[0]) | (got[1] != ref[1])).sum())
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", type=pathlib.Path, default=None,
                         help="a directory with older kernel sources and their headers")
     parser.add_argument("--sweep", action="store_true", help="also the build-time sweep")
-    parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
+    parser.add_argument("--kernels", nargs="+", default=list(KERNELS),
+                        help=f"any of {', '.join(KERNELS)} (spaces or commas)")
     args = parser.parse_args()
+    wanted = {k for arg in args.kernels for k in arg.split(",") if k}
+    if not wanted <= set(KERNELS):
+        parser.error(f"unknown kernels {sorted(wanted - set(KERNELS))}")
 
     import torch
 
@@ -236,10 +308,15 @@ def main() -> int:
 
     dev = require_cuda()
     print(cs.nvidia_smi(), flush=True)
-    kernels = [k for k in KERNELS if k in args.kernels]
+    kernels = [k for k in KERNELS if k in wanted]
     out = pathlib.Path(tempfile.mkdtemp(prefix="sweep_walk_"))
-    # B2 is every variant's yardstick, so it is always built
-    specs = {k: (_build.CSRC, k, {}) for k in KERNELS if k in kernels or k == "closest_hit_pipe"}
+    # each query's yardstick (B2 for the closest hit, B3 for the any hit) is always built
+    yardstick = {"closest": "closest_hit_pipe", "window": "anyhit"}
+    closest = any(k not in WINDOW for k in kernels)
+    window = any(k in WINDOW for k in kernels)
+    needed = set(kernels) | {yardstick[kind] for kind, on in (("closest", closest),
+                                                             ("window", window)) if on}
+    specs = {k: (_build.CSRC, k, {}) for k in KERNELS if k in needed}
     if args.baseline is not None:
         specs.update({f"baseline_{k}": (args.baseline, k, {}) for k in kernels})
     sweep = sweep_variants(kernels) if args.sweep else {}
@@ -251,25 +328,22 @@ def main() -> int:
         walks_groups = "out_cycles" in (args.baseline / f"{k}.cu").read_text()
         base[k] = Kernel(libs[f"baseline_{k}"], k, ch.GROUP_RAYS if walks_groups else ch.RAY_BLOCK,
                          walks_groups)
-    qs = queries(dev)
+    qs = queries(dev, closest, window)
     print(f"SM clock {sm_clock_mhz():.0f} MHz", flush=True)
-    for label, g, rays, order in qs:
-        here = [k for k in kernels if k != "closest_hit_mxu" or g.edge_tiles is not None]
-        ref = tree["closest_hit_pipe"](rays, g, order)[:2]
-        torch.cuda.synchronize()
+    for label, g, rays, order, kind in qs:
+        here = [k for k in kernels if (k in WINDOW) == (kind == "window")
+                and (k != "closest_hit_mxu" or g.edge_tiles is not None)]
+        ref = answer(tree[yardstick[kind]], rays, g, order)
+        print(f"{label}: {rays.shape[0]} rays x {g.tiles.shape[0]} tiles, live "
+              f"{float((rays[:, 6] > 0).float().mean()):.4f}", flush=True)
         for k in here:
-            t, slot = tree[k](rays, g, order)[:2]
-            torch.cuda.synchronize()
-            if not (torch.equal(t, ref[0]) and torch.equal(slot, ref[1])):
-                raise SystemExit(f"{label}: {k} and closest_hit_pipe differ")
+            if differ(answer(tree[k], rays, g, order), ref):
+                raise SystemExit(f"{label}: {k} and {yardstick[kind]} differ")
         for k in here:
-            if k not in base:
-                continue
-            t, slot = base[k](rays, g, order)[:2]
-            torch.cuda.synchronize()
-            same = torch.equal(t, ref[0]) and torch.equal(slot, ref[1])
-            print(f"{label}: baseline {k} equals the tree's bit for bit: {same} "
-                  f"({int(((t != ref[0]) | (slot != ref[1])).sum())} rays differ)", flush=True)
+            if k in base:
+                n = differ(answer(base[k], rays, g, order), ref)
+                print(f"{label}: baseline {k} equals the tree's bit for bit: {n == 0} ({n} rays "
+                      f"differ)", flush=True)
         for k in here:
             if k in base:  # in turns: baseline, tree, tree, baseline
                 ms = [cs.cuda_ms(lambda: base[k](rays, g, order), REPS),
@@ -288,10 +362,8 @@ def main() -> int:
             if k not in here:
                 continue
             kern = Kernel(libs[name], k, unit, True)
-            t, slot = kern(rays, g, order)[:2]
-            torch.cuda.synchronize()
-            if not (torch.equal(t, ref[0]) and torch.equal(slot, ref[1])):
-                raise SystemExit(f"{label}: {name} differs from the tree's closest_hit_pipe")
+            if differ(answer(kern, rays, g, order), ref):
+                raise SystemExit(f"{label}: {name} differs from the tree's {yardstick[kind]}")
             ms = [cs.cuda_ms(lambda: kern(rays, g, order), REPS) for _ in range(2)]
             culled = ""
             if kern.mxu:

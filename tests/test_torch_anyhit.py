@@ -1,9 +1,10 @@
 """PyTorch port vs the JAX package: the windowed any-hit query.
 
 Inputs are made with numpy from a seed and handed to both packages.  The
-port's plain versions (`anyhit_reference`, `anyhit_pipe_reference`, what the
-CUDA kernels are held against on the card) are compared with the reference's
-Pallas kernels run in interpret mode, as the reference's own tests run them.
+port's plain versions (`anyhit_reference`, `anyhit_pipe_reference`: the group
+walk in its window mode, what the CUDA kernels are held against on the card)
+are compared with the reference's Pallas kernels run in interpret mode, as the
+reference's own tests run them.
 Tolerance: none.  The outputs are bits, and both packages define them by the
 same Woop pair test, so both bits are equal on every ray; they are also equal
 to the bits derived from either package's closest hit (some hit with
@@ -77,11 +78,13 @@ def test_plain_versions_match_pallas_interpret(n, r, big):
 
 
 def test_the_two_plain_versions_agree_and_count_their_walk():
-    """Same bits with and without the lagging prefetch rule; the lagging walk
-    takes the same steps, fetches at most one tile more than it scans, and
-    scans no fewer tiles; a dead block walks one step and scans nothing."""
+    """The group walk in its window mode, counted for the plain-load kernel
+    (nothing fetched ahead) and for the ring (PIPE_RING buffers): the same
+    bits, the same entries walked and tiles scanned group by group, at most
+    PIPE_RING tiles fetched and not scanned; a group of dead or padding rays
+    walks one entry and scans nothing."""
     _, tris, o, d, t_near, t_far = _soup(7, 1300, 600)
-    t_near[512:] = -1.0  # rays 512.. are dead: the last block is all dead or padding
+    t_near[512:] = -1.0  # rays 512.. are dead: the groups from 64 on are all dead or padding
     t_far[512:] = -1.0
     tiles, aabb = _port_tiles(tris)
     rays = anyhit.prepare_rays_window(aabb, torch.from_numpy(o), torch.from_numpy(d),
@@ -90,14 +93,16 @@ def test_the_two_plain_versions_agree_and_count_their_walk():
     order = closest_hit.block_tile_order(rays, aabb, 5)
     n0, f0, c0 = anyhit.anyhit_reference(rays, tiles, aabb, order)
     n1, f1, c1 = anyhit.anyhit_pipe_reference(rays, tiles, aabb, order)
+    assert c0.shape == c1.shape == (640 // closest_hit.GROUP_RAYS, 3)
     assert torch.equal(n0, n1) and torch.equal(f0, f1)
-    assert torch.equal(c0[:, 0], c1[:, 0])
+    assert torch.equal(c0[:, 0], c1[:, 0]) and torch.equal(c0[:, 2], c1[:, 2])
     extra = c1[:, 1] - c1[:, 2]
-    assert bool(((extra >= 0) & (extra <= 1)).all()) and bool((c1[:, 2] >= c0[:, 2]).all())
+    assert bool(((extra >= 0) & (extra <= closest_hit.PIPE_RING)).all())
     assert torch.equal(c0[:, 1], c0[:, 2])
-    assert c0[4].tolist() == [1, 0, 0] and c1[4].tolist() == [1, 0, 0]
+    dead = 512 // closest_hit.GROUP_RAYS
+    assert c0[dead:].tolist() == [[1, 0, 0]] * (80 - dead) and torch.equal(c1[dead:], c0[dead:])
     assert not n0[512:].any() and not f0[512:].any()
-    assert bool((c0[:4, 2] > 0).all()) and bool((c0[:4, 0] <= tiles.shape[0]).all())
+    assert bool((c0[:dead, 2] > 0).all()) and bool((c0[:, 0] <= tiles.shape[0]).all())
 
 
 def test_prepare_rays_window_layout():
@@ -141,8 +146,8 @@ def test_occluded_window_live_mask_matches_jax(monkeypatch, sort_min):
 
 
 def test_occluded_window_dispatch_and_no_closest_hit(monkeypatch):
-    """Above PALLAS_MAX rows the query takes the double-buffered version,
-    below it the plain-load one; it never goes through the closest hit."""
+    """Above PALLAS_MAX rows the query takes the ring kernel's plain version,
+    below it the plain-load one's; it never goes through the closest hit."""
     _, tris, o, d, t_near, _ = _soup(5, 300, 128)
     tiles, aabb = _port_tiles(tris)
     g = SimpleNamespace(p=torch.from_numpy(tris), tiles=tiles, tile_aabb=aabb)
@@ -185,8 +190,9 @@ def test_wrappers_refuse_cpu_tensors_and_other_devices():
 
 def test_dead_rays_cannot_poison_their_block(monkeypatch):
     """Dead rays may carry NaN directions or infinite origins (an absorbed
-    photon, an invalid hit point).  The kernels take a block's origin box and
-    |d| bound over all its rays, so such a ray would cull its block's live
+    photon, an invalid hit point).  The kernels take the origin box and |d|
+    bound of each 128-ray row of the tile order, so such a ray would cull its
+    row's live
     rays as well; the dispatchers park dead rays first.  Shown on the
     walk-based plain versions (what the kernels compute): live rays get the
     answers of a query without the dead rays' garbage."""

@@ -211,9 +211,9 @@ def test_build_hash_covers_included_headers(monkeypatch, tmp_path):
     assert second != first and second.name == "libk.so"
     # the real kernels share the walk's header, the ring kernels also the ring's
     monkeypatch.undo()
-    assert [p.name for p in _build.sources("closest_hit")] == ["closest_hit.cu",
-                                                              "closest_hit_common.cuh"]
-    for name in ("closest_hit_pipe", "closest_hit_mxu"):
+    for name in ("closest_hit", "anyhit"):
+        assert [p.name for p in _build.sources(name)] == [f"{name}.cu", "closest_hit_common.cuh"]
+    for name in ("closest_hit_pipe", "closest_hit_mxu", "anyhit_pipe"):
         assert sorted(p.name for p in _build.sources(name)) == sorted(
             [f"{name}.cu", "closest_hit_common.cuh", "tile_ring.cuh"])
 

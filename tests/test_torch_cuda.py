@@ -15,9 +15,9 @@ The three closest-hit kernels share their arithmetic, their walk (groups
 of 8 rays over each 128-ray row of the tile order) and the order, so the
 ring-buffered one equals the plain-load one bit for bit, and the prefilter
 kernel (the same ring and walk) equals both, with the same walk counts.  The any-hit
-kernels return bits: both bits equal their plain versions', each other's and
-the bits derived from the closest-hit kernel on every ray, and the per-block
-counts equal the plain versions'.
+kernels walk the same way and return bits: both bits equal their plain
+versions', each other's and the bits derived from the closest-hit kernel on
+every ray, and the per-group counts equal the plain versions'.
 """
 
 import numpy as np
@@ -144,15 +144,21 @@ def test_pipe_kernel_counts_match_plain(cuda):
     assert torch.equal(counts1, rcounts1)
 
 
-@pytest.mark.parametrize("kernel", ["closest_hit", "closest_hit_pipe"])
+@pytest.mark.parametrize("kernel", ["closest_hit", "closest_hit_pipe", "anyhit", "anyhit_pipe"])
 def test_group_walk_cycles(cuda, kernel):
     """The per-group cycles output: the walk's cycles cover the part spent
     staging and scanning, a group that scans nothing spends nothing there,
-    and asking for the cycles changes no result."""
+    and asking for the cycles changes no result (closest hit: (t, slot);
+    any hit: the two bits)."""
     g, o, d, t_max = _mesh_query(cuda, 2048)
-    rays = closest_hit.prepare_rays(g.tile_aabb, o, d, t_max)
+    if kernel.startswith("anyhit"):
+        t_near, t_far, _ = _window(np.random.default_rng(43), 2048, cuda)
+        rays = anyhit.prepare_rays_window(g.tile_aabb, o, d, t_near, t_far)
+        launch = getattr(anyhit, f"launch_{kernel}")
+    else:
+        rays = closest_hit.prepare_rays(g.tile_aabb, o, d, t_max)
+        launch = getattr(closest_hit, f"launch_{kernel}")
     order = closest_hit.block_tile_order(rays, g.tile_aabb, 16)
-    launch = getattr(closest_hit, f"launch_{kernel}")
     t, slot = launch(rays, g.tiles, g.tile_aabb, order)
     t2, slot2, counts, cycles = launch(rays, g.tiles, g.tile_aabb, order, counts=True, cycles=True)
     torch.cuda.synchronize()
@@ -275,8 +281,10 @@ def _window(rng, n_rays, cuda):
 
 @pytest.mark.parametrize("big", [False, True])
 def test_anyhit_kernels_match_plain_and_closest_hit(cuda, big):
-    """Soup (plain-load kernel) and the subdiv=5 mesh (both kernels): bits
-    and counts against the plain version, bits against the closest hit."""
+    """Soup and the subdiv=5 mesh: the kernel of the route (the ring kernel
+    on the mesh) against its plain version (bits; per-group counts), the
+    plain-load kernel's bits equal to it on every ray with the same entries
+    walked and tiles scanned group by group, both against the closest hit."""
     rng = np.random.default_rng(41)
     if big:
         g, o, d, _ = _mesh_query(cuda, 3000)
@@ -297,9 +305,14 @@ def test_anyhit_kernels_match_plain_and_closest_hit(cuda, big):
     assert launch.launches == before + 1
     rnear, rfar, rcounts = reference(rays, tiles, aabb, order)
     assert torch.equal(near, rnear) and torch.equal(far, rfar)
+    assert counts.shape == (rays.shape[0] // closest_hit.GROUP_RAYS, 3)
     assert torch.equal(counts, rcounts)
-    n1, f1 = anyhit.launch_anyhit(rays, tiles, aabb, order)
+    n1, f1, c1 = anyhit.launch_anyhit(rays, tiles, aabb, order, counts=True)
     assert torch.equal(near, n1) and torch.equal(far, f1)
+    assert torch.equal(c1[:, 0], counts[:, 0]) and torch.equal(c1[:, 2], counts[:, 2])
+    assert torch.equal(c1[:, 1], c1[:, 2])
+    extra = (counts[:, 1] - counts[:, 2]).cpu().numpy()
+    assert ((extra >= 0) & (extra <= (closest_hit.PIPE_RING if big else 0))).all()
     t, _, hit = closest_hit.closest_hit_tiles(tiles, aabb, o, d)
     assert torch.equal(near[:3000], hit & (t < t_near))
     assert torch.equal(far[:3000], hit & (t <= t_far))

@@ -1,6 +1,7 @@
-"""The group walk of the closest-hit kernels B1, B2 and B5 (`csrc/closest_hit.cu`,
-`csrc/closest_hit_pipe.cu`, `csrc/closest_hit_mxu.cu`): its plain version on
-the CPU.
+"""The group walk of the tile kernels: the closest-hit kernels B1, B2 and B5
+(`csrc/closest_hit.cu`, `csrc/closest_hit_pipe.cu`, `csrc/closest_hit_mxu.cu`)
+and the any-hit kernels B3 and B4 (`csrc/anyhit.cu`, `csrc/anyhit_pipe.cu`):
+its plain version on the CPU.
 
 `closest_hit_pipe_reference` walks the tile order in groups of GROUP_RAYS
 rays, WALK_BATCH entries at a time (`ops.closest_hit._group_walk`).  It is
@@ -10,8 +11,12 @@ to rtol 1e-6, against the plain version that scans every tile in index order
 (`closest_hit_rays_reference`; a ray may split only at an exact tie between
 triangles that the two visit in another order), on a triangle soup and on
 the displaced icosphere at subdiv=5 (20,484 triangles).  The counts are held
-to what the walk guarantees.  No JAX: the JAX package's big kernel is held
-against this plain version in tests/test_torch_bigmesh.py.
+to what the walk guarantees.  The window mode (`anyhit_pipe_reference`, the
+any-hit kernels' plain version) is held bit for bit against the bits that
+the brute-force closest hit and the 128-ray block walk's closest hit give,
+and its per-group budget against a scene built to show it.  No JAX: the JAX
+package's kernels are held against these plain versions in
+tests/test_torch_bigmesh.py and tests/test_torch_anyhit.py.
 """
 
 import pathlib
@@ -23,7 +28,7 @@ import torch
 
 import torch_parity
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
-from gpu_pathtracer_tpu_torch.ops import closest_hit, intersect
+from gpu_pathtracer_tpu_torch.ops import anyhit, closest_hit, intersect
 from gpu_pathtracer_tpu_torch.utils import testscenes
 
 torch.set_num_threads(1)
@@ -190,4 +195,102 @@ def test_kernel_constants_match_the_plain_version():
     # B5 fetches what B2 fetches, and culls at the plain version's granularity
     assert constant("closest_hit_mxu.cu", "kRing") == closest_hit.PIPE_RING
     assert constant("closest_hit_mxu.cu", "kPerRay") == 0
+    # B4 fetches what B2 fetches
+    assert constant("anyhit_pipe.cu", "kRing") == closest_hit.PIPE_RING
     assert closest_hit.RAY_BLOCK % closest_hit.GROUP_RAYS == 0
+    # every tile kernel walks in groups through the one walk and its stagers:
+    # a block a group, or (the any-hit kernels) live groups pulled by blocks
+    for name in ("closest_hit", "closest_hit_pipe", "closest_hit_mxu", "anyhit", "anyhit_pipe"):
+        text = (CSRC / f"{name}.cu").read_text()
+        assert "__launch_bounds__(kGroupThreads)" in text, name
+        if name.startswith("anyhit"):
+            assert "walk_live(" in text and "launch_window(" in text, name
+        else:
+            assert "group_walk(blockIdx.x," in text and "kGroupRays, kGroupThreads" in text, name
+    for name in ("closest_hit_pipe", "closest_hit_mxu", "anyhit_pipe"):
+        assert "RingStager<kRing," in (CSRC / f"{name}.cu").read_text(), name
+
+
+def _window(rng, n):
+    """Window caps around the mesh's hit distances from the bench's eye for
+    the first `n` rays (a ragged tail), every 6th dead, every other far cap
+    infinite."""
+    t_near = rng.uniform(1.0, 2.6, n).astype(np.float32)
+    t_far = np.where(np.arange(n) % 2 == 0, t_near + rng.uniform(0.0, 0.5, n),
+                     np.inf).astype(np.float32)
+    dead = np.arange(n) % 6 == 0
+    return (_t(np.where(dead, -1.0, t_near).astype(np.float32)),
+            _t(np.where(dead, -1.0, t_far).astype(np.float32)))
+
+
+def test_window_walk_bits_equal_the_closest_hit_bits(mesh5):
+    """On the subdiv=5 mesh, with dead rays and a ragged tail: the window
+    mode's bits equal, on every ray, the bits derived from the brute-force
+    closest hit and from the 128-ray block walk's closest hit (the walk the
+    any-hit kernels took before the group walk) on the same rays: near = a
+    hit below t_near, far = a hit within t_far."""
+    tiles, aabb, mesh_rays = mesh5
+    n = 1000
+    t_near, t_far = _window(np.random.default_rng(5), n)
+    rays = anyhit.prepare_rays_window(aabb, mesh_rays[:n, 0:3], mesh_rays[:n, 3:6], t_near, t_far)
+    assert rays.shape == (1024, 8)
+    order = closest_hit.block_tile_order(rays, aabb, 8)
+    near, far, counts = anyhit.anyhit_pipe_reference(rays, tiles, aabb, order)
+    as_closest = rays.clone()
+    as_closest[:, 7] = 0.0  # the far cap is the closest hit's budget
+    t, slot = closest_hit.closest_hit_rays_reference(as_closest, tiles)
+    bt, bslot, _ = closest_hit.closest_hit_block_reference(as_closest, tiles, aabb, order)
+    for tt, ss in ((t, slot), (bt, bslot)):
+        hit = ss >= 0
+        assert torch.equal(near, hit & (tt < rays[:, 7])) and torch.equal(far, hit)
+    assert bool(near.any()) and bool((far & ~near).any()) and not bool(far[n:].any())
+    assert not bool(far[:n][::6].any()) and bool((~far[:n]).any())
+    assert (counts[:, 2] < tiles.shape[0] // 2).all()
+
+
+def _tilted_walls():
+    """Tile 0: a wall tilted away from 128 rays along -z (its box begins at
+    z = -1, the rays meet it at t = 1 + 10/13); tile 1: a wall at z = -1.5,
+    behind the first one's box front but in front of where the rays meet it,
+    so the closest hit must scan both tiles."""
+    p = torch.zeros((256, 3, 3))
+    p[0] = torch.tensor([[-5.0, -5.0, -1.0], [5.0, -5.0, -1.0], [0.0, 8.0, -3.0]])
+    p[128] = torch.tensor([[-5.0, -5.0, -1.5], [5.0, -5.0, -1.5], [0.0, 8.0, -1.5]])
+    valid = torch.zeros(256, dtype=torch.bool)
+    valid[0] = valid[128] = True
+    tiles, aabb = closest_hit.pack_tiles(p, intersect.triangle_tolerance(p), valid)
+    o = torch.zeros((128, 3))
+    o[:, 0] = torch.linspace(-0.1, 0.1, 128)
+    d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(128, 1)
+    return tiles, aabb, o, d
+
+
+def test_settled_group_leaves_at_its_next_entry():
+    """The per-group budget: when every ray of a group sets its near bit on
+    the first tile it scans, the group's budget is -1 and the re-check of
+    the batch's next candidate ends the walk there (two entries walked, one
+    scanned; the ring has fetched the second).  Rays whose window stays open
+    after the first tile (far set, t_near beyond tile 1's bound) walk on and
+    scan tile 1, as the closest hit does."""
+    tiles, aabb, o, d = _tilted_walls()
+    groups = closest_hit.RAY_BLOCK // closest_hit.GROUP_RAYS
+    cap = closest_hit.prepare_rays(aabb, o, d)
+    order = closest_hit.block_tile_order(cap, aabb, 1)
+    assert order.tolist() == [[0, 1]]
+    t, slot, counts = closest_hit.closest_hit_pipe_reference(cap, tiles, aabb, order)
+    assert (slot == 128).all() and counts.tolist() == [[2, 2, 2]] * groups
+
+    settled = anyhit.prepare_rays_window(aabb, o, d, float("inf"))
+    for ring, reference in ((0, anyhit.anyhit_reference),
+                            (closest_hit.PIPE_RING, anyhit.anyhit_pipe_reference)):
+        near, far, c = reference(settled, tiles, aabb, order)
+        assert near.all() and far.all()
+        assert c.tolist() == [[2, min(2, 1 + ring), 1]] * groups, ring
+    open_window = anyhit.prepare_rays_window(aabb, o, d, 1.6)  # tile 0's hits lie beyond 1.6
+    near, far, c = anyhit.anyhit_pipe_reference(open_window, tiles, aabb, order)
+    assert near.all() and far.all() and c.tolist() == [[2, 2, 2]] * groups
+    # one ray of each group keeps its window open: its group walks on
+    mixed = settled.clone()
+    mixed[:: closest_hit.GROUP_RAYS] = open_window[:: closest_hit.GROUP_RAYS]
+    _, _, c = anyhit.anyhit_reference(mixed, tiles, aabb, order)
+    assert c.tolist() == [[2, 2, 2]] * groups

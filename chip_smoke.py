@@ -84,7 +84,25 @@ Phases (any failure exits non-zero; nothing is caught):
      through `renderer.render_from_config` at the main widths with 4,096
      points (the hash-grid gather): first-pass and render seconds, the
      `_pts.ppm` splat, the mean over the sphere's pixels against a 64x64 CPU
-     render with the same point count.
+     render with the same point count;
+ 17. the differentiable SPPM leg of the bench: `render_sppm_differentiable`
+     on the SPPM box at 256x256, 16,384 photons a pass, 2 passes, 8 photon
+     and 8 eye bounces (the hash-grid gathers), the gradient of the image
+     mean to `ke` by autograd; it must run on `closest_hit` and `anyhit`
+     alone.  Seconds of a loss and its gradient (median of 3 after the first
+     step; forward and backward apart), pixels/s, peak device memory, host
+     synchronizations; both kernels on the step's own queries, recorded in
+     its first run: `closest_hit` against its plain version on the fullest
+     and the sparsest eye and photon wavefronts (timed on the fullest eye
+     one), `anyhit` (and `anyhit_pipe`) as in phase 10 on the fullest gather
+     chunk; the gradient against a central difference from the same seed
+     (within 1%), and the indirect (photon) term's share of the image and
+     its gradient alone against its central difference (within 1%; the
+     direct term alone is the same render with the photons' colours set to
+     0); the same render at 32x32 with 1,024 photons from uniforms drawn on
+     the CPU, card against CPU (>= 99% of pixels within rtol 1e-4, the
+     gradients within 1%); three `optimize` steps with
+     `sppm_loss_fn(**SPPM_LOSS_PRODUCTION)` at 128x128.
 To keep the run short some references run at a smaller depth than the main
 paths: the Cornell SPPM render makes 2 of the bench's passes and its CPU
 reference is 48x48, the render forced onto `closest_hit` and the mesh's CPU
@@ -126,6 +144,11 @@ PANEL = dict(nx=32, ny=32, emitters=2048)  # the many-lights configuration
 SSS_POINTS = 4096  # above SSS_DENSE_MAX: the hash-grid gather
 SSS_SPHERE = ((0.3, 0.2, 0.4), 0.2)  # the scattering sphere of the box
 REF_SIDE = 64  # the CPU reference renders of the new paths
+# the bench's differentiable-SPPM leg (bench.py:341-375): the SPPM box, d mean(img) / d ke
+DIFF_SPPM = dict(side=256, photons=16384, passes=2, max_bounce=8, eye_bounce=8, seed=6)
+DIFF_SAME = dict(side=32, photons=1024)  # the same-uniforms render, card against CPU
+DIFF_OPT_SIDE = 128  # the optimize steps with SPPM_LOSS_PRODUCTION
+DIFF_EPS = 1e-2  # the central difference's step in the scale of ke
 FLOPS_PER_PAIR = 42  # fp32 operations of one (ray, triangle) Woop test, t included
 PEAK_FP32 = 67e12  # H100 SXM, FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM bytes/s
@@ -573,6 +596,37 @@ class RecordedGather:
         return ah.prepare_rays_window(aabb, o, d, t_near, t_far)
 
 
+class RecordedClosest:
+    """While installed, keeps for each geometry set and wavefront width the
+    arguments of the `trace.closest_hit` query with the most live rays and of
+    the one with the fewest (but some).  It launches nothing itself."""
+
+    def __init__(self, trace):
+        self.trace, self.inner = trace, trace.closest_hit
+        self.fullest, self.sparsest = {}, {}
+
+    def __enter__(self):
+        import torch
+
+        def spy(g, origin, direction, t_max=float("inf"), live=None):
+            r = origin.shape[0]
+            alive = torch.ones(r, dtype=torch.bool, device=origin.device) if live is None else live
+            n = int(alive.sum())
+            wave = (g, origin.detach().clone(), direction.detach().clone(), alive.clone(), n)
+            key = (id(g), r)
+            if n > self.fullest.get(key, (None,) * 4 + (-1,))[4]:
+                self.fullest[key] = wave
+            if 0 < n < self.sparsest.get(key, (None,) * 4 + (r + 1,))[4]:
+                self.sparsest[key] = wave
+            return self.inner(g, origin, direction, t_max, live)
+
+        self.trace.closest_hit = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.trace.closest_hit = self.inner
+
+
 def log_passes(name, pass_log, photons):
     for p in pass_log:
         per = p["gather_s"] * 1e3 / max(p["anyhit_launches"], 1)
@@ -638,6 +692,26 @@ def visibility_rays(scene, camera, side: int, n_pixels: int, k: int, seed: int):
                                   (length * (1.0 - 1e-3))[perm])
 
 
+def photon_uniforms(rand, n_photons: int, max_bounce: int) -> dict:
+    """Explicit uniforms of `sppm.photon_pass` (its docstring's layout), each
+    array drawn by `rand(*shape)`."""
+    from gpu_pathtracer_tpu_torch.render import sppm
+
+    p = n_photons
+    return {"emit": rand(5, p), "stack": rand(sppm.STACK_PROBE_STEPS, 4, p),
+            "steps": rand(4 * max_bounce + 32, sppm.PHOTON_STEP_UNIFORMS, p)}
+
+
+def eye_uniforms(rand, r: int, bounces: int) -> dict:
+    """Explicit uniforms of `sppm.eye_pass` on a scene of the dense light
+    regime (its docstring's layout), each array drawn by `rand(*shape)`."""
+    from gpu_pathtracer_tpu_torch.render import sppm
+
+    return {"lens": rand(2, r), "stack": rand(sppm.STACK_PROBE_STEPS, 4, r),
+            "bounce": rand(bounces, 4, r), "direct_bsdf": rand(4, r), "direct_pick": rand(r),
+            "direct_light": rand(2, r), "direct_chain": rand(sppm.DIRECT_CHAIN_STEPS, 4, r)}
+
+
 def sppm_same_inputs(folder, dev, side: int, n_photons: int, max_bounce: int):
     """One SPPM pass on the same inputs on the card and on the CPU's plain
     path: the photon pass and the eye pass from the same explicit uniforms,
@@ -662,11 +736,8 @@ def sppm_same_inputs(folder, dev, side: int, n_photons: int, max_bounce: int):
     def rand(*shape):
         return torch.rand(shape, generator=gen)
 
-    u_photon = {"emit": rand(5, p), "stack": rand(sppm.STACK_PROBE_STEPS, 4, p),
-                "steps": rand(4 * max_bounce + 32, sppm.PHOTON_STEP_UNIFORMS, p)}
-    u_eye = {"lens": rand(2, r), "stack": rand(sppm.STACK_PROBE_STEPS, 4, r),
-             "bounce": rand(64, 4, r), "direct_bsdf": rand(4, r), "direct_pick": rand(r),
-             "direct_light": rand(2, r), "direct_chain": rand(sppm.DIRECT_CHAIN_STEPS, 4, r)}
+    u_photon = photon_uniforms(rand, p, max_bounce)
+    u_eye = eye_uniforms(rand, r, 64)
     ii, jj = torch.meshgrid(torch.arange(side, dtype=torch.float32),
                             torch.arange(side, dtype=torch.float32), indexing="ij")
     pix_i, pix_j = ii.reshape(-1) + 0.5, jj.reshape(-1) + 0.5
@@ -713,6 +784,238 @@ def sppm_same_inputs(folder, dev, side: int, n_photons: int, max_bounce: int):
     return dict(photons=photon_share, eye=eye_share, gather=gather_share,
                 overflow_equal=overflow_equal,
                 deposits=int(pc["valid"].sum()), gathered=int(res["cpu"][1].sum()))
+
+
+def diff_sppm_step(scene, camera, kw: dict, ke, **render_kw):
+    """One step of the differentiable SPPM leg: the image of
+    `render_sppm_differentiable` with the emission table `ke`, the gradient
+    of its mean to `ke`, and the forward's and the backward's seconds."""
+    import torch
+    from gpu_pathtracer_tpu_torch import optim
+    from gpu_pathtracer_tpu_torch.render import sppm
+
+    def sync():
+        if ke.is_cuda:
+            torch.cuda.synchronize()
+
+    ke = ke.detach().clone().requires_grad_(True)
+    sync()
+    t0 = time.perf_counter()
+    img = sppm.render_sppm_differentiable(optim._substitute(scene, {"ke": ke}), camera, **kw,
+                                          **render_kw)
+    loss = img.mean()
+    sync()
+    t1 = time.perf_counter()
+    (grad,) = torch.autograd.grad(loss, ke)
+    sync()
+    return img.detach(), grad, t1 - t0, time.perf_counter() - t1
+
+
+def no_photon_flux(*args, **kwargs):
+    """`photon_pass` with every deposited colour set to 0: as the render's
+    `photon_pass_fn` it leaves the direct term and drops the indirect one."""
+    import torch
+    from gpu_pathtracer_tpu_torch.render import sppm
+
+    photons = sppm.photon_pass(*args, **kwargs)
+    return dataclasses.replace(photons, color=torch.zeros_like(photons.color))
+
+
+def diff_sppm(dev, card: str, stats: dict, anyhit_err: dict) -> dict:
+    """Phase 17: the differentiable SPPM step of the bench on the card, both
+    kernels on the step's recorded queries against their plain versions
+    (`stats` and `anyhit_err` as in phases 3 and 10), its gradient and its
+    indirect term's gradient against central differences, the same render on
+    the same uniforms on the card and on the CPU, and three `optimize` steps
+    with `sppm_loss_fn`.  Returns the step's numbers and its kernel
+    launches."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from gpu_pathtracer_tpu_torch import optim
+    from gpu_pathtracer_tpu_torch.models.camera import Camera
+    from gpu_pathtracer_tpu_torch.models.scene import build_scene
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.ops import trace
+    from gpu_pathtracer_tpu_torch.render import sppm
+    from gpu_pathtracer_tpu_torch.utils import config, obj_io, testscenes
+
+    folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_diff_"))
+    sppm_box_master(folder, False, config, testscenes)
+    host = obj_io.load_scene(folder, "box.obj")
+    scene = build_scene(host, dev)
+    side, passes = DIFF_SPPM["side"], DIFF_SPPM["passes"]
+    cam = Camera.create(**CORNELL_CAM, width=side, height=side, device=dev)
+    kw = dict(width=side, height=side, n_photons=DIFF_SPPM["photons"], num_pass=passes,
+              max_bounce=DIFF_SPPM["max_bounce"], eye_bounce=DIFF_SPPM["eye_bounce"])
+    ke0 = scene.materials.ke
+    seed = DIFF_SPPM["seed"]
+
+    # the main path: one step with the counts set to 0 just before it; its
+    # queries are recorded for the kernels' comparisons below
+    reset_launches(ch)
+    sppm.host_syncs = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the scene and what earlier phases keep
+    with RecordedClosest(trace) as waves, RecordedGather(trace) as queries:
+        img, grad, fwd0, bwd0 = diff_sppm_step(scene, cam, kw, ke0, seed=seed)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_peak_gb = peak_gb - held / 1e9
+    launches = {"closest_hit": ch.launch_closest_hit.launches,
+                "closest_hit_pipe": ch.launch_closest_hit_pipe.launches,
+                "closest_hit_mxu": ch.launch_closest_hit_mxu.launches,
+                "anyhit": ah.launch_anyhit.launches, "anyhit_pipe": ah.launch_anyhit_pipe.launches}
+    syncs = sppm.host_syncs
+    gathers = passes * -(-side * side // GATHER_CHUNK)  # one any-hit launch a grid-gather chunk
+    light = ke0.amax(dim=-1) > 0
+    log(f"differentiable SPPM: {side}x{side}, {DIFF_SPPM['photons']} photons x {passes} passes, "
+        f"max_bounce {DIFF_SPPM['max_bounce']}, eye_bounce {DIFF_SPPM['eye_bounce']}, SPPM box: "
+        f"first step forward {fwd0:.3f}s + backward {bwd0:.3f}s, peak memory {peak_gb:.3f} GB "
+        f"({step_peak_gb:.3f} GB above what was held before the step), "
+        f"launches {launches}, {syncs} host syncs; image mean {float(img.mean()):.6f}; "
+        f"d mean / d ke on the light's row {grad[light].flatten().tolist()}; card: {card}")
+    check(launches["closest_hit"] > 0 and launches["anyhit"] == gathers,
+          f"differentiable SPPM: {launches['anyhit']} anyhit launches, expected {gathers} "
+          "(the grid gathers' chunks)")
+    check(launches["closest_hit_pipe"] == launches["closest_hit_mxu"] == launches["anyhit_pipe"]
+          == 0, "differentiable SPPM: a ring-buffered kernel launched on the box")
+    check(img.shape == (side, side, 3) and bool(torch.isfinite(img).all())
+          and float(img.mean()) > 0, "differentiable SPPM image not finite or black")
+    check(bool(torch.isfinite(grad).all()) and bool((grad[light] != 0).all()),
+          "differentiable SPPM gradient not finite or zero on the light's row")
+
+    # both kernels on the step's own queries against their plain versions
+    g = scene.geom
+    b1 = None
+    for key, full_wave in waves.fullest.items():
+        for which, (wg, wo, wd, alive, n) in (("fullest", full_wave),
+                                               ("sparsest", waves.sparsest[key])):
+            r = wo.shape[0]
+            what = "the scene" if wg is g else f"a {wg.num_tris}-triangle set"
+            timed = which == "fullest" and wg is g and r == side * side
+            out = compare_plain_load(f"differentiable SPPM, {which} {r}-ray wavefront on {what} "
+                                     f"({n} live)", sorted_rays(wg, (wo, wd, alive)), wg.tiles,
+                                     wg.tile_aabb, stats, time_it=timed)
+            if timed:
+                b1 = dict(out, shape=f"{r} rays x {g.num_tris} triangles, the fullest eye "
+                                     "wavefront of the differentiable SPPM step")
+    widths = {r for gid, r in waves.fullest if gid == id(g)}
+    check(b1 is not None and DIFF_SPPM["photons"] in widths,
+          f"differentiable SPPM: recorded wavefronts of widths {sorted(widths)} on the scene")
+    check(queries.calls == launches["anyhit"] and not queries.big,
+          f"differentiable SPPM: {queries.calls} gather queries for {launches['anyhit']} launches")
+    b3 = {}
+    log(f"differentiable SPPM: {queries.calls} gather queries; the fullest has {queries.live} live "
+        "rays")
+    gather_rays = queries.rays(g.tile_aabb)
+    compare_anyhit("differentiable SPPM, fullest gather chunk", gather_rays, g.tiles, g.tile_aabb,
+                   anyhit_err, b3, plain_subset=gather_rays.shape[0], time_it=True)
+
+    # seconds of a step at ke * 1.01 (the bench's point), median of 3
+    steps = [diff_sppm_step(scene, cam, kw, ke0 * 1.01, seed=seed)[2:] for _ in range(3)]
+    step_s = statistics.median(f + b for f, b in steps)
+    fwd_s = statistics.median(f for f, _ in steps)
+    bwd_s = statistics.median(b for _, b in steps)
+    pixels_per_s = side * side * passes / step_s
+    log(f"differentiable SPPM step (loss + gradient, median of 3): {step_s:.3f}s "
+        f"(forward {fwd_s:.3f}s, backward {bwd_s:.3f}s; steps "
+        f"{[round(f + b, 3) for f, b in steps]}), sppm_diff_pixels_per_sec {pixels_per_s:.1f}; "
+        f"card: {card}")
+
+    # the gradient along ke against a central difference from the same seed;
+    # then the indirect term alone: the same renders less those whose photons
+    # carry no colour (the direct term, on the same random numbers)
+    def sides(**render_kw):
+        with torch.no_grad():
+            return [sppm.render_sppm_differentiable(optim._substitute(scene, {"ke": ke0 * t}), cam,
+                                                    **kw, seed=seed, **render_kw).double()
+                    for t in (1.0 + DIFF_EPS, 1.0 - DIFF_EPS)]
+
+    full = sides()
+    fd = float(full[0].mean() - full[1].mean()) / (2 * DIFF_EPS)
+    an = float((grad * ke0).sum())
+    grad_rel = abs(an - fd) / abs(fd)
+    log(f"differentiable SPPM: d mean / d theta for ke * theta = {an:.6e} by autograd, {fd:.6e} "
+        f"by central difference (eps {DIFF_EPS}), rel diff {grad_rel:.2e}")
+    check(fd > 0 and grad_rel < 0.01, f"differentiable SPPM gradient {an} vs difference {fd}")
+
+    img_d, grad_d, _, _ = diff_sppm_step(scene, cam, kw, ke0, seed=seed,
+                                         photon_pass_fn=no_photon_flux)
+    direct = sides(photon_pass_fn=no_photon_flux)
+    indirect_share = 1.0 - float(img_d.double().mean() / img.double().mean())
+    fd_ind = float((full[0] - direct[0]).mean() - (full[1] - direct[1]).mean()) / (2 * DIFF_EPS)
+    an_ind = float(((grad - grad_d) * ke0).sum())
+    ind_rel = abs(an_ind - fd_ind) / abs(fd_ind)
+    log(f"differentiable SPPM: the indirect term is {indirect_share:.4e} of the image mean; its "
+        f"d mean / d theta {an_ind:.6e} by autograd (the step's less the direct term's), "
+        f"{fd_ind:.6e} by central difference, rel diff {ind_rel:.2e}; the direct term's "
+        f"{float((grad_d * ke0).sum()):.6e}")
+    check(indirect_share > 0 and fd_ind > 0 and ind_rel < 0.01,
+          f"differentiable SPPM indirect gradient {an_ind} vs difference {fd_ind}")
+
+    # the same uniforms, drawn on the CPU, through the grid gathers on both devices
+    sside, sphot = DIFF_SAME["side"], DIFF_SAME["photons"]
+    r = sside * sside
+    gen = torch.Generator().manual_seed(17)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen)
+
+    eb, mb = kw["eye_bounce"], kw["max_bounce"]
+    uniforms = {"init": eye_uniforms(rand, r, eb),
+                "corners": [eye_uniforms(rand, r, eb) for _ in range(4)],
+                "passes": [{"photon": photon_uniforms(rand, sphot, mb),
+                            "eye": eye_uniforms(rand, r, eb), "jitter": rand(2, r)}
+                           for _ in range(passes)]}
+    skw = dict(kw, width=sside, height=sside, n_photons=sphot)
+    same = {}
+    t0 = time.perf_counter()
+    for name, d, scn in (("cpu", torch.device("cpu"), build_scene(host, "cpu")),
+                         ("card", dev, scene)):
+        scam = Camera.create(**CORNELL_CAM, width=sside, height=sside, device=d)
+        simg, sgrad, _, _ = diff_sppm_step(scn, scam, skw, scn.materials.ke, gather_grid=True,
+                                           uniforms=uniforms)
+        same[name] = (simg.cpu(), sgrad.cpu())
+    same_s = time.perf_counter() - t0
+    (img_cpu, g_cpu), (img_card, g_card) = same["cpu"], same["card"]
+    pixel_share = float(torch.isclose(img_card, img_cpu, rtol=1e-4, atol=1e-6).all(dim=-1)
+                        .float().mean())
+    same_grad_rel = float((g_card - g_cpu).norm() / g_cpu.norm())
+    log(f"differentiable SPPM, same uniforms, {sside}x{sside}, {sphot} photons, grid gathers: "
+        f"{pixel_share:.4f} of the pixels agree card vs CPU (rtol 1e-4, atol 1e-6), image means "
+        f"{float(img_card.mean()):.6f} / {float(img_cpu.mean()):.6f}; |grad card - grad CPU| / "
+        f"|grad CPU| = {same_grad_rel:.2e} ({same_s:.1f}s)")
+    check(pixel_share >= 0.99, f"differentiable SPPM same uniforms: {pixel_share:.4f} of pixels")
+    check(same_grad_rel < 0.01, f"differentiable SPPM same uniforms: gradients {same_grad_rel:.2e}")
+
+    # three optimize steps through the photon mapper at the production sizes
+    ocam = Camera.create(**CORNELL_CAM, width=DIFF_OPT_SIDE, height=DIFF_OPT_SIDE, device=dev)
+    with torch.no_grad():
+        target = sppm.render_sppm_differentiable(scene, ocam, DIFF_OPT_SIDE, DIFF_OPT_SIDE,
+                                                 seed=7, **optim.SPPM_LOSS_PRODUCTION)
+    dim = optim._substitute(scene, {"ke": ke0 * 0.3})
+    t0 = time.perf_counter()
+    params, losses = optim.optimize(
+        dim, ocam, target, param_names=("ke",), steps=3, lr=0.5, seed=1,
+        loss_fn=optim.sppm_loss_fn(dim, ocam, target, **optim.SPPM_LOSS_PRODUCTION))
+    opt_s = time.perf_counter() - t0
+    log(f"optimize through the photon mapper, 3 steps at {DIFF_OPT_SIDE}x{DIFF_OPT_SIDE} with "
+        f"SPPM_LOSS_PRODUCTION {optim.SPPM_LOSS_PRODUCTION}: losses {losses} ({opt_s:.1f}s); ke "
+        f"on the light's row {params['ke'][light].flatten().tolist()} (true "
+        f"{ke0[light].flatten().tolist()})")
+    check(len(losses) == 3 and bool(np.isfinite(losses).all()), f"optimize losses {losses}")
+    check(bool(torch.isfinite(params["ke"]).all()) and bool((params["ke"] >= 0).all()),
+          "optimize left a negative or non-finite parameter")
+    return dict(step_s=step_s, fwd_s=fwd_s, bwd_s=bwd_s, pixels_per_s=pixels_per_s,
+                peak_gb=peak_gb, step_peak_gb=step_peak_gb, launches=launches,
+                host_syncs=syncs, grad_rel=grad_rel, indirect_share=indirect_share,
+                indirect_grad_rel=ind_rel, same_pixels=pixel_share, same_grad_rel=same_grad_rel,
+                closest_hit=b1,
+                anyhit=dict(b3["anyhit"], shape=f"{gather_rays.shape[0]} rays x {g.num_tris} "
+                            "triangles, the fullest gather chunk of the differentiable SPPM step"))
 
 
 def wavefronts(scene, camera, n_rays: int, bounces: int, seed: int):
@@ -1488,6 +1791,11 @@ def main() -> int:
     check(s_card > 0 and srel_sphere < 0.10,
           f"SSS: the sphere's mean is off the CPU render's by {srel_sphere:.4f}")
 
+    phases.start(17)
+    # ---- 17. differentiable SPPM ---------------------------------------------------------
+    diff = diff_sppm(dev, card, stats, anyhit_err)
+    log(f"phase 17 record: {json.dumps(diff)}")
+
     phases.report()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     record = {"kernels": [
@@ -1503,6 +1811,8 @@ def main() -> int:
             "bound_ms": b1["bound_ms"],
             "bound_by": b1["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a closest hit
+            "diff_sppm_launches": diff["launches"]["closest_hit"],
+            "diff_sppm": diff["closest_hit"],
             "shape": "65,536 rays x 972 triangles, Cornell bounce 3",
             "bounce_0": {k: b1s[0][k] for k in ("ms", "bound_ms", "bound_by")},
         },
@@ -1537,6 +1847,8 @@ def main() -> int:
             "max_abs_err": anyhit_err["anyhit"],  # rays whose bits differ from the plain version's
             **b34_box["anyhit"],
             "library_ms": None,  # no single PyTorch call answers an any-hit window
+            "diff_sppm_launches": diff["launches"]["anyhit"],
+            "diff_sppm": diff["anyhit"],
             "shape": f"{b34_box['rays']} rays x 72 triangles, the fullest gather query of the "
                      "SPPM main path",
             "anyhit_pipe_ms_same_rays": b34_box["anyhit_pipe"]["ms"],

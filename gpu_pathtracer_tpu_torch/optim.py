@@ -1,5 +1,6 @@
 """Inverse rendering: optimize scene parameters against target images (port
-of `gpu_pathtracer_tpu.optim`, path-tracing loss).
+of `gpu_pathtracer_tpu.optim`): the path-tracing loss (`render_loss_fn`) and
+the loss through the photon mapper (`sppm_loss_fn`).
 
 The estimator in `render.integrator.trace_paths` is pathwise-differentiable
 (the sampled paths are fixed by the generator's state, the throughput
@@ -24,6 +25,7 @@ from typing import Callable, Iterable, Mapping
 import torch
 
 from gpu_pathtracer_tpu_torch.render.integrator import render_image_value_and_grad
+from gpu_pathtracer_tpu_torch.render.sppm import render_sppm_differentiable
 
 # optax.adam's defaults, which differ from torch.optim.Adam's in nothing but
 # being spelled out here
@@ -82,12 +84,53 @@ def render_loss_fn(
     return value_and_grad
 
 
-def sppm_loss_fn(*args, **kwargs):
-    """The differentiable-SPPM loss of the reference package."""
-    raise NotImplementedError(
-        "sppm_loss_fn needs render_sppm_differentiable, which is not ported yet "
-        "(ROADMAP queue A, item 10)"
-    )
+# Production sizes for `sppm_loss_fn`: at 256^2 pixels pixels * photons
+# crosses `render.sppm.GRID_MIN_PAIRS` and the render takes the hash-grid
+# gathers.  Pass **SPPM_LOSS_PRODUCTION for real optimization runs; the
+# function's own defaults stay small, so a caller on the CPU does not pick up
+# a ~100x cost by accident.
+SPPM_LOSS_PRODUCTION = dict(n_photons=16384, num_pass=4, max_bounce=12, eye_bounce=12)
+
+
+def sppm_loss_fn(
+    scene,
+    camera,
+    target: torch.Tensor,  # (H, W, 3) linear radiance
+    n_photons: int = 512,
+    num_pass: int = 2,
+    max_bounce: int = 8,
+    eye_bounce: int = 8,
+    seed: int = 0,
+    **sppm_kw,
+) -> Callable:
+    """(params, generator) -> (loss, grads): the L2 loss between a
+    differentiable SPPM render (`render_sppm_differentiable`, emitter
+    optimization through the photon mapper) and `target`, and its gradient
+    to every tensor of `params` (keyed like `optimize`'s `param_names`).
+
+    The render's random streams come from `seed` when the generator is None,
+    else from a seed drawn from the generator (`optimize` hands each step a
+    generator of its own, so every step traces other photons).  Defaults are
+    small; real runs pass `**SPPM_LOSS_PRODUCTION` or explicit sizes."""
+    target = target.detach()
+
+    def value_and_grad(params, generator=None):
+        names = list(params)
+        leaves = [params[n].detach().requires_grad_(True) for n in names]
+        run_seed = seed
+        if generator is not None:
+            run_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator,
+                                         device=generator.device))
+        img = render_sppm_differentiable(
+            _substitute(scene, dict(zip(names, leaves))), camera, width=target.shape[1],
+            height=target.shape[0], n_photons=n_photons, num_pass=num_pass,
+            max_bounce=max_bounce, eye_bounce=eye_bounce, seed=run_seed, **sppm_kw,
+        )
+        loss = torch.mean((img - target) ** 2)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), dict(zip(names, grads))
+
+    return value_and_grad
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:

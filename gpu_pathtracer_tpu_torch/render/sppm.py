@@ -1,5 +1,6 @@
 """Stochastic progressive photon mapping (SPPM) with participating media
-(port of `gpu_pathtracer_tpu.render.sppm`, forward render).
+(port of `gpu_pathtracer_tpu.render.sppm`): the forward render and the
+differentiable one.
 
 * eye pass: per pixel, trace through the specular / refractive chain to the
   first diffuse hit (a wavefront loop, at most 64 bounces), accumulating the
@@ -19,18 +20,29 @@
   schedule `r *= ((i + alpha) / (i + 1))^(1/2)` on surfaces and `^(1/3)` in
   volumes from iteration 2.
 
+`render_sppm` is the forward render (numpy image, debug images, checkpoints,
+auto-raised gather caps).  `render_sppm_differentiable` returns the image as
+a tensor that carries gradient to the material table (notably `ke`: the
+photon colours through `ops.lights.leaf_energies`' energy normalization, the
+direct chain through `emission_color`).  Its passes run the photon and eye
+passes with `differentiable=True`; the gathers' candidate topology (hash
+grid, cell lookup, top-k pick, any-hit visibility) runs under
+`torch.no_grad()` and their contributions stay differentiable.  The
+kernels return non-differentiable results, so no pass needs a custom
+backward.
+
 Randomness.  Every stochastic function takes either a `torch.Generator` or
 explicit uniforms in [0, 1) (a dict of tensors whose layout the function's
 docstring gives), so a test can feed the reference package's numbers.  Loops
 run while any ray is alive, which costs one host synchronization per step;
 `host_syncs` counts them.
-
-Not in this module: the differentiable SPPM render.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
 import math
 import pathlib
 import time
@@ -195,10 +207,38 @@ class Photons:
 _PH_SURF, _PH_MARCH = 0, 1
 
 
+def _records_grad_if_differentiable(fn):
+    """Runs `fn` under autograd only when it is called with
+    `differentiable=True` and grad mode is on, else under `torch.no_grad()`."""
+    signature = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        differentiable = signature.bind(*args, **kwargs).arguments.get("differentiable", False)
+        with torch.set_grad_enabled(bool(differentiable) and torch.is_grad_enabled()):
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+@_records_grad_if_differentiable
 def photon_pass(scene: Scene, n_photons: int, max_bounce: int = 16,
-                stack_size: int = MATERIAL_STACK_SIZE, generator=None, uniforms=None) -> Photons:
+                stack_size: int = MATERIAL_STACK_SIZE, generator=None, uniforms=None,
+                differentiable: bool = False) -> Photons:
     """Wavefront photon tracing: one deposit slot per photon, the loop runs
     while any photon is alive and for at most 4 * max_bounce + 32 steps.
+
+    `differentiable=True` records the pass for autograd: the deposited
+    colours carry gradient to the material table (emission through
+    `lights.leaf_energies` and the energy normalization; the emitter pick,
+    Russian roulette and scatter events are index or comparison outputs, the
+    pathwise gradient without the score term).  Otherwise the pass runs
+    under `torch.no_grad()`.  The outputs are the same either way.  Both
+    modes keep the early exit (a host synchronization a step): every state
+    update is masked, so the steps after the last photon dies change
+    nothing, and leaving them out keeps them out of the autograd graph (the
+    reference's differentiable mode runs all 4 * max_bounce + 32 steps as a
+    bounded scan because XLA cannot differentiate a while loop).
 
     `uniforms`: {"emit": (5, P) emitter pick, two barycentric, two direction
     uniforms; "stack": (8, 4, P) for `init_material_stack`; "steps":
@@ -218,7 +258,8 @@ def photon_pass(scene: Scene, n_photons: int, max_bounce: int = 16,
     max_energy = acc[-1]
     u_emit = _draw(uniforms, "emit", None, (5, p), generator, dev)
     leaf = torch.clamp(
-        torch.searchsorted(acc, (u_emit[0] * max_energy).contiguous()), 0, lt.num_lights - 1
+        torch.searchsorted(acc.detach(), (u_emit[0] * max_energy.detach()).contiguous()),
+        0, lt.num_lights - 1,
     )
 
     # uniform point and interpolated attributes on the emitter
@@ -464,18 +505,24 @@ def _beam_spacing(seg_valid, vol_radius):
 
 def volume_gather_segments_grid(table, photons: Photons, seg_start, seg_dir, seg_len,
                                 seg_medium, seg_filt, seg_valid, vol_radius,
-                                k_per_cell: int = K_PER_CELL, chunk: int = 4096):
+                                k_per_cell: int = K_PER_CELL, chunk: int = 4096,
+                                static_steps: int | None = None):
     """Hash-grid beam gather over recorded medium segments.  Grid cell =
     1.5 r_max, sample points r_max apart along each segment; a photon within
     r <= r_max of the axis is within one cell of its canonical sample point
     i = round(d_par / r_max), so the 27-cell neighbourhood cannot miss it,
     and counting it only at step i removes duplicates across overlapping
-    neighbourhoods.  Segments needing more than `VOLUME_GRID_MAX_STEPS`
-    sample points lose their tail.  Only the recorded (valid) segments are
-    visited."""
+    neighbourhoods.  Only the recorded (valid) segments are visited.
+
+    The step loop runs `static_steps` sample points when it is given (a
+    Python int: no host synchronization on the longest segment), else as
+    many as the longest segment needs, at most `VOLUME_GRID_MAX_STEPS`;
+    segments needing more lose their tail.  The grid and the candidate
+    lookup run under `torch.no_grad()`; the contributions carry gradient."""
     vphot = photons.valid & ~photons.on_surface
-    spacing = _beam_spacing(seg_valid, vol_radius)
-    grid = hashgrid.build_grid(photons.pos, vphot, 1.5 * spacing)
+    spacing = _beam_spacing(seg_valid, vol_radius).detach()
+    with torch.no_grad():
+        grid = hashgrid.build_grid(photons.pos, vphot, 1.5 * spacing)
 
     r_total, s = seg_start.shape[:2]
     q_total = r_total * s
@@ -491,16 +538,20 @@ def volume_gather_segments_grid(table, photons: Photons, seg_start, seg_dir, seg
         f_len = seg_len.reshape(q_total)[order]
         f_med = seg_medium.reshape(q_total)[order].to(torch.int32)
         f_radius = torch.clamp(vol_radius.repeat_interleave(s)[order], min=1e-20)
-        n_steps = min(VOLUME_GRID_MAX_STEPS,
-                      _host_int(torch.amax(torch.ceil(f_len / spacing))) + 1)
+        if static_steps is None:
+            n_steps = min(VOLUME_GRID_MAX_STEPS,
+                          _host_int(torch.amax(torch.ceil(f_len / spacing))) + 1)
+        else:
+            n_steps = static_steps
         for c0 in range(0, n_valid, chunk):
             sl = slice(c0, c0 + chunk)
             st, dr, ln, med, rr = f_start[sl], f_dir[sl], f_len[sl], f_med[sl], f_radius[sl]
             last = torch.ceil(ln / spacing)
             acc = torch.zeros((st.shape[0], 3), dtype=torch.float32, device=st.device)
             for i in range(n_steps):
-                p_i = st + (i * spacing) * dr
-                cand, ok = hashgrid.query_candidates(grid, p_i, k_per_cell)
+                with torch.no_grad():
+                    cand, ok = hashgrid.query_candidates(grid, st + (i * spacing) * dr,
+                                                         k_per_cell)
                 cand = cand.long()
                 w = photons.pos[cand] - st[:, None, :]  # (C, 27K, 3)
                 d_par = torch.sum(w * dr[:, None, :], dim=-1)
@@ -518,20 +569,22 @@ def _visible_flux(g, photon_prev, photon_dir, photon_color, top_idx, cand_ok, lo
     """Flux and count of the candidates `top_idx` (R, K rows of the photon
     arrays) that are visible from `loc`: a ray toward each photon's previous
     location must hit something, and nothing before that location (with a
-    relative tolerance of 1e-3 on the length)."""
+    relative tolerance of 1e-3 on the length).  The verdict runs under
+    `torch.no_grad()`; the flux carries the photons' colours' gradient."""
     top_idx = top_idx.long()
-    ray_vec = photon_prev[top_idx] - loc[:, None, :]  # (R, K, 3)
-    ray_len = linalg.length(ray_vec)
-    ray_dir = linalg.normalize(ray_vec, SMALL_EPS)
-    r, kk = ray_dir.shape[:2]
-    occ_near, occ_far = trace.occluded_window(
-        g,
-        loc[:, None, :].expand(r, kk, 3).reshape(-1, 3),
-        ray_dir.reshape(-1, 3),
-        (ray_len * (1.0 - 1e-3)).reshape(-1),
-        live=cand_ok.reshape(-1),  # no ray for slots without an in-radius photon
-    )
-    visible = cand_ok & (occ_far & ~occ_near).reshape(r, kk)
+    with torch.no_grad():
+        ray_vec = photon_prev[top_idx] - loc[:, None, :]  # (R, K, 3)
+        ray_len = linalg.length(ray_vec)
+        ray_dir = linalg.normalize(ray_vec, SMALL_EPS)
+        r, kk = ray_dir.shape[:2]
+        occ_near, occ_far = trace.occluded_window(
+            g,
+            loc[:, None, :].expand(r, kk, 3).reshape(-1, 3),
+            ray_dir.reshape(-1, 3),
+            (ray_len * (1.0 - 1e-3)).reshape(-1),
+            live=cand_ok.reshape(-1),  # no ray for slots without an in-radius photon
+        )
+        visible = cand_ok & (occ_far & ~occ_near).reshape(r, kk)
     fac = torch.clamp(torch.sum(nrm[:, None, :] * (-photon_dir[top_idx]), dim=-1), min=0.0)
     flux = torch.sum((visible * fac)[..., None] * photon_color[top_idx], dim=1)
     return flux, torch.sum(visible, dim=-1)
@@ -545,31 +598,36 @@ def surface_gather_grid(scene: Scene, photons: Photons, hp_loc, hp_normal, hp_ra
     `k_nearest` nearest in-radius candidates and checks their visibility as
     the dense gather does.  Returns (flux (R, 3), count (R,)); with
     `return_overflow` also the total of candidates dropped by the cell cap
-    and of in-radius photons dropped by the `k_nearest` reduction."""
+    and of in-radius photons dropped by the `k_nearest` reduction.  The
+    candidate topology (grid, cell lookup, top-k pick) runs under
+    `torch.no_grad()`."""
     sphot = photons.valid & photons.on_surface
-    r_max = torch.amax(torch.where(hp_valid, hp_radius, 0.0))
-    grid = hashgrid.build_grid(photons.pos, sphot, r_max)
-    # bucket-ordered payload copies: candidates are K-wide slices of them
-    si = grid.sorted_idx.long()
-    pos_s, prev_s = photons.pos[si], photons.prev[si]
-    dir_s, color_s = photons.direction[si], photons.color[si]
+    with torch.no_grad():
+        r_max = torch.amax(torch.where(hp_valid, hp_radius, 0.0))
+        grid = hashgrid.build_grid(photons.pos, sphot, r_max)
+        # bucket-ordered payload copies: candidates are K-wide slices of them
+        si = grid.sorted_idx.long()
+        pos_s, prev_s, dir_s = photons.pos[si], photons.prev[si], photons.direction[si]
+    color_s = photons.color[si]
 
     fluxes, counts = [], []
     overflow = torch.zeros((), dtype=torch.int64, device=hp_loc.device)
     for c0 in range(0, hp_loc.shape[0], chunk):
         sl = slice(c0, c0 + chunk)
         loc, nrm, rad, val = hp_loc[sl], hp_normal[sl], hp_radius[sl], hp_valid[sl]
-        starts, ok3, cell_drop = hashgrid.query_cell_ranges(grid, loc, k_per_cell, with_stats=True)
-        ok = ok3.reshape(ok3.shape[0], -1)  # (C, 27K)
-        cpos = hashgrid.gather_cell_slices(pos_s, starts, k_per_cell)  # (C, 27K, 3)
-        d2 = torch.sum((cpos - loc[:, None, :]) ** 2, dim=-1)
-        in_r = ok & val[:, None] & bounding_sphere.is_inside_sq(
-            loc[:, None, :], rad[:, None], cpos, d2=d2
-        )
-        key_val = torch.where(in_r, -d2, float("-inf"))
-        k = min(k_nearest, key_val.shape[-1])
-        top_val, top_pos = torch.topk(key_val, k, dim=-1)
-        top_idx = torch.gather(hashgrid.cell_slots(starts, k_per_cell), 1, top_pos)
+        with torch.no_grad():
+            starts, ok3, cell_drop = hashgrid.query_cell_ranges(grid, loc, k_per_cell,
+                                                                with_stats=True)
+            ok = ok3.reshape(ok3.shape[0], -1)  # (C, 27K)
+            cpos = hashgrid.gather_cell_slices(pos_s, starts, k_per_cell)  # (C, 27K, 3)
+            d2 = torch.sum((cpos - loc[:, None, :]) ** 2, dim=-1)
+            in_r = ok & val[:, None] & bounding_sphere.is_inside_sq(
+                loc[:, None, :], rad[:, None], cpos, d2=d2
+            )
+            key_val = torch.where(in_r, -d2, float("-inf"))
+            k = min(k_nearest, key_val.shape[-1])
+            top_val, top_pos = torch.topk(key_val, k, dim=-1)
+            top_idx = torch.gather(hashgrid.cell_slots(starts, k_per_cell), 1, top_pos)
         flux, count = _visible_flux(scene.geom, prev_s, dir_s, color_s, top_idx,
                                     torch.isfinite(top_val), loc, nrm)
         fluxes.append(flux)
@@ -588,15 +646,17 @@ def surface_gather(scene: Scene, photons: Photons, hp_loc, hp_normal, hp_radius,
     per-photon visibility re-check: for each hit point the K nearest
     in-radius photons are tested with a ray toward the photon's previous
     location.  Returns (flux, count); with `return_overflow` also the total
-    of in-radius photons beyond the `k_nearest` cap."""
+    of in-radius photons beyond the `k_nearest` cap.  The pair distances and
+    the top-k pick run under `torch.no_grad()`."""
     sphot = photons.valid & photons.on_surface
-    d2 = torch.sum((photons.pos[None, :, :] - hp_loc[:, None, :]) ** 2, dim=-1)  # (R, P)
-    in_r = sphot[None, :] & hp_valid[:, None] & bounding_sphere.is_inside_sq(
-        hp_loc[:, None, :], hp_radius[:, None], photons.pos[None, :, :], d2=d2
-    )
-    key_val = torch.where(in_r, -d2, float("-inf"))
-    k = min(k_nearest, photons.pos.shape[0])
-    top_val, top_idx = torch.topk(key_val, k, dim=-1)
+    with torch.no_grad():
+        d2 = torch.sum((photons.pos[None, :, :] - hp_loc[:, None, :]) ** 2, dim=-1)  # (R, P)
+        in_r = sphot[None, :] & hp_valid[:, None] & bounding_sphere.is_inside_sq(
+            hp_loc[:, None, :], hp_radius[:, None], photons.pos[None, :, :], d2=d2
+        )
+        key_val = torch.where(in_r, -d2, float("-inf"))
+        k = min(k_nearest, photons.pos.shape[0])
+        top_val, top_idx = torch.topk(key_val, k, dim=-1)
     flux, count = _visible_flux(scene.geom, photons.prev, photons.direction, photons.color,
                                 top_idx, torch.isfinite(top_val), hp_loc, hp_normal)
     if return_overflow:
@@ -732,11 +792,13 @@ def _compaction_widths(r: int) -> list[int]:
     return widths
 
 
+@_records_grad_if_differentiable
 def eye_pass(scene: Scene, camera, pix_i, pix_j, volume_photons: Photons | None, volume_radius,
              init: bool, max_bounce: int = 64, stack_size: int = MATERIAL_STACK_SIZE,
-             max_segments: int = 8, volume_grid: bool = False,
-             vol_k_per_cell: int = K_PER_CELL, return_stats: bool = False,
-             compact_min: int | None = None, generator=None, uniforms=None):
+             differentiable: bool = False, max_segments: int = 8, volume_grid: bool = False,
+             vol_steps: int | None = None, vol_k_per_cell: int = K_PER_CELL,
+             return_stats: bool = False, compact_min: int | None = None, generator=None,
+             uniforms=None):
     """One eye trace per pixel to the first diffuse hit.  Returns (loc,
     normal, filter, direct_radiance, tmp_lm, valid); with `return_stats` a
     7th element, a dict of capacity-overflow counters: `segments_dropped`
@@ -746,17 +808,26 @@ def eye_pass(scene: Scene, camera, pix_i, pix_j, volume_photons: Photons | None,
     The walk records up to `max_segments` medium segments (origin, direction,
     length, medium, throughput) per ray, and one volume gather over the
     recorded segments runs after the loop: all pairs, or the hash-grid form
-    with `volume_grid`.
+    with `volume_grid`, whose step loop runs `vol_steps` sample points when
+    that is given (see `volume_gather_segments_grid`).
 
-    Straggler compaction (batches of at least `compact_min` rays, default
-    `EYE_COMPACT_MIN`): once the live rays fit a stage width (r / 8, r / 64,
-    ..., floor 1024) they are compacted, iterated at that width and scattered
-    back.  The same estimator; bounces after a compaction use other random
-    numbers than the full-width loop would.
+    `differentiable=True` records the pass for autograd (the recorded
+    filter, the direct radiance and the volume gather carry gradient to the
+    material table) and never compacts; otherwise the pass runs under
+    `torch.no_grad()`.  Without compaction the outputs are the same either
+    way.
+
+    Straggler compaction (forward mode, batches of at least `compact_min`
+    rays, default `EYE_COMPACT_MIN`): once the live rays fit a stage width
+    (r / 8, r / 64, ..., floor 1024) they are compacted, iterated at that
+    width and scattered back.  The same estimator; bounces after a
+    compaction use other random numbers than the full-width loop would.
 
     `uniforms`: {"lens": (2, R), "stack": (8, 4, R), "bounce": (max_bounce, 4,
     R)} and the keys of `_direct_radiance_chain`; after a compaction a stage
     of width w reads the first w columns."""
+    if differentiable:
+        compact_min = 0
     table = scene.materials
     g = scene.geom
     r = pix_i.shape[0]
@@ -903,7 +974,8 @@ def eye_pass(scene: Scene, camera, pix_i, pix_j, volume_photons: Photons | None,
         seg_args = (table, volume_photons, st["sg_start"], st["sg_dir"], st["sg_len"],
                     st["sg_med"], st["sg_filt"], seg_valid, volume_radius)
         if volume_grid:
-            tmp_lm = volume_gather_segments_grid(*seg_args, k_per_cell=vol_k_per_cell)
+            tmp_lm = volume_gather_segments_grid(*seg_args, k_per_cell=vol_k_per_cell,
+                                                 static_steps=vol_steps)
         else:
             tmp_lm = volume_gather_segments_dense(*seg_args)
 
@@ -927,9 +999,10 @@ def eye_pass(scene: Scene, camera, pix_i, pix_j, volume_photons: Photons | None,
     steps_dropped = 0
     if record_segments and volume_grid:
         # sample points beyond the grid gather's step bound (its spacing)
+        bound = VOLUME_GRID_MAX_STEPS if vol_steps is None else vol_steps
         needed = torch.ceil(st["sg_len"] / _beam_spacing(seg_valid, volume_radius)) + 1
         steps_dropped = _host_int(torch.sum(
-            torch.where(seg_valid, torch.clamp(needed - VOLUME_GRID_MAX_STEPS, min=0.0), 0.0)))
+            torch.where(seg_valid, torch.clamp(needed - bound, min=0.0), 0.0)))
     stats = {"segments_dropped": _host_int(st["sg_lost"].sum()),
              "beam_steps_dropped": steps_dropped}
     return outs + (stats,)
@@ -1185,3 +1258,112 @@ def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None 
           + f" (final k_nearest={k_nearest_cur})", flush=True)
     img = (hp.direct + hp.indirect) / num_pass
     return linalg.de_nan(img).reshape(h, w, 3).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# the differentiable render
+# ---------------------------------------------------------------------------
+
+def render_sppm_differentiable(scene: Scene, camera, width: int, height: int, n_photons: int,
+                               num_pass: int, max_bounce: int = 16, eye_bounce: int = 16,
+                               alpha: float = 0.7, radius_scale: float = 1.0,
+                               stack_size: int = MATERIAL_STACK_SIZE,
+                               gather_volume: bool = False, k_nearest: int = K_NEAREST,
+                               gather_grid: bool | None = None, k_per_cell: int = K_PER_CELL,
+                               vol_steps: int = 64, photon_pass_fn=None, pixel_sharding=None,
+                               seed: int = 0, uniforms=None) -> torch.Tensor:
+    """SPPM render whose (H, W, 3) radiance tensor carries gradient to the
+    material table (notably `ke`: the photon colours through
+    `leaf_energies`' energy normalization, the direct chain through
+    `emission_color`).  The scene's device runs it.
+
+    The estimator of `render_sppm` with the reference's two deviations:
+
+    * the init pass gives geometry and the initial radius only: its direct
+      sample is dropped, so the direct term averages `num_pass` samples;
+    * the init pass and the four corner passes of `initial_radius` run
+      under `torch.no_grad()`, so the scene is read there as constants (the
+      gather radius is geometry only).
+
+    Each pass runs `photon_pass` and `eye_pass` with `differentiable=True`
+    (no straggler compaction), then the surface gather at fixed caps
+    (`k_nearest`, `k_per_cell`; no raising).  `gather_grid` (None: auto,
+    pixels * photons > `GRID_MIN_PAIRS`, as `render_sppm`) takes the
+    hash-grid gathers, and with `gather_volume` the grid beam gather with
+    the static step bound `vol_steps`.  With `gather_volume` the eye passes
+    gather the volume photons (media are ignored otherwise).
+
+    Randomness: `pass_generator(seed, 0)` for the init pass and its corners,
+    `pass_generator(seed, 1000 + i)` for pass i (the photon pass, the pixel
+    jitters, the eye pass, in that order).  `uniforms` replaces them:
+    {"init": the init eye pass's uniforms, "corners": a list of four,
+    "passes": a list of `num_pass` dicts {"photon": `photon_pass`'s, "eye":
+    `eye_pass`'s, "jitter": (2, R) row and column jitters}}; every draw is
+    taken before the pass that uses it, none inside autograd's recompute.
+
+    `photon_pass_fn` replaces `photon_pass` (any callable with its
+    signature, `differentiable` included).  `pixel_sharding` is the
+    reference's scale-out hook and is not ported: anything but None raises.
+    """
+    if pixel_sharding is not None:
+        raise NotImplementedError(
+            "pixel_sharding: the scale-out of the differentiable render is not ported yet "
+            "(ROADMAP A4, scale-out)")
+    dev = scene.geom.p.device
+    h, w = height, width
+    r = w * h
+    if gather_grid is None:
+        gather_grid = r * n_photons > GRID_MIN_PAIRS
+    ii, jj = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=dev),
+        torch.arange(w, dtype=torch.float32, device=dev), indexing="ij",
+    )
+    pix_i, pix_j = ii.reshape(-1), jj.reshape(-1)
+    trace_photons = photon_pass if photon_pass_fn is None else photon_pass_fn
+
+    def eye(pi, pj, photons, vol_r, init, generator, eye_uniforms, differentiable=False):
+        return eye_pass(scene, camera, pi, pj, photons, vol_r, init=init, max_bounce=eye_bounce,
+                        stack_size=stack_size, differentiable=differentiable,
+                        volume_grid=gather_grid and gather_volume, vol_steps=vol_steps,
+                        vol_k_per_cell=k_per_cell, generator=generator, uniforms=eye_uniforms)
+
+    # geometry-only init pass and the corner radius, as constants
+    with torch.no_grad():
+        gen0 = None if uniforms is not None else pass_generator(seed, 0, dev)
+        corners = iter([None] * 4 if uniforms is None else uniforms["corners"])
+        vol_r0 = torch.full((r,), float("inf"), dtype=torch.float32, device=dev)
+        loc, nrm, filt, _, _, valid = eye(pix_i + 0.5, pix_j + 0.5, None, vol_r0, True, gen0,
+                                          None if uniforms is None else uniforms["init"])
+        radius = initial_radius(
+            lambda _scene, _camera, pi, pj, photons, vol_r, init: eye(
+                pi, pj, photons, vol_r, init, gen0, next(corners)),
+            scene, camera, pix_i, pix_j, loc, valid, radius_scale,
+        )
+    zeros3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    hp = HitPoints(loc=torch.where(valid[..., None], loc, float("inf")), normal=nrm, filter=filt,
+                   direct=zeros3, indirect=zeros3, tmp_lm=zeros3, surface_radius=radius,
+                   volume_radius=2.0 * radius, valid=valid)
+
+    for it in range(num_pass):
+        u = None if uniforms is None else uniforms["passes"][it]
+        gen = None if u is not None else pass_generator(seed, 1000 + it, dev)
+        photons = trace_photons(scene, n_photons, max_bounce=max_bounce, stack_size=stack_size,
+                                generator=gen, uniforms=None if u is None else u["photon"],
+                                differentiable=True)
+        jitter = _draw(u, "jitter", None, (2, r), gen, dev)
+        loc, nrm, filt, direct, tmp_lm, valid = eye(
+            pix_i + jitter[0], pix_j + jitter[1], photons if gather_volume else None,
+            hp.volume_radius, False, gen, None if u is None else u["eye"], differentiable=True)
+        hp = dataclasses.replace(
+            hp, loc=torch.where(valid[..., None], loc, float("inf")), normal=nrm, filter=filt,
+            direct=hp.direct + direct, tmp_lm=tmp_lm, valid=valid,
+        )
+        if gather_grid:
+            flux, _ = surface_gather_grid(scene, photons, hp.loc, hp.normal, hp.surface_radius,
+                                          hp.valid, k_nearest=k_nearest, k_per_cell=k_per_cell)
+        else:
+            flux, _ = surface_gather(scene, photons, hp.loc, hp.normal, hp.surface_radius,
+                                     hp.valid, k_nearest=k_nearest)
+        hp = update(hp, flux, it + 1, n_photons, alpha)
+    img = (hp.direct + hp.indirect) / num_pass
+    return linalg.de_nan(img).reshape(h, w, 3)

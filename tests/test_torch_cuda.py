@@ -360,3 +360,36 @@ def test_occluded_window_on_cuda_matches_cpu(cuda, tmp_path):
     assert float((near == rnear).float().mean()) >= 0.999
     assert float((far == rfar).float().mean()) >= 0.999
     assert not far[~live].any() and far[live].float().mean() > 0.7 and bool(near.any())
+
+
+def test_differentiable_sppm_on_cuda(cuda, tmp_path):
+    """A 16x16 differentiable SPPM render of the SPPM box on the card: its
+    gathers' visibility runs on `anyhit` (the box is below PALLAS_MAX, so no
+    ring-buffered launch), its traces on `closest_hit`, and the gradient of
+    the image mean to `ke` is finite and not zero on the light's row."""
+    import dataclasses
+
+    from gpu_pathtracer_tpu_torch.render import sppm
+
+    testscenes.make_cornell_box(tmp_path, spheres=True, sphere_subdiv=0)
+    mtl = tmp_path / "box.mtl"
+    mtl.write_text(mtl.read_text().replace("newmtl light\nKd 0 0 0",
+                                           "newmtl light\nKd 0.78 0.78 0.78"))
+    scene = build_scene(obj_io.load_scene(tmp_path, "box.obj"), cuda)
+    cam = Camera.create(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0),
+                        fovy_deg=40.0, width=16, height=16, device=cuda)
+    ke = scene.materials.ke.clone().requires_grad_(True)
+    scn = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, ke=ke))
+    before = (anyhit.launch_anyhit.launches, anyhit.launch_anyhit_pipe.launches,
+              closest_hit.launch_closest_hit.launches)
+    img = sppm.render_sppm_differentiable(scn, cam, 16, 16, n_photons=512, num_pass=2,
+                                          max_bounce=4, eye_bounce=6, seed=3)
+    (grad,) = torch.autograd.grad(img.mean(), ke)
+    torch.cuda.synchronize()
+    b3, b4, b1 = (after - b for after, b in zip(
+        (anyhit.launch_anyhit.launches, anyhit.launch_anyhit_pipe.launches,
+         closest_hit.launch_closest_hit.launches), before))
+    assert b3 == 2 and b4 == 0 and b1 > 0, (b3, b4, b1)
+    assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    light = scene.materials.ke.amax(dim=-1) > 0
+    assert bool(torch.isfinite(grad).all()) and bool((grad[light] != 0).any())

@@ -25,6 +25,8 @@ optimizer.
   optax on a fixed gradient sequence, rtol 1e-4.
 * The emitter-recovery case of tests/test_optim.py at its size and
   tolerance, with the port's own generator stream; checkpoint and resume.
+* `sppm_loss_fn`'s (loss, grads) contract (the loss through the photon
+  mapper; its gradients are held in tests/test_torch_sppm_diff.py).
 """
 
 import dataclasses
@@ -299,6 +301,31 @@ def test_checkpoint_resume(box_setup, tmp_path):
     assert losses_a + losses_b == losses_c
 
 
-def test_sppm_loss_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.sppm_loss_fn(None, None, None)
+def test_sppm_loss_is_not_ported(box_setup):
+    """(The name dates from before the loss was ported.)  `sppm_loss_fn`'s
+    contract, as `optimize` uses it: (params, generator) -> (loss, grads),
+    the loss a detached scalar equal to the L2 loss of
+    `render_sppm_differentiable` from the loss's seed (rtol 1e-6), one finite
+    gradient of each parameter's shape, not zero on the light's row of `ke`;
+    a generator draws the render's seed from its own stream.
+    `SPPM_LOSS_PRODUCTION` equals the reference's."""
+    from gpu_pathtracer_tpu_torch.render.sppm import render_sppm_differentiable
+
+    scene, cam, target = box_setup
+    sizes = dict(n_photons=64, num_pass=1, max_bounce=3, eye_bounce=4)
+    loss_fn = optim.sppm_loss_fn(scene, cam, target, seed=5, **sizes)
+    params = {n: optim._get_param(scene.materials, n).clone() for n in ("ke", "kd")}
+    loss, grads = loss_fn(params, None)
+    with torch.no_grad():
+        img = render_sppm_differentiable(scene, cam, 12, 12, seed=5, **sizes)
+    assert loss.shape == () and not loss.requires_grad
+    np.testing.assert_allclose(float(loss), float(torch.mean((img - target) ** 2)), rtol=1e-6)
+    assert set(grads) == set(params)
+    for name, grad in grads.items():
+        assert grad.shape == params[name].shape and bool(torch.isfinite(grad).all()), name
+    light = scene.materials.ke.amax(dim=-1) > 0
+    assert bool((grads["ke"][light] != 0).any())
+    again, _ = loss_fn(params, None)
+    drawn = [float(loss_fn(params, torch.Generator().manual_seed(s))[0]) for s in (1, 1, 2)]
+    assert float(again) == float(loss) and drawn[0] == drawn[1] != drawn[2]
+    assert optim.SPPM_LOSS_PRODUCTION == joptim.SPPM_LOSS_PRODUCTION

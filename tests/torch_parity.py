@@ -175,3 +175,32 @@ def as_tensors(uniforms: dict):
     import torch
 
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in uniforms.items()}
+
+
+def sppm_diff_uniforms_from_key(key, r: int, n_photons: int, num_pass: int, max_bounce: int,
+                                eye_bounce: int):
+    """The `uniforms` of the port's `render_sppm_differentiable`, folded from
+    the key as the reference's render folds it: the init eye pass from
+    fold_in(fold_in(key, 0), 0), corner c from fold_in(fold_in(key, 0), 1 + c);
+    pass i's photon pass from pkey = fold_in(key, 1000 + i), its eye pass from
+    fold_in(pkey, 1), its row and column jitters from fold_in(pkey, 2 / 3)."""
+    import jax
+    import torch
+
+    key_init = jax.random.fold_in(key, 0)
+
+    def eye(k):
+        return as_tensors(eye_uniforms_from_key(k, r, eye_bounce))
+
+    passes = []
+    for it in range(num_pass):
+        pkey = jax.random.fold_in(key, 1000 + it)
+        jitter = np.stack([_uniform(jax.random.fold_in(pkey, j), (r,)) for j in (2, 3)])
+        passes.append({
+            "photon": as_tensors(photon_uniforms_from_key(pkey, n_photons, max_bounce)),
+            "eye": eye(jax.random.fold_in(pkey, 1)),
+            "jitter": torch.from_numpy(jitter),
+        })
+    return {"init": eye(jax.random.fold_in(key_init, 0)),
+            "corners": [eye(jax.random.fold_in(key_init, 1 + c)) for c in range(4)],
+            "passes": passes}

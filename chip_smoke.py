@@ -102,7 +102,26 @@ Phases (any failure exits non-zero; nothing is caught):
      0); the same render at 32x32 with 1,024 photons from uniforms drawn on
      the CPU, card against CPU (>= 99% of pixels within rtol 1e-4, the
      gradients within 1%); three `optimize` steps with
-     `sppm_loss_fn(**SPPM_LOSS_PRODUCTION)` at 128x128.
+     `sppm_loss_fn(**SPPM_LOSS_PRODUCTION)` at 128x128;
+ 18. the scale-out (`parallel/`): (a) in this process an NCCL group of one,
+     `shard_rays 1` through `renderer.render_from_config` on phase 6's
+     master file (512x512, spp 8, level 8; the image must be phase 6's bit
+     for bit; seconds, rays/s, launches and the collectives called) and on
+     phase 9's SPPM master file (the image must be `render_sppm`'s with the
+     rank stream traced in this process, bit for bit; seconds per pass,
+     `anyhit` launches); (b) two ranks as child processes on gloo, both on
+     the one card (`chip_smoke.py --scale-out-rank ...`, each with a time
+     limit): `render_image_distributed` at 256x256, spp 2, level 8 (bit for
+     bit the world-of-1 render's), `photon_pass_distributed` with 50,000
+     photons and 8 bounces (`valid` equal to the two rank streams traced
+     here, positions to rtol 1e-6), the sharded differentiable SPPM step at
+     phase 17's size (loss to rtol 1e-5, d mean / d ke to rtol 1e-4, atol
+     1e-7, of the same streams traced here; seconds per rank) and one
+     `train_step_distributed` at 128x128 (loss and new `ke` to rtol 1e-5 of
+     the single-process step); each rank must launch `closest_hit` in every
+     part and `anyhit` in the step.  Part (b) runs below the main widths:
+     two processes share one card, and gloo takes every collective through
+     host memory.  One card measures no scaling, so no speed-up is printed.
 To keep the run short some references run at a smaller depth than the main
 paths: the Cornell SPPM render makes 2 of the bench's passes and its CPU
 reference is 48x48, the render forced onto `closest_hit` and the mesh's CPU
@@ -149,6 +168,10 @@ DIFF_SPPM = dict(side=256, photons=16384, passes=2, max_bounce=8, eye_bounce=8, 
 DIFF_SAME = dict(side=32, photons=1024)  # the same-uniforms render, card against CPU
 DIFF_OPT_SIDE = 128  # the optimize steps with SPPM_LOSS_PRODUCTION
 DIFF_EPS = 1e-2  # the central difference's step in the scale of ke
+# phase 18(b): two ranks on the one card, below the main widths (two processes
+# share the card, and gloo takes every collective through host memory)
+SCALE_OUT = dict(side=256, spp=2, level=8, photons=50000, max_bounce=8, train_side=128, seed=5)
+RANK_TIMEOUT = 300  # seconds that a rank of phase 18(b) may take, its process group's limit
 FLOPS_PER_PAIR = 42  # fp32 operations of one (ray, triangle) Woop test, t included
 PEAK_FP32 = 67e12  # H100 SXM, FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM bytes/s
@@ -864,10 +887,7 @@ def diff_sppm(dev, card: str, stats: dict, anyhit_err: dict) -> dict:
         img, grad, fwd0, bwd0 = diff_sppm_step(scene, cam, kw, ke0, seed=seed)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_peak_gb = peak_gb - held / 1e9
-    launches = {"closest_hit": ch.launch_closest_hit.launches,
-                "closest_hit_pipe": ch.launch_closest_hit_pipe.launches,
-                "closest_hit_mxu": ch.launch_closest_hit_mxu.launches,
-                "anyhit": ah.launch_anyhit.launches, "anyhit_pipe": ah.launch_anyhit_pipe.launches}
+    launches = kernel_launches(ch, ah)
     syncs = sppm.host_syncs
     gathers = passes * -(-side * side // GATHER_CHUNK)  # one any-hit launch a grid-gather chunk
     light = ke0.amax(dim=-1) > 0
@@ -1018,6 +1038,283 @@ def diff_sppm(dev, card: str, stats: dict, anyhit_err: dict) -> dict:
                             "triangles, the fullest gather chunk of the differentiable SPPM step"))
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def kernel_launches(ch, ah) -> dict:
+    """Every kernel's launch count, by name."""
+    return {"closest_hit": ch.launch_closest_hit.launches,
+            "closest_hit_pipe": ch.launch_closest_hit_pipe.launches,
+            "closest_hit_mxu": ch.launch_closest_hit_mxu.launches,
+            "anyhit": ah.launch_anyhit.launches, "anyhit_pipe": ah.launch_anyhit_pipe.launches}
+
+
+def scale_out_rank(rank: int, port: int, out_dir: str, cornell_dir: str, box_dir: str) -> int:
+    """One of phase 18(b)'s two ranks (`chip_smoke.py --scale-out-rank R PORT
+    OUT CORNELL BOX`): a gloo group of 2 on `cuda:0`; the sharded render, the
+    sharded photon pass, the sharded differentiable SPPM step and one
+    `train_step_distributed`.  Rank 0 writes the results; each rank writes
+    its seconds and launches."""
+    import functools
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from gpu_pathtracer_tpu_torch import optim
+    from gpu_pathtracer_tpu_torch.models.camera import Camera
+    from gpu_pathtracer_tpu_torch.models.scene import build_scene
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.parallel import dist as pdist
+    from gpu_pathtracer_tpu_torch.parallel import shard, sppm_shard
+    from gpu_pathtracer_tpu_torch.render import sppm
+    from gpu_pathtracer_tpu_torch.utils import obj_io
+
+    os.environ.update(GPT_TPU_COORDINATOR=f"127.0.0.1:{port}", GPT_TPU_NUM_PROCESSES="2",
+                      GPT_TPU_PROCESS_ID=str(rank))
+    check(pdist.init_distributed(backend="gloo", timeout=RANK_TIMEOUT), "no process group")
+    mesh = shard.make_mesh()
+    dev = mesh.device
+    check(mesh.size == 2 and dev.type == "cuda", f"rank {rank}: mesh {mesh}")
+    side, so = SCALE_OUT["side"], SCALE_OUT
+    cornell = build_scene(obj_io.load_scene(cornell_dir, "box.obj"), dev)
+    box = build_scene(obj_io.load_scene(box_dir, "box.obj"), dev)
+    cam = Camera.create(**CORNELL_CAM, width=side, height=side, device=dev)
+    out, record = {}, {"rank": rank, "seconds": {}, "launches": {}}
+
+    def timed(name, fn):
+        reset_launches(ch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        record["seconds"][name] = time.perf_counter() - t0
+        record["launches"][name] = kernel_launches(ch, ah)
+        return res
+
+    with torch.no_grad():
+        out["image"] = timed("render", lambda: shard.render_image_distributed(
+            cornell, cam, side, side, mesh, sample_size=so["spp"], level=so["level"],
+            hittable_pdf_weight=MAIN["weight"],
+            generator=torch.Generator(device=dev).manual_seed(so["seed"]))).cpu().numpy()
+        photons = timed("photon_pass", lambda: sppm_shard.photon_pass_distributed(
+            box, so["photons"], mesh, max_bounce=so["max_bounce"],
+            generator=sppm.pass_generator(so["seed"], 1000, dev)))
+    out.update({f"photons_{k}": getattr(photons, k).cpu().numpy() for k in ("pos", "valid")})
+
+    def diff_step():
+        ke = box.materials.ke.detach().clone().requires_grad_(True)
+        img = sppm.render_sppm_differentiable(
+            optim._substitute(box, {"ke": ke}), Camera.create(
+                **CORNELL_CAM, width=DIFF_SPPM["side"], height=DIFF_SPPM["side"], device=dev),
+            **diff_sppm_kw(), seed=DIFF_SPPM["seed"],
+            photon_pass_fn=functools.partial(sppm_shard.photon_pass_distributed, mesh=mesh),
+            pixel_sharding=mesh)
+        loss = img.mean()
+        (grad,) = torch.autograd.grad(loss, ke)
+        return loss.detach(), mesh.all_reduce(grad)
+
+    loss, grad = timed("diff_sppm_step", diff_step)
+    out["diff_loss"], out["diff_grad"] = loss.cpu().numpy(), grad.cpu().numpy()
+    tside = so["train_side"]
+    loss, new = timed("train_step", lambda: shard.train_step_distributed(
+        cornell, Camera.create(**CORNELL_CAM, width=tside, height=tside, device=dev),
+        {"ke": cornell.materials.ke * 0.9}, torch.full((tside, tside, 3), 0.3, device=dev),
+        torch.Generator(device=dev).manual_seed(11), mesh, width=tside, height=tside,
+        sample_size=so["spp"], level=so["level"], hittable_pdf_weight=MAIN["weight"]))
+    out["train_loss"], out["train_ke"] = loss.cpu().numpy(), new["ke"].cpu().numpy()
+    record["collectives"] = dict(shard.collectives)
+    if rank == 0:
+        np.savez(pathlib.Path(out_dir) / "results.npz", **out)
+    (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+    return 0
+
+
+def diff_sppm_kw() -> dict:
+    """`render_sppm_differentiable`'s sizes for the bench's leg (`DIFF_SPPM`)."""
+    side = DIFF_SPPM["side"]
+    return dict(width=side, height=side, n_photons=DIFF_SPPM["photons"],
+                num_pass=DIFF_SPPM["passes"], max_bounce=DIFF_SPPM["max_bounce"],
+                eye_bounce=DIFF_SPPM["eye_bounce"])
+
+
+def scale_out(dev, card: str, folder, master, img, sppm_folder, scfg) -> dict:
+    """Phase 18: the scale-out.  (a) In this process, an NCCL group of one:
+    `shard_rays 1` on phase 6's master file (the image must be phase 6's bit
+    for bit) and on phase 9's SPPM master file (the image must be
+    `render_sppm`'s with the rank streams traced here); (b) two ranks on
+    gloo sharing the card (`scale_out_rank`), each result against the same
+    computation in this process.  Returns the phase's record."""
+    import functools
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from gpu_pathtracer_tpu_torch import optim, renderer
+    from gpu_pathtracer_tpu_torch.models.camera import Camera
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.parallel import dist as pdist
+    from gpu_pathtracer_tpu_torch.parallel import shard, sppm_shard
+    from gpu_pathtracer_tpu_torch.render import sppm
+    from gpu_pathtracer_tpu_torch.render.integrator import render_image_value_and_grad
+    from gpu_pathtracer_tpu_torch.utils import config
+
+    rec = {}
+    # ---- (a) NCCL, world size 1, the main widths
+    os.environ.update(GPT_TPU_COORDINATOR=f"127.0.0.1:{free_port()}", GPT_TPU_NUM_PROCESSES="1",
+                      GPT_TPU_PROCESS_ID="0")
+    check(pdist.init_distributed(timeout=RANK_TIMEOUT), "phase 18: no process group")
+    mesh = shard.make_mesh()
+    check(mesh.size == 1 and mesh.group is not None and dist.get_backend() == "nccl",
+          f"phase 18: mesh {mesh}, backend {dist.get_backend()}")
+    cfg = config.parse_master_file(master)
+    cfg.shard_rays = True
+    reset_launches(ch)
+    shard.collectives.clear()
+    t0 = time.perf_counter()
+    img_s = renderer.render_from_config(cfg)
+    seconds = time.perf_counter() - t0
+    rays = MAIN["width"] * MAIN["height"] * MAIN["spp"] * MAIN["level"]
+    launches = kernel_launches(ch, ah)
+    colls = dict(shard.collectives)
+    same = bool(np.array_equal(img_s, img))
+    log(f"scale-out (a), NCCL world of 1: shard_rays 1 on the Cornell main path "
+        f"({MAIN['width']}x{MAIN['height']} spp {MAIN['spp']} level {MAIN['level']}): "
+        f"{seconds:.3f}s end to end, {rays / seconds:.0f} rays/s; launches {launches}; "
+        f"collectives {colls}; image bit for bit phase 6's: {same}; card: {card}")
+    check(same, "phase 18: the shard_rays image is not phase 6's")
+    check(launches["closest_hit"] == 256 and colls.get("all_gather", 0) == 1,
+          f"phase 18: {launches['closest_hit']} closest_hit launches, collectives {colls}")
+    rec["cornell"] = dict(seconds=seconds, rays_per_s=rays / seconds, launches=launches,
+                          collectives=colls)
+
+    scfg_s = config.RenderConfig(**dataclasses.asdict(scfg))
+    scfg_s.shard_rays = True
+    scfg_s.image_output_path = str(pathlib.Path(sppm_folder) / "sppm_sharded.ppm")
+    reset_launches(ch)
+    shard.collectives.clear()
+    slog = []
+    t0 = time.perf_counter()
+    simg_s = renderer.render_from_config(scfg_s, pass_log=slog)
+    sseconds = time.perf_counter() - t0
+    slaunches = kernel_launches(ch, ah)
+    scolls = dict(shard.collectives)
+    log_passes("scale-out (a) SPPM", slog, SPPM["photons"])
+    scene, camera = renderer.load_scene_from_config(scfg, dev)
+    with torch.no_grad():
+        simg_ref = sppm.render_sppm(
+            scene, camera, scfg, scfg.seed,
+            photon_pass_fn=functools.partial(sppm_shard.photon_pass_local, n_shards=1))
+    ssame = bool(np.array_equal(simg_s, simg_ref))
+    log(f"scale-out (a): shard_rays 1 on the SPPM main path ({SPPM['width']}x{SPPM['height']}, "
+        f"{SPPM['photons']} photons x {SPPM['passes']} passes): {sseconds:.3f}s end to end, "
+        f"seconds per pass {[round(p['photon_s'] + p['eye_s'] + p['gather_s'], 3) for p in slog]}; "
+        f"launches {slaunches}; collectives {scolls}; image bit for bit render_sppm's with the "
+        f"rank stream traced locally: {ssame} (image mean {simg_s.mean():.6f}); card: {card}")
+    check(ssame, "phase 18: the shard_rays SPPM image is not the local emulation's")
+    check(slaunches["anyhit"] > 0 and slaunches["anyhit"] == sum(p["anyhit_launches"] for p in slog)
+          and slaunches["closest_hit"] > 0, f"phase 18: SPPM launches {slaunches}")
+    rec["sppm"] = dict(seconds=sseconds, pass_seconds=[p["photon_s"] + p["eye_s"] + p["gather_s"]
+                                                       for p in slog],
+                       launches=slaunches, collectives=scolls)
+
+    # ---- (b) two ranks on gloo sharing the card
+    out_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--scale-out-rank", str(r), str(port),
+         str(out_dir), str(folder), str(sppm_folder)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=RANK_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks_s = time.perf_counter() - t0
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        for line in so.strip().splitlines()[-6:]:
+            log(f"rank {r}: {line}")
+        check(p.returncode == 0, f"phase 18: rank {r} exited {p.returncode}:\n{se[-3000:]}")
+    got = dict(np.load(out_dir / "results.npz"))
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
+    for rk in ranks:
+        log(f"scale-out (b), rank {rk['rank']} of 2 (gloo, cuda:0): seconds "
+            f"{ {k: round(v, 3) for k, v in rk['seconds'].items()} }; launches {rk['launches']}; "
+            f"collectives {rk['collectives']}; card: {card}")
+        for part in ("render", "photon_pass", "diff_sppm_step", "train_step"):
+            check(rk["launches"][part]["closest_hit"] > 0,
+                  f"phase 18: rank {rk['rank']}'s {part} launched no closest_hit")
+        check(rk["launches"]["diff_sppm_step"]["anyhit"] > 0,
+              f"phase 18: rank {rk['rank']}'s differentiable step launched no anyhit")
+
+    so = SCALE_OUT
+    side = so["side"]
+    cornell = renderer.load_scene_from_config(config.parse_master_file(master), dev)[0]
+    cam = Camera.create(**CORNELL_CAM, width=side, height=side, device=dev)
+    with torch.no_grad():
+        ref_img = shard.render_image_distributed(
+            cornell, cam, side, side, mesh, sample_size=so["spp"], level=so["level"],
+            hittable_pdf_weight=MAIN["weight"],
+            generator=torch.Generator(device=dev).manual_seed(so["seed"])).cpu().numpy()
+        ref_ph = sppm_shard.photon_pass_local(
+            scene, so["photons"], 2, max_bounce=so["max_bounce"],
+            generator=sppm.pass_generator(so["seed"], 1000, dev))
+    img_same = bool(np.array_equal(got["image"], ref_img))
+    valid = ref_ph.valid.cpu().numpy()
+    ph_ok = bool(np.array_equal(got["photons_valid"], valid)) and bool(np.allclose(
+        got["photons_pos"][valid], ref_ph.pos.cpu().numpy()[valid], rtol=1e-6, atol=0.0))
+    ke = scene.materials.ke.detach().clone().requires_grad_(True)
+    dimg = sppm.render_sppm_differentiable(
+        optim._substitute(scene, {"ke": ke}), Camera.create(
+            **CORNELL_CAM, width=DIFF_SPPM["side"], height=DIFF_SPPM["side"], device=dev),
+        **diff_sppm_kw(), seed=DIFF_SPPM["seed"],
+        photon_pass_fn=functools.partial(sppm_shard.photon_pass_local, n_shards=2))
+    dloss = dimg.mean()
+    (dgrad,) = torch.autograd.grad(dloss, ke)
+    dloss, dgrad = dloss.detach().cpu().numpy(), dgrad.cpu().numpy()
+    loss_rel = float(abs(got["diff_loss"] - dloss) / abs(dloss))
+    grad_ok = bool(np.allclose(got["diff_grad"], dgrad, rtol=1e-4, atol=1e-7))
+    tside = so["train_side"]
+    leaf = (cornell.materials.ke * 0.9).requires_grad_(True)
+    target = torch.full((tside, tside, 3), 0.3, device=dev)
+    tloss, _, (tgrad,) = render_image_value_and_grad(
+        optim._substitute(cornell, {"ke": leaf}),
+        Camera.create(**CORNELL_CAM, width=tside, height=tside, device=dev), tside, tside,
+        lambda im: torch.mean((im - target) ** 2), [leaf], sample_size=so["spp"],
+        level=so["level"], hittable_pdf_weight=MAIN["weight"],
+        generator=torch.Generator(device=dev).manual_seed(11))
+    tke = torch.clamp(leaf.detach() - 0.05 * tgrad, min=0.0).cpu().numpy()
+    train_ok = (bool(np.allclose(got["train_loss"], float(tloss), rtol=1e-5, atol=0.0))
+                and bool(np.allclose(got["train_ke"], tke, rtol=1e-5, atol=1e-7)))
+    log(f"scale-out (b): two ranks in {ranks_s:.1f}s; {side}x{side} spp {so['spp']} level "
+        f"{so['level']} image bit for bit the world-of-1 render's: {img_same}; photon map "
+        f"({so['photons']} photons, {int(valid.sum())} deposits) the rank streams': {ph_ok}; "
+        f"differentiable SPPM step loss {float(got['diff_loss']):.8e} against "
+        f"{float(dloss):.8e} (rel {loss_rel:.2e}), d mean / d ke within rtol 1e-4: {grad_ok} "
+        f"(max abs diff {float(np.abs(got['diff_grad'] - dgrad).max()):.3e}); train step "
+        f"loss {float(got['train_loss']):.8e} against {float(tloss):.8e}, new ke within rtol "
+        f"1e-5: {train_ok}")
+    check(img_same, "phase 18: the two-rank image is not the world-of-1 render's")
+    check(ph_ok, "phase 18: the two-rank photon map is not the rank streams'")
+    check(loss_rel < 1e-5 and grad_ok, "phase 18: the sharded differentiable step is off")
+    check(train_ok, "phase 18: the two-rank train step is off the single-process step")
+    dist.destroy_process_group()
+    rec["two_ranks"] = dict(seconds=ranks_s, ranks=ranks)
+    return rec
+
+
 def wavefronts(scene, camera, n_rays: int, bounces: int, seed: int):
     """(origin, direction, live) of each closest-hit call of `trace_paths`
     for camera rays of the given view, bounce by bounce."""
@@ -1136,6 +1433,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
+    if sys.argv[1:2] == ["--scale-out-rank"]:
+        rank, port, out_dir, cornell_dir, box_dir = sys.argv[2:7]
+        return scale_out_rank(int(rank), int(port), out_dir, cornell_dir, box_dir)
     import numpy as np
     import torch
 
@@ -1796,12 +2096,23 @@ def main() -> int:
     diff = diff_sppm(dev, card, stats, anyhit_err)
     log(f"phase 17 record: {json.dumps(diff)}")
 
+    phases.start(18)
+    # ---- 18. scale-out ---------------------------------------------------------------------
+    scale = scale_out(dev, card, folder, master, img, sppm_folder, scfg)
+    log(f"phase 18 record: {json.dumps(scale)}")
+    scale_launches = {k: {"cornell_shard_rays": scale["cornell"]["launches"][k],
+                          "sppm_shard_rays": scale["sppm"]["launches"][k],
+                          "two_ranks": [sum(part[k] for part in rk["launches"].values())
+                                        for rk in scale["two_ranks"]["ranks"]]}
+                      for k in scale["cornell"]["launches"]}
+
     phases.report()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     record = {"kernels": [
         {
             "name": "closest_hit",
             "route": "cuda",
+            "scale_out_launches": scale_launches["closest_hit"],
             "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:519",
             "launches": launches,
@@ -1819,6 +2130,7 @@ def main() -> int:
         {
             "name": "closest_hit_pipe",
             "route": "cuda",
+            "scale_out_launches": scale_launches["closest_hit_pipe"],
             "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit_pipe.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:609",
             "launches": pipe_launches,
@@ -1841,6 +2153,7 @@ def main() -> int:
         {
             "name": "anyhit",
             "route": "cuda",
+            "scale_out_launches": scale_launches["anyhit"],
             "source": "gpu_pathtracer_tpu_torch/csrc/anyhit.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:788",
             "launches": b3_launches,
@@ -1862,6 +2175,7 @@ def main() -> int:
         {
             "name": "anyhit_pipe",
             "route": "cuda",
+            "scale_out_launches": scale_launches["anyhit_pipe"],
             "source": "gpu_pathtracer_tpu_torch/csrc/anyhit_pipe.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:827",
             "launches": b4_launches,
@@ -1884,6 +2198,7 @@ def main() -> int:
         {
             "name": "closest_hit_mxu",
             "route": "cuda",
+            "scale_out_launches": scale_launches["closest_hit_mxu"],
             "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit_mxu.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:692",
             "launches": mxu_launches,

@@ -12,13 +12,15 @@ import torch
 
 
 def require_cuda() -> torch.device:
-    """The first CUDA device; raises when there is none."""
+    """This process's CUDA device (the current one: `cuda:0`, or the one
+    that `parallel.dist.init_distributed` set under NCCL, `cuda:LOCAL_RANK`);
+    raises when there is none."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available: the port renders on an NVIDIA GPU "
             "(pass an explicit CPU device only for tests)"
         )
-    return torch.device("cuda", 0)
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def as_f32(a, device) -> torch.Tensor:

@@ -30,8 +30,17 @@ EMPTY_SLOT = -2  # unused slot
 
 
 def _take(table: torch.Tensor, mat_id: torch.Tensor) -> torch.Tensor:
-    """Row gather with the vacuum id (-1) clamped to row 0."""
-    return table[torch.clamp(mat_id, min=0).long()]
+    """Row gather with the vacuum id (-1) clamped to row 0.
+
+    When autograd records it, the gather goes through float64 (the values
+    are the same): its backward sums every ray's gradient onto a handful of
+    rows, and a float32 running sum over ~65,536 rays drifts by up to ~3e-4
+    of the total, so a gradient summed in two halves (two ranks) would part
+    from the one summed whole by that much."""
+    idx = torch.clamp(mat_id, min=0).long()
+    if torch.is_grad_enabled() and table.requires_grad and table.is_floating_point():
+        return table.double()[idx].to(table.dtype)
+    return table[idx]
 
 
 @dataclasses.dataclass

@@ -111,8 +111,16 @@ def sppm_loss_fn(
     The render's random streams come from `seed` when the generator is None,
     else from a seed drawn from the generator (`optimize` hands each step a
     generator of its own, so every step traces other photons).  Defaults are
-    small; real runs pass `**SPPM_LOSS_PRODUCTION` or explicit sizes."""
+    small; real runs pass `**SPPM_LOSS_PRODUCTION` or explicit sizes.
+
+    `sppm_kw` go to the render, among them its scale-out hooks
+    `photon_pass_fn` (`parallel.sppm_shard.photon_pass_distributed`) and
+    `pixel_sharding` (a `parallel.shard.Mesh`): every rank then computes the
+    loss of the whole image, the mean over all pixels, and the gradients of
+    the ranks' own pixels are summed over the ranks once, so every rank
+    returns the same loss and gradients."""
     target = target.detach()
+    mesh = sppm_kw.get("pixel_sharding")
 
     def value_and_grad(params, generator=None):
         names = list(params)
@@ -128,6 +136,8 @@ def sppm_loss_fn(
         )
         loss = torch.mean((img - target) ** 2)
         grads = torch.autograd.grad(loss, leaves)
+        if mesh is not None:
+            grads = [mesh.all_reduce(g) for g in grads]
         return loss.detach(), dict(zip(names, grads))
 
     return value_and_grad

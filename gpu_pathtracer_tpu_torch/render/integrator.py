@@ -259,17 +259,51 @@ def _pixel_chunks(width: int, height: int, ray_chunk: int, dev):
     return pix_i.reshape(-1, chunk), pix_j.reshape(-1, chunk), n_pix
 
 
+def path_uniforms(scene: Scene, level: int, r: int, generator, device):
+    """The numbers that `trace_paths` draws from `generator` for `r` rays, in
+    its order (per bounce the (8, r) uniforms, then in the sparse light-tree
+    regime the (descent steps, r) pick uniforms): (uniforms (level, 8, r),
+    pick_uniforms (level, descent steps, r) or None)."""
+    lt = scene.light_tree
+    descent = lights_mod.descent_steps(lt) if lt is not None and not lt.dense else 0
+    us, picks = [], []
+    for _ in range(level):
+        us.append(torch.rand((N_UNIFORMS, r), generator=generator, device=device))
+        if descent:
+            picks.append(torch.rand((descent, r), generator=generator, device=device))
+    return torch.stack(us), (torch.stack(picks) if descent else None)
+
+
 def _chunk_sample(scene, camera, pix_i, pix_j, level, hittable_pdf_weight, stack_size,
-                  generator) -> torch.Tensor:
+                  generator, cols: slice | None = None) -> torch.Tensor:
     """One sample of one chunk of pixels: a fresh lens/pixel jitter, then the
-    paths.  (chunk, 3) radiance."""
-    u = torch.rand((2, pix_i.shape[0]), generator=generator, device=pix_i.device)
-    o, d = camera.generate_rays(pix_i, pix_j, u[0], u[1])
+    paths.  (chunk, 3) radiance.  `cols` traces only those columns of the
+    chunk, from the numbers that the whole chunk draws (a rank's share of a
+    sharded render): (columns, 3)."""
+    n = pix_i.shape[0]
+    u = torch.rand((2, n), generator=generator, device=pix_i.device)
+    if cols is None:
+        o, d = camera.generate_rays(pix_i, pix_j, u[0], u[1])
+        col = trace_paths(
+            scene, o, d, level=level, hittable_pdf_weight=hittable_pdf_weight,
+            stack_size=stack_size, generator=generator,
+        )
+        return linalg.de_nan(col)
+    uniforms, picks = path_uniforms(scene, level, n, generator, pix_i.device)
+    o, d = camera.generate_rays(pix_i[cols], pix_j[cols], u[0, cols], u[1, cols])
     col = trace_paths(
         scene, o, d, level=level, hittable_pdf_weight=hittable_pdf_weight,
-        stack_size=stack_size, generator=generator,
+        stack_size=stack_size, uniforms=uniforms[..., cols],
+        pick_uniforms=None if picks is None else picks[..., cols],
     )
     return linalg.de_nan(col)
+
+
+def _assemble(mesh, totals, chunk: int):
+    """The (n_chunks, chunk, 3) totals of every chunk from each rank's
+    (n_chunks, columns, 3) share."""
+    sizes = [hi - lo for lo, hi in mesh.bounds(chunk)]
+    return mesh.all_gather(totals.transpose(0, 1).contiguous(), sizes).transpose(0, 1)
 
 
 def render_image(
@@ -284,25 +318,38 @@ def render_image(
     stack_size: int = MATERIAL_STACK_SIZE,
     ray_chunk: int = 65536,
     generator: torch.Generator | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Full-frame render: `ray_chunk`-ray wavefronts, samples in sequence,
     every one of the sample_size * dof_sample_size samples with a fresh lens
     sample.  Traces width * height * sample_size * dof_sample_size * level
     ray segments.  Returns (H, W, 3) linear radiance.
 
+    `mesh` (a `parallel.shard.Mesh`) splits every chunk's columns over its
+    ranks: each rank draws what the whole chunk draws and traces its own
+    columns, and the image is assembled with one all-gather, the same bits
+    as without a mesh (`parallel.shard.render_image_distributed`; not
+    differentiable through the gather).
+
     Differentiable as it stands (one autograd graph over every chunk and
     sample); `render_image_value_and_grad` is the form whose memory does not
     grow with the frame."""
     dev = scene.geom.p.device
     pix_i, pix_j, n_pix = _pixel_chunks(width, height, ray_chunk, dev)
+    n_chunks, chunk = pix_i.shape
+    cols = None if mesh is None else mesh.columns(chunk)
     n_samples = sample_size * dof_sample_size
-    totals = [0.0] * pix_i.shape[0]
+    totals = [0.0] * n_chunks
     for _ in range(n_samples):
-        for c in range(pix_i.shape[0]):
+        for c in range(n_chunks):
             totals[c] = totals[c] + _chunk_sample(
                 scene, camera, pix_i[c], pix_j[c], level, hittable_pdf_weight, stack_size,
-                generator)
-    img = torch.cat(totals)[:n_pix] / n_samples
+                generator, cols)
+    if mesh is None:
+        img = torch.cat(totals)
+    else:
+        img = _assemble(mesh, torch.stack(totals), chunk).reshape(-1, 3)
+    img = img[:n_pix] / n_samples
     return img.reshape(height, width, 3)
 
 
@@ -320,6 +367,7 @@ def render_image_value_and_grad(
     stack_size: int = MATERIAL_STACK_SIZE,
     ray_chunk: int = 65536,
     generator: torch.Generator | None = None,
+    mesh=None,
 ):
     """Loss of the rendered image and its gradient to the tensors `wrt`
     (tensors of `scene` that require grad), with the memory of one chunk's
@@ -334,24 +382,33 @@ def render_image_value_and_grad(
     The paths of both passes are the same (path replay), and the generator
     ends where one render would leave it.  Returns (loss, image, grads), the
     loss and image detached, grads a tuple like `wrt` (zeros where the image
-    does not depend on a tensor)."""
+    does not depend on a tensor).
+
+    With `mesh` (as `render_image`'s) each rank renders and replays its own
+    columns; the image is all-gathered, so every rank computes the same loss
+    and dloss/dimage from it, and the gradients are summed over the ranks
+    once: every rank returns the same loss, image and gradients."""
     if generator is None:
         raise ValueError("render_image_value_and_grad replays the paths and needs a generator")
     wrt = tuple(wrt)
     dev = scene.geom.p.device
     pix_i, pix_j, n_pix = _pixel_chunks(width, height, ray_chunk, dev)
     n_chunks, chunk = pix_i.shape
+    cols = None if mesh is None else mesh.columns(chunk)
     n_samples = sample_size * dof_sample_size
-    args = (level, hittable_pdf_weight, stack_size, generator)
+    args = (level, hittable_pdf_weight, stack_size, generator, cols)
 
     states = []
-    total = torch.zeros((n_chunks, chunk, 3), dtype=torch.float32, device=dev)
+    width_mine = chunk if cols is None else cols.stop - cols.start
+    total = torch.zeros((n_chunks, width_mine, 3), dtype=torch.float32, device=dev)
     with torch.no_grad():
         for _ in range(n_samples):
             for c in range(n_chunks):
                 states.append(generator.get_state())
                 total[c] += _chunk_sample(scene, camera, pix_i[c], pix_j[c], *args)
     end_state = generator.get_state()
+    if mesh is not None:
+        total = _assemble(mesh, total, chunk)
     img = (total.reshape(-1, 3)[:n_pix] / n_samples).reshape(height, width, 3)
     img.requires_grad_(True)
     with torch.enable_grad():
@@ -360,6 +417,8 @@ def render_image_value_and_grad(
     d_total = torch.zeros((n_chunks * chunk, 3), dtype=torch.float32, device=dev)
     d_total[:n_pix] = d_img.reshape(-1, 3) / n_samples
     d_total = d_total.reshape(n_chunks, chunk, 3)
+    if cols is not None:
+        d_total = d_total[:, cols]
 
     grads = [torch.zeros_like(p) for p in wrt]
     replay = iter(states)
@@ -375,4 +434,6 @@ def render_image_value_and_grad(
                 if g is not None:
                     acc += g
     generator.set_state(end_state)
+    if mesh is not None:
+        grads = [mesh.all_reduce(g) for g in grads]
     return loss.detach(), img.detach(), tuple(grads)

@@ -36,6 +36,12 @@ explicit uniforms in [0, 1) (a dict of tensors whose layout the function's
 docstring gives), so a test can feed the reference package's numbers.  Loops
 run while any ray is alive, which costs one host synchronization per step;
 `host_syncs` counts them.
+
+Scale-out.  Both renders take `pixel_sharding`, a `parallel.shard.Mesh`
+whose ranks split the pixels (`Columns`): each rank draws the whole batch's
+numbers and keeps its columns, and every loop exit, compaction, gather cap,
+grid cell and average is decided over all ranks, so the ranks trace what the
+unsharded render traces and meet in every collective alike.
 """
 
 from __future__ import annotations
@@ -98,6 +104,79 @@ def _draw(uniforms, name: str, index, shape, generator, device) -> torch.Tensor:
     return u.to(device)[..., : shape[-1]]
 
 
+@dataclasses.dataclass(frozen=True)
+class Columns:
+    """The columns [lo, hi) of a batch of `width` rays that this process
+    traces.  With `mesh` (a `parallel.shard.Mesh`) the batch is sharded over
+    the mesh's ranks: each rank draws the whole batch's numbers and keeps its
+    own columns, and every count or extreme that decides a loop, a cap or a
+    grid is taken over all ranks, so a sharded pass traces what the unsharded
+    one does, and every rank reaches every collective as often as the others
+    and in the same order.  Without a mesh the whole batch is here."""
+
+    lo: int
+    hi: int
+    width: int
+    mesh: object = None
+
+    @staticmethod
+    def whole(width: int) -> "Columns":
+        return Columns(0, width, width)
+
+    @staticmethod
+    def share(mesh, n: int) -> "Columns":
+        """This rank's even share of `n` columns (a multiple of the mesh size)."""
+        per = n // mesh.size
+        return Columns(mesh.rank * per, (mesh.rank + 1) * per, n, mesh)
+
+    def draw(self, uniforms, name: str, index, rows: tuple, generator, device) -> torch.Tensor:
+        """`_draw` at the batch's full width (`rows` + (width,)), cut to these
+        columns."""
+        u = _draw(uniforms, name, index, tuple(rows) + (self.width,), generator, device)
+        return u[..., self.lo:self.hi]
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.mesh is None else self.mesh.all_reduce(t)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.mesh is None else self.mesh.all_reduce(t, "max")
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of `t`, in rank order (the whole batch)."""
+        return t if self.mesh is None else self.mesh.all_gather(t)
+
+    def count(self, x: torch.Tensor) -> int:
+        """The sum of `x` over the batch as a Python int (a host
+        synchronization)."""
+        global host_syncs
+        host_syncs += 1
+        return int(self.sum(x.sum().reshape(1)))
+
+    def any(self, mask: torch.Tensor) -> bool:
+        return _host_any(mask) if self.mesh is None else self.count(mask) > 0
+
+    def stage(self, n_mine: int, width: int) -> "Columns":
+        """The columns of this rank's `n_mine` rays in a batch of `width`
+        made of every rank's rays in rank order (a compaction stage)."""
+        if self.mesh is None:
+            return Columns(0, n_mine, width)
+        counts = self.mesh.all_gather(torch.tensor([n_mine], device=self.mesh.device)).tolist()
+        lo = sum(counts[:self.mesh.rank])
+        return Columns(lo, lo + n_mine, width, self.mesh)
+
+
+def _shard_pixels(mesh, pix_i, pix_j):
+    """This rank's pixels of a frame sharded over `mesh`: the batch padded
+    with pixel (0, 0) to a multiple of the mesh size (the pad is dropped at
+    assembly), and the rank's `Columns` of it."""
+    pad = (-pix_i.shape[0]) % mesh.size
+    if pad:
+        zeros = pix_i.new_zeros((pad,))
+        pix_i, pix_j = torch.cat([pix_i, zeros]), torch.cat([pix_j, zeros])
+    cols = Columns.share(mesh, pix_i.shape[0])
+    return pix_i[cols.lo:cols.hi], pix_j[cols.lo:cols.hi], cols
+
+
 # ---------------------------------------------------------------------------
 # media helpers
 # ---------------------------------------------------------------------------
@@ -153,15 +232,18 @@ def sample_propagation_distance(table, medium_id, u):
 # ---------------------------------------------------------------------------
 
 def init_material_stack(scene: Scene, point, init_dir, stack_size: int = MATERIAL_STACK_SIZE,
-                        max_steps: int = STACK_PROBE_STEPS, generator=None, uniforms=None):
+                        max_steps: int = STACK_PROBE_STEPS, generator=None, uniforms=None,
+                        cols: Columns | None = None):
     """March from far away (t = 999) back toward `point` through the
     transparent geometry with forced refraction, pushing and popping media, so
     a camera or an emitter inside glass or fog starts with the right stack.
     Returns (stack_ids, stack_len).
 
-    `uniforms`: (max_steps, 4, R), step i's four `sample_bsdf` uniforms."""
+    `uniforms`: (max_steps, 4, R), step i's four `sample_bsdf` uniforms.
+    `cols`: the rays' columns of a sharded batch (default: the whole)."""
     r = point.shape[0]
     dev = point.device
+    cols = cols or Columns.whole(r)
     ids, length = materials.stack_init((r,), stack_size, device=dev)
     tset = scene.transparent
     if tset is None:
@@ -175,13 +257,13 @@ def init_material_stack(scene: Scene, point, init_dir, stack_size: int = MATERIA
     for i in range(max_steps):
         t, slot, bary, hit = trace.closest_hit(tset, origin, probe_dir, live=live)
         live = live & hit & (t_rem - t > SMALL_EPS)
-        if not _host_any(live):
+        if not cols.any(live):
             break
         t_rem = torch.where(live, t_rem - t, t_rem)
         pt, uv, normal, mat_id = interpolate_hit(tset, scene.materials, slot, bary)
         ref = materials.sample_bsdf(
             scene.materials, mat_id, pt, probe_dir, normal, uv, ids, length,
-            _draw(wrapped, "stack", i, (4, r), generator, dev), force_refract=True,
+            cols.draw(wrapped, "stack", i, (4,), generator, dev), force_refract=True,
         )
         ids, length = materials.stack_rearrange(
             ids, length, mat_id, ref.false_hit, ref.entering, ref.refracted, live
@@ -498,15 +580,17 @@ def volume_gather_segments_dense(table, photons: Photons, seg_start, seg_dir, se
 VOLUME_GRID_MAX_STEPS = 512  # sample points per segment of the grid beam gather
 
 
-def _beam_spacing(seg_valid, vol_radius):
+def _beam_spacing(seg_valid, vol_radius, cols: Columns | None = None):
     r_max = torch.amax(torch.where(seg_valid.any(dim=1), vol_radius, 0.0))
+    if cols is not None:
+        r_max = cols.max(r_max)
     return torch.clamp(r_max, min=1e-12)
 
 
 def volume_gather_segments_grid(table, photons: Photons, seg_start, seg_dir, seg_len,
                                 seg_medium, seg_filt, seg_valid, vol_radius,
                                 k_per_cell: int = K_PER_CELL, chunk: int = 4096,
-                                static_steps: int | None = None):
+                                static_steps: int | None = None, cols: Columns | None = None):
     """Hash-grid beam gather over recorded medium segments.  Grid cell =
     1.5 r_max, sample points r_max apart along each segment; a photon within
     r <= r_max of the axis is within one cell of its canonical sample point
@@ -518,9 +602,11 @@ def volume_gather_segments_grid(table, photons: Photons, seg_start, seg_dir, seg
     Python int: no host synchronization on the longest segment), else as
     many as the longest segment needs, at most `VOLUME_GRID_MAX_STEPS`;
     segments needing more lose their tail.  The grid and the candidate
-    lookup run under `torch.no_grad()`; the contributions carry gradient."""
+    lookup run under `torch.no_grad()`; the contributions carry gradient.
+    `cols`, the segments' rays' columns of a sharded batch: the spacing is
+    then the largest radius over every rank's."""
     vphot = photons.valid & ~photons.on_surface
-    spacing = _beam_spacing(seg_valid, vol_radius).detach()
+    spacing = _beam_spacing(seg_valid, vol_radius, cols).detach()
     with torch.no_grad():
         grid = hashgrid.build_grid(photons.pos, vphot, 1.5 * spacing)
 
@@ -592,7 +678,8 @@ def _visible_flux(g, photon_prev, photon_dir, photon_color, top_idx, cand_ok, lo
 
 def surface_gather_grid(scene: Scene, photons: Photons, hp_loc, hp_normal, hp_radius, hp_valid,
                         k_nearest: int = K_NEAREST, k_per_cell: int = K_PER_CELL,
-                        chunk: int = 16384, return_overflow: bool = False):
+                        chunk: int = 16384, return_overflow: bool = False,
+                        cols: Columns | None = None):
     """Hash-grid surface photon gather: each hit point inspects the 27 cells
     around it (cell = the largest radius of a valid pixel), keeps the
     `k_nearest` nearest in-radius candidates and checks their visibility as
@@ -600,10 +687,13 @@ def surface_gather_grid(scene: Scene, photons: Photons, hp_loc, hp_normal, hp_ra
     `return_overflow` also the total of candidates dropped by the cell cap
     and of in-radius photons dropped by the `k_nearest` reduction.  The
     candidate topology (grid, cell lookup, top-k pick) runs under
-    `torch.no_grad()`."""
+    `torch.no_grad()`.  `cols`, the hit points' columns of a sharded batch:
+    the cell is then the largest radius over every rank's."""
     sphot = photons.valid & photons.on_surface
     with torch.no_grad():
         r_max = torch.amax(torch.where(hp_valid, hp_radius, 0.0))
+        if cols is not None:
+            r_max = cols.max(r_max)
         grid = hashgrid.build_grid(photons.pos, sphot, r_max)
         # bucket-ordered payload copies: candidates are K-wide slices of them
         si = grid.sorted_idx.long()
@@ -685,7 +775,8 @@ class HitPoints:
 
 def _direct_radiance_chain(scene: Scene, diff_pt, diff_nrm, diff_uv, diff_mat, diff_coming,
                            filter_base, stack_ids, stack_len, in_medium, medium, enable,
-                           generator=None, uniforms=None, max_steps: int = DIRECT_CHAIN_STEPS):
+                           generator=None, uniforms=None, max_steps: int = DIRECT_CHAIN_STEPS,
+                           cols: Columns | None = None):
     """Direct radiance at the diffuse hits: light-sample the diffuse bounce
     (hittable weight 1), then follow a forced-refraction chain through
     transparent geometry accumulating transmittance, adding emission at
@@ -693,33 +784,35 @@ def _direct_radiance_chain(scene: Scene, diff_pt, diff_nrm, diff_uv, diff_mat, d
 
     `uniforms`: {"direct_bsdf": (4, R), "direct_pick": (R,), "direct_light":
     (2, R), "direct_chain": (max_steps, 4, R)}; in the sparse light-tree
-    regime the pick is a descent and "direct_pick" is (descent steps, R)."""
+    regime the pick is a descent and "direct_pick" is (descent steps, R).
+    `cols`: the rays' columns of a sharded batch (default: the whole)."""
     table = scene.materials
     g = scene.geom
     lt = scene.light_tree
     r = diff_mat.shape[0]
     dev = diff_pt.device
+    cols = cols or Columns.whole(r)
 
     emittance = filter_base * table.emission_color(diff_mat, diff_uv)
 
     # re-sample the diffuse bounce, then redirect it at a light
     ref = materials.sample_bsdf(
         table, diff_mat, diff_pt, diff_coming, diff_nrm, diff_uv, stack_ids, stack_len,
-        _draw(uniforms, "direct_bsdf", None, (4, r), generator, dev),
+        cols.draw(uniforms, "direct_bsdf", None, (4,), generator, dev),
     )
     pivot = torch.where(ref.diffuse[..., None], diff_nrm, ref.perfect_dir)
     if lt.dense:
         node_pdf = lights_mod.leaf_node_pdfs(lt, diff_pt, pivot)
         leaf = lights_mod.pick_light_dense(
-            lt, node_pdf, _draw(uniforms, "direct_pick", None, (r,), generator, dev)
+            lt, node_pdf, cols.draw(uniforms, "direct_pick", None, (), generator, dev)
         )
     else:
         leaf = lights_mod.pick_light(
             lt, diff_pt, pivot,
-            uniforms=_draw(uniforms, "direct_pick", None, (lights_mod.descent_steps(lt), r),
-                           generator, dev),
+            uniforms=cols.draw(uniforms, "direct_pick", None, (lights_mod.descent_steps(lt),),
+                               generator, dev),
         )
-    u_light = _draw(uniforms, "direct_light", None, (2, r), generator, dev)
+    u_light = cols.draw(uniforms, "direct_light", None, (2,), generator, dev)
     target = lights_mod.sample_point_on_light(lt, leaf, u_light[0], u_light[1])
     new_dir = linalg.normalize(target - diff_pt, SMALL_EPS)
     refilter = ref.reflected | ref.refracted
@@ -740,14 +833,14 @@ def _direct_radiance_chain(scene: Scene, diff_pt, diff_nrm, diff_uv, diff_mat, d
     direct = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     live = enable
     for i in range(max_steps):
-        if not _host_any(live):
+        if not cols.any(live):
             break
         _, slot, bary, hit = trace.closest_hit(g, o, d, live=live)
         live = live & hit
         pt, uv, nrm, mat = interpolate_hit(g, table, slot, bary)
         ref2 = materials.sample_bsdf(
             table, mat, pt, d, nrm, uv, stack_ids, stack_len,
-            _draw(uniforms, "direct_chain", i, (4, r), generator, dev), force_refract=True,
+            cols.draw(uniforms, "direct_chain", i, (4,), generator, dev), force_refract=True,
         )
         stack_ids, stack_len = materials.stack_rearrange(
             stack_ids, stack_len, mat, ref2.false_hit, ref2.entering, ref2.refracted, live
@@ -798,7 +891,7 @@ def eye_pass(scene: Scene, camera, pix_i, pix_j, volume_photons: Photons | None,
              differentiable: bool = False, max_segments: int = 8, volume_grid: bool = False,
              vol_steps: int | None = None, vol_k_per_cell: int = K_PER_CELL,
              return_stats: bool = False, compact_min: int | None = None, generator=None,
-             uniforms=None):
+             uniforms=None, cols: Columns | None = None):
     """One eye trace per pixel to the first diffuse hit.  Returns (loc,
     normal, filter, direct_radiance, tmp_lm, valid); with `return_stats` a
     7th element, a dict of capacity-overflow counters: `segments_dropped`
@@ -819,28 +912,35 @@ def eye_pass(scene: Scene, camera, pix_i, pix_j, volume_photons: Photons | None,
 
     Straggler compaction (forward mode, batches of at least `compact_min`
     rays, default `EYE_COMPACT_MIN`): once the live rays fit a stage width
-    (r / 8, r / 64, ..., floor 1024) they are compacted, iterated at that
-    width and scattered back.  The same estimator; bounces after a
-    compaction use other random numbers than the full-width loop would.
+    (r / 8, r / 64, ..., floor 1024) they are compacted, in batch order into
+    the stage's first columns, iterated at that width and scattered back.
+    The same estimator; bounces after a compaction use other random numbers
+    than the full-width loop would.
 
     `uniforms`: {"lens": (2, R), "stack": (8, 4, R), "bounce": (max_bounce, 4,
     R)} and the keys of `_direct_radiance_chain`; after a compaction a stage
-    of width w reads the first w columns."""
+    of width w reads the first w columns.
+
+    `cols`: the pixels' columns of a batch sharded over a mesh (`Columns`;
+    default: the whole batch).  R above is then the whole batch's width, the
+    loop exits, the compaction and the stats are taken over every rank, and
+    each rank returns its own pixels' outputs, the unsharded pass's."""
     if differentiable:
         compact_min = 0
     table = scene.materials
     g = scene.geom
     r = pix_i.shape[0]
     dev = pix_i.device
+    cols = cols or Columns.whole(r)
     f32 = dict(dtype=torch.float32, device=dev)
     record_segments = (volume_photons is not None) and (not init)
 
-    u_lens = _draw(uniforms, "lens", None, (2, r), generator, dev)
+    u_lens = cols.draw(uniforms, "lens", None, (2,), generator, dev)
     o, d = camera.generate_rays(pix_i, pix_j, u_lens[0], u_lens[1])
     z_axis = torch.tensor([0.0, 0.0, 1.0], **f32).expand(r, 3)
     stack_ids, stack_len = init_material_stack(
         scene, o, z_axis, stack_size, generator=generator,
-        uniforms=None if uniforms is None else uniforms["stack"],
+        uniforms=None if uniforms is None else uniforms["stack"], cols=cols,
     )
     # the medium the camera starts in
     hp0, _ = materials.find_highest_prioritised(table, stack_ids, stack_len)
@@ -944,19 +1044,24 @@ def eye_pass(scene: Scene, camera, pix_i, pix_j, volume_photons: Photons | None,
 
     step = 0
 
-    def run(st, widths):
+    def run(st, stage_cols, widths):
         """Iterate `st` while more rays are alive than the next stage's width
-        (or, at the last stage, while any is); then compact into that stage."""
+        (or, at the last stage, while any is); then compact into that stage.
+        A stage takes the live rays alone: a settled ray's state is left as
+        it is by every step, and the live rays take the stage's first
+        columns, rank by rank."""
         nonlocal step
-        width = st["live"].shape[0]
         floor = widths[0] if widths else 0
-        while step < max_bounce and _host_int(st["live"].sum()) > floor:
-            st = body(st, _draw(uniforms, "bounce", step, (4, width), generator, dev))
+        while step < max_bounce and stage_cols.count(st["live"]) > floor:
+            u = stage_cols.draw(uniforms, "bounce", step, (4,), generator, dev)
+            if u.shape[-1]:
+                st = body(st, u)
             step += 1
         if not widths or step >= max_bounce:
             return st
-        idx = torch.topk(st["live"].to(torch.int32), floor).indices
-        sub = run({k: v[idx] for k, v in st.items()}, widths[1:])
+        idx = torch.nonzero(st["live"]).squeeze(1)
+        sub = run({k: v[idx] for k, v in st.items()}, stage_cols.stage(idx.shape[0], floor),
+                  widths[1:])
         out = {}
         for k, v in st.items():
             out[k] = v.clone()
@@ -964,7 +1069,7 @@ def eye_pass(scene: Scene, camera, pix_i, pix_j, volume_photons: Photons | None,
         return out
 
     cmin = EYE_COMPACT_MIN if compact_min is None else compact_min
-    st = run(st, _compaction_widths(r) if cmin and r >= cmin else [])
+    st = run(st, cols, _compaction_widths(cols.width) if cmin and cols.width >= cmin else [])
 
     # gather the recorded medium segments
     tmp_lm = torch.zeros((r, 3), **f32)
@@ -975,7 +1080,7 @@ def eye_pass(scene: Scene, camera, pix_i, pix_j, volume_photons: Photons | None,
                     st["sg_med"], st["sg_filt"], seg_valid, volume_radius)
         if volume_grid:
             tmp_lm = volume_gather_segments_grid(*seg_args, k_per_cell=vol_k_per_cell,
-                                                 static_steps=vol_steps)
+                                                 static_steps=vol_steps, cols=cols)
         else:
             tmp_lm = volume_gather_segments_dense(*seg_args)
 
@@ -989,6 +1094,7 @@ def eye_pass(scene: Scene, camera, pix_i, pix_j, volume_photons: Photons | None,
             scene, st["h_pt"], st["h_nrm"], st["h_uv"], st["h_mat"], st["h_coming"],
             st["h_filt_lag"], st["h_stack_ids"], st["h_stack_len"],
             st["h_in_medium"], st["h_medium"], found, generator=generator, uniforms=uniforms,
+            cols=cols,
         )
         direct = torch.where(found[..., None], direct, 0.0)
 
@@ -1000,11 +1106,10 @@ def eye_pass(scene: Scene, camera, pix_i, pix_j, volume_photons: Photons | None,
     if record_segments and volume_grid:
         # sample points beyond the grid gather's step bound (its spacing)
         bound = VOLUME_GRID_MAX_STEPS if vol_steps is None else vol_steps
-        needed = torch.ceil(st["sg_len"] / _beam_spacing(seg_valid, volume_radius)) + 1
-        steps_dropped = _host_int(torch.sum(
-            torch.where(seg_valid, torch.clamp(needed - bound, min=0.0), 0.0)))
-    stats = {"segments_dropped": _host_int(st["sg_lost"].sum()),
-             "beam_steps_dropped": steps_dropped}
+        needed = torch.ceil(st["sg_len"] / _beam_spacing(seg_valid, volume_radius, cols)) + 1
+        steps_dropped = cols.count(torch.where(seg_valid, torch.clamp(needed - bound, min=0.0),
+                                               0.0))
+    stats = {"segments_dropped": cols.count(st["sg_lost"]), "beam_steps_dropped": steps_dropped}
     return outs + (stats,)
 
 
@@ -1012,11 +1117,14 @@ def eye_pass(scene: Scene, camera, pix_i, pix_j, volume_photons: Photons | None,
 # initial radius
 # ---------------------------------------------------------------------------
 
-def initial_radius(eye_fn, scene: Scene, camera, pix_i, pix_j, loc, valid, radius_scale):
+def initial_radius(eye_fn, scene: Scene, camera, pix_i, pix_j, loc, valid, radius_scale,
+                   cols: Columns | None = None):
     """Initial gather radius: 4 corner rays per pixel (`eye_fn(scene, camera,
     pix_i, pix_j, None, vol_r, init=True)` traces one set), radius = least
     pairwise distance among the 5 hit points * `radius_scale`; pixels without
-    one get the average."""
+    one get the average (over every rank's pixels with `cols` of a sharded
+    batch)."""
+    cols = cols or Columns.whole(pix_i.shape[0])
     r = pix_i.shape[0]
     vol_r = torch.full((r,), float("inf"), dtype=torch.float32, device=pix_i.device)
     pts = [torch.where(valid[..., None], loc, float("inf"))]
@@ -1032,7 +1140,8 @@ def initial_radius(eye_fn, scene: Scene, camera, pix_i, pix_j, loc, valid, radiu
             radius = torch.where(ok & (dist < radius), dist, radius)
     radius = radius * radius_scale
     finite = torch.isfinite(radius)
-    avg = torch.sum(torch.where(finite, radius, 0.0)) / torch.clamp(torch.sum(finite), min=1)
+    avg = (cols.sum(torch.sum(torch.where(finite, radius, 0.0)))
+           / torch.clamp(cols.sum(torch.sum(finite)), min=1))
     return torch.where(finite, radius, avg)
 
 
@@ -1094,7 +1203,8 @@ def _restore(folder: pathlib.Path, run_meta: dict, device):
 
 def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None = None,
                 n_photons_override: int | None = None, checkpoint_dir: str | None = None,
-                checkpoint_every: int = 10, pass_log=None) -> np.ndarray:
+                checkpoint_every: int = 10, pass_log=None, photon_pass_fn=None,
+                pixel_sharding=None) -> np.ndarray:
     """Full SPPM render: (H, W, 3) combined (direct + indirect) linear
     radiance as numpy.
 
@@ -1108,18 +1218,36 @@ def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None 
     again with doubled caps (up to `AUTO_CAPS_MAX`).  `pass_log`, a list,
     receives one dict per pass (seconds of its parts, host synchronizations,
     any-hit kernel launches, caps, photon counts, the mean of the direct
-    image so far)."""
+    image so far).
+
+    Scale-out hooks (`parallel.sppm_shard`): `photon_pass_fn` replaces
+    `photon_pass` (called as `photon_pass(scene, n_photons, max_bounce=,
+    stack_size=, generator=)`); `pixel_sharding`, a `parallel.shard.Mesh`,
+    shards the pixels over its ranks (the batch padded with pixel (0, 0) to a
+    multiple of the mesh size): each rank traces its own, the gather caps
+    and grid cells are decided over all of them, and the image, the debug
+    images and the checkpoints are assembled with all-gathers; only rank 0
+    writes files (`checkpoint_dir` must be one that every rank reads).
+    With a pixel count that the mesh size divides, the image is the
+    unsharded render's up to the rounding of the initial radius's average."""
     from gpu_pathtracer_tpu_torch.render.splat import splat_points
     from gpu_pathtracer_tpu_torch.utils.image import save_ppm
 
     dev = scene.geom.p.device
     w, h = cfg.image_width, cfg.image_height
-    r = w * h
+    n_pix = w * h
     ii, jj = torch.meshgrid(
         torch.arange(h, dtype=torch.float32, device=dev),
         torch.arange(w, dtype=torch.float32, device=dev), indexing="ij",
     )
     pix_i, pix_j = ii.reshape(-1), jj.reshape(-1)
+    cols = Columns.whole(n_pix)
+    if pixel_sharding is not None:
+        pix_i, pix_j, cols = _shard_pixels(pixel_sharding, pix_i, pix_j)
+    r = pix_i.shape[0]  # this rank's pixels
+    writes = pixel_sharding is None or pixel_sharding.rank == 0
+    if photon_pass_fn is None:
+        photon_pass_fn = photon_pass
 
     max_bounce = cfg.ppm_max_bounce
     n_phot = int(n_photons_override or cfg.ppm_num_photon_per_pass)
@@ -1127,14 +1255,18 @@ def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None 
     num_pass = cfg.ppm_num_pass
     # all-pairs gathers for small workloads, hash grids once pixels * photons
     # would dominate
-    use_grid = r * n_phot > GRID_MIN_PAIRS
+    use_grid = n_pix * n_phot > GRID_MIN_PAIRS
 
     def eye(scene, camera, pi, pj, photons, vol_r, init, generator):
         return eye_pass(scene, camera, pi, pj, photons, vol_r, init=init, max_bounce=64,
                         stack_size=cfg.max_stack, volume_grid=use_grid, return_stats=True,
-                        generator=generator)
+                        generator=generator, cols=cols)
 
-    run_meta = {"seed": int(seed), "num_pixels": r, "n_phot": n_phot,
+    def whole(hp: HitPoints) -> dict:
+        """Every pixel's state, the pad included."""
+        return {f.name: cols.gather(getattr(hp, f.name)) for f in dataclasses.fields(hp)}
+
+    run_meta = {"seed": int(seed), "num_pixels": cols.width, "n_phot": n_phot,
                 "max_bounce": int(max_bounce), "alpha": float(alpha)}
     # ppm_num_pass is left out on purpose: resuming with a larger pass target
     # extends the run
@@ -1146,6 +1278,8 @@ def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None 
         restored = _restore(ckpt, run_meta, dev)
         if restored is not None:
             hp, last = restored
+            hp = HitPoints(**{f.name: getattr(hp, f.name)[cols.lo:cols.hi]
+                              for f in dataclasses.fields(hp)})
             start_pass = last + 1
 
     # ---- init pass: main + 4 corner traces -> initial radius ---------------
@@ -1156,7 +1290,7 @@ def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None 
             scene, camera, pix_i + 0.5, pix_j + 0.5, None, vol_r, True, gen0)[:6]
         radius = initial_radius(
             lambda *a, **k: eye(*a, **k, generator=gen0), scene, camera, pix_i, pix_j, loc, valid,
-            cfg.ppm_radius_scaling_factor,
+            cfg.ppm_radius_scaling_factor, cols=cols,
         )
         zeros3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
         hp = HitPoints(loc=loc, normal=nrm, filter=filt, direct=direct, indirect=zeros3,
@@ -1164,14 +1298,16 @@ def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None 
                        valid=valid)
 
     if output_prefix is not None:
-        save_ppm(splat_points(camera, hp.loc, hp.filter, w, h, hp.valid).cpu().numpy(),
-                 f"{output_prefix}_hit_point.ppm")
+        shown = {k: v[:n_pix] for k, v in whole(hp).items()}
+        if writes:
+            save_ppm(splat_points(camera, shown["loc"], shown["filter"], w, h, shown["valid"])
+                     .cpu().numpy(), f"{output_prefix}_hit_point.ppm")
 
     def gather(photons, hp, kn, kpc):
         if use_grid:
             return surface_gather_grid(scene, photons, hp.loc, hp.normal, hp.surface_radius,
                                        hp.valid, k_nearest=kn, k_per_cell=kpc,
-                                       return_overflow=True)
+                                       return_overflow=True, cols=cols)
         return surface_gather(scene, photons, hp.loc, hp.normal, hp.surface_radius, hp.valid,
                               k_nearest=kn, return_overflow=True)
 
@@ -1191,10 +1327,10 @@ def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None 
         syncs0 = host_syncs
         launches0 = anyhit.launch_anyhit.launches + anyhit.launch_anyhit_pipe.launches
         t0 = clock()
-        photons = photon_pass(scene, n_phot, max_bounce=max_bounce, stack_size=cfg.max_stack,
-                              generator=gen)
+        photons = photon_pass_fn(scene, n_phot, max_bounce=max_bounce, stack_size=cfg.max_stack,
+                                 generator=gen)
         t1 = clock()
-        jitter = torch.rand((2, r), generator=gen, device=dev)
+        jitter = cols.draw(None, "jitter", None, (2,), gen, dev)
         eye_outs = eye(scene, camera, pix_i + jitter[0], pix_j + jitter[1],
                        photons if has_medium else None, hp.volume_radius, False, gen)
         loc, nrm, filt, direct, tmp_lm, valid = eye_outs[:6]
@@ -1205,15 +1341,16 @@ def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None 
         t2 = clock()
         # re-gather this pass with doubled caps while more than 1% of the
         # in-radius candidates were dropped (radii only shrink, so the raises
-        # fall in the first passes, where a silent cap would bias the most)
+        # fall in the first passes, where a silent cap would bias the most);
+        # the counts are every rank's, so all ranks decide alike
         flux, count, overflow = gather(photons, hp, k_nearest_cur, k_per_cell_cur)
-        dropped, kept = int(overflow), float(count.sum())
+        dropped, kept = cols.count(overflow), cols.count(count)
         while (dropped > 0.01 * (dropped + kept)
                and k_nearest_cur < min(AUTO_CAPS_MAX, n_phot)):
             k_nearest_cur = min(k_nearest_cur * 2, AUTO_CAPS_MAX, n_phot)
             k_per_cell_cur = min(k_per_cell_cur * 2, AUTO_CAPS_MAX)
             flux, count, overflow = gather(photons, hp, k_nearest_cur, k_per_cell_cur)
-            dropped, kept = int(overflow), float(count.sum())
+            dropped, kept = cols.count(overflow), cols.count(count)
         hp = update(hp, flux, it + 1, n_phot, alpha)
         t3 = clock()
         es = eye_outs[6]
@@ -1230,34 +1367,40 @@ def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None 
                 k_per_cell=k_per_cell_cur, dropped=dropped,
                 surface_photons=int((photons.valid & photons.on_surface).sum()),
                 volume_photons=int((photons.valid & ~photons.on_surface).sum()),
-                tmp_lm_sum=float(tmp_lm.sum()), tmp_lm_finite=bool(torch.isfinite(tmp_lm).all()),
-                direct_mean=float(linalg.de_nan(hp.direct).mean()) / (it + 1),
+                tmp_lm_sum=float(cols.sum(tmp_lm.sum())),
+                tmp_lm_finite=cols.count(~torch.isfinite(tmp_lm)) == 0,
+                direct_mean=float(cols.sum(linalg.de_nan(hp.direct).sum()))
+                / (3 * cols.width) / (it + 1),
                 grid=use_grid,
             ))
         if ckpt is not None and ((it + 1) % max(checkpoint_every, 1) == 0 or it + 1 == num_pass):
-            state = {"hit_points": {f.name: getattr(hp, f.name) for f in dataclasses.fields(hp)},
-                     "meta": run_meta}
-            torch.save(state, ckpt / f"pass_{it}.pt")
-            for old in _saved_passes(ckpt)[:-2]:
-                (ckpt / f"pass_{old}.pt").unlink()
+            state = {"hit_points": whole(hp), "meta": run_meta}
+            if writes:
+                torch.save(state, ckpt / f"pass_{it}.pt")
+                for old in _saved_passes(ckpt)[:-2]:
+                    (ckpt / f"pass_{old}.pt").unlink()
 
         every = max(int(cfg.ppm_image_output_iteration), 1)
         if output_prefix is not None and ((it + 1) % every == 0 or it + 1 == num_pass):
             passes = it + 1
-            direct_img = linalg.de_nan(hp.direct / passes).reshape(h, w, 3).cpu().numpy()
-            indirect_img = linalg.de_nan(hp.indirect / passes).reshape(h, w, 3).cpu().numpy()
-            save_ppm(direct_img, f"{output_prefix}_direct.ppm")
-            save_ppm(indirect_img, f"{output_prefix}_indirect.ppm")
-            save_ppm(direct_img + indirect_img, f"{output_prefix}.ppm")
-            for name, mask in (("surface", photons.valid & photons.on_surface),
-                               ("volume", photons.valid & ~photons.on_surface)):
-                save_ppm(splat_points(camera, photons.pos, photons.color, w, h, mask)
-                         .cpu().numpy(), f"{output_prefix}_{name}_photon.ppm")
+            direct_img = cols.gather(linalg.de_nan(hp.direct / passes))[:n_pix]
+            indirect_img = cols.gather(linalg.de_nan(hp.indirect / passes))[:n_pix]
+            if writes:
+                direct_img = direct_img.reshape(h, w, 3).cpu().numpy()
+                indirect_img = indirect_img.reshape(h, w, 3).cpu().numpy()
+                save_ppm(direct_img, f"{output_prefix}_direct.ppm")
+                save_ppm(indirect_img, f"{output_prefix}_indirect.ppm")
+                save_ppm(direct_img + indirect_img, f"{output_prefix}.ppm")
+                for name, mask in (("surface", photons.valid & photons.on_surface),
+                                   ("volume", photons.valid & ~photons.on_surface)):
+                    save_ppm(splat_points(camera, photons.pos, photons.color, w, h, mask)
+                             .cpu().numpy(), f"{output_prefix}_{name}_photon.ppm")
 
-    print("[capstats] render totals: " + " ".join(f"{k}={v}" for k, v in cap_totals.items())
-          + f" (final k_nearest={k_nearest_cur})", flush=True)
-    img = (hp.direct + hp.indirect) / num_pass
-    return linalg.de_nan(img).reshape(h, w, 3).cpu().numpy()
+    if writes:
+        print("[capstats] render totals: " + " ".join(f"{k}={v}" for k, v in cap_totals.items())
+              + f" (final k_nearest={k_nearest_cur})", flush=True)
+    img = cols.gather(linalg.de_nan((hp.direct + hp.indirect) / num_pass))[:n_pix]
+    return img.reshape(h, w, 3).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -1302,30 +1445,40 @@ def render_sppm_differentiable(scene: Scene, camera, width: int, height: int, n_
     taken before the pass that uses it, none inside autograd's recompute.
 
     `photon_pass_fn` replaces `photon_pass` (any callable with its
-    signature, `differentiable` included).  `pixel_sharding` is the
-    reference's scale-out hook and is not ported: anything but None raises.
+    signature, `differentiable` included).  `pixel_sharding`, a
+    `parallel.shard.Mesh`, shards the pixels over its ranks as in
+    `render_sppm`: each pass's jitter and eye numbers are drawn at the whole
+    frame's width and cut to the rank's pixels (the differentiable eye pass
+    never compacts, so this is exact), the grid cells and the initial
+    radius's average are taken over all of them, and every rank returns the
+    whole image, assembled so that the gradient of a loss that every rank
+    computes alike from it reaches each rank's own pixels.  A rank's
+    parameter gradients are then its pixels' share; their sum over the ranks
+    is the gradient (`optim.sppm_loss_fn` takes it).  `uniforms` hold the
+    whole frame's numbers either way.
     """
-    if pixel_sharding is not None:
-        raise NotImplementedError(
-            "pixel_sharding: the scale-out of the differentiable render is not ported yet "
-            "(ROADMAP A4, scale-out)")
     dev = scene.geom.p.device
     h, w = height, width
-    r = w * h
+    n_pix = w * h
     if gather_grid is None:
-        gather_grid = r * n_photons > GRID_MIN_PAIRS
+        gather_grid = n_pix * n_photons > GRID_MIN_PAIRS
     ii, jj = torch.meshgrid(
         torch.arange(h, dtype=torch.float32, device=dev),
         torch.arange(w, dtype=torch.float32, device=dev), indexing="ij",
     )
     pix_i, pix_j = ii.reshape(-1), jj.reshape(-1)
+    cols = Columns.whole(n_pix)
+    if pixel_sharding is not None:
+        pix_i, pix_j, cols = _shard_pixels(pixel_sharding, pix_i, pix_j)
+    r = pix_i.shape[0]  # this rank's pixels
     trace_photons = photon_pass if photon_pass_fn is None else photon_pass_fn
 
     def eye(pi, pj, photons, vol_r, init, generator, eye_uniforms, differentiable=False):
         return eye_pass(scene, camera, pi, pj, photons, vol_r, init=init, max_bounce=eye_bounce,
                         stack_size=stack_size, differentiable=differentiable,
                         volume_grid=gather_grid and gather_volume, vol_steps=vol_steps,
-                        vol_k_per_cell=k_per_cell, generator=generator, uniforms=eye_uniforms)
+                        vol_k_per_cell=k_per_cell, generator=generator, uniforms=eye_uniforms,
+                        cols=cols)
 
     # geometry-only init pass and the corner radius, as constants
     with torch.no_grad():
@@ -1337,7 +1490,7 @@ def render_sppm_differentiable(scene: Scene, camera, width: int, height: int, n_
         radius = initial_radius(
             lambda _scene, _camera, pi, pj, photons, vol_r, init: eye(
                 pi, pj, photons, vol_r, init, gen0, next(corners)),
-            scene, camera, pix_i, pix_j, loc, valid, radius_scale,
+            scene, camera, pix_i, pix_j, loc, valid, radius_scale, cols=cols,
         )
     zeros3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     hp = HitPoints(loc=torch.where(valid[..., None], loc, float("inf")), normal=nrm, filter=filt,
@@ -1350,7 +1503,7 @@ def render_sppm_differentiable(scene: Scene, camera, width: int, height: int, n_
         photons = trace_photons(scene, n_photons, max_bounce=max_bounce, stack_size=stack_size,
                                 generator=gen, uniforms=None if u is None else u["photon"],
                                 differentiable=True)
-        jitter = _draw(u, "jitter", None, (2, r), gen, dev)
+        jitter = cols.draw(u, "jitter", None, (2,), gen, dev)
         loc, nrm, filt, direct, tmp_lm, valid = eye(
             pix_i + jitter[0], pix_j + jitter[1], photons if gather_volume else None,
             hp.volume_radius, False, gen, None if u is None else u["eye"], differentiable=True)
@@ -1360,10 +1513,13 @@ def render_sppm_differentiable(scene: Scene, camera, width: int, height: int, n_
         )
         if gather_grid:
             flux, _ = surface_gather_grid(scene, photons, hp.loc, hp.normal, hp.surface_radius,
-                                          hp.valid, k_nearest=k_nearest, k_per_cell=k_per_cell)
+                                          hp.valid, k_nearest=k_nearest, k_per_cell=k_per_cell,
+                                          cols=cols)
         else:
             flux, _ = surface_gather(scene, photons, hp.loc, hp.normal, hp.surface_radius,
                                      hp.valid, k_nearest=k_nearest)
         hp = update(hp, flux, it + 1, n_photons, alpha)
-    img = (hp.direct + hp.indirect) / num_pass
-    return linalg.de_nan(img).reshape(h, w, 3)
+    img = linalg.de_nan((hp.direct + hp.indirect) / num_pass)
+    if pixel_sharding is not None:
+        img = pixel_sharding.gather_image(img)[:n_pix]
+    return img.reshape(h, w, 3)

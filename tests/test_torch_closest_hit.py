@@ -68,7 +68,8 @@ def test_package_imports_no_jax():
     repo = pathlib.Path(__file__).resolve().parents[1]
     files = sorted((repo / "gpu_pathtracer_tpu_torch").rglob("*.py")) + [repo / "chip_smoke.py"]
     assert len(files) >= 30
-    assert {"sppm.py", "splat.py", "anyhit.py", "hashgrid.py", "bounding_sphere.py"} <= {f.name for f in files}
+    assert {"sppm.py", "splat.py", "anyhit.py", "hashgrid.py", "bounding_sphere.py", "dist.py",
+            "shard.py", "sppm_shard.py"} <= {f.name for f in files}
     offenders = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

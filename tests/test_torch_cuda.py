@@ -20,6 +20,8 @@ versions', each other's and the bits derived from the closest-hit kernel on
 every ray, and the per-group counts equal the plain versions'.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -393,3 +395,49 @@ def test_differentiable_sppm_on_cuda(cuda, tmp_path):
     assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all()) and float(img.mean()) > 0
     light = scene.materials.ke.amax(dim=-1) > 0
     assert bool(torch.isfinite(grad).all()) and bool((grad[light] != 0).any())
+
+
+def test_render_image_distributed_nccl_world_of_one(cuda, tmp_path):
+    """A world-size-1 NCCL group on the card: `render_image_distributed`
+    (through the group's all-gather) is `render_image` bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gpu_pathtracer_tpu_torch.parallel import dist as pdist
+    from gpu_pathtracer_tpu_torch.parallel import shard
+    from gpu_pathtracer_tpu_torch.render.integrator import render_image
+
+    testscenes.make_cornell_box(tmp_path, spheres=True, sphere_subdiv=2)
+    scene = build_scene(obj_io.load_scene(tmp_path, "box.obj"), cuda)
+    cam = Camera.create(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0),
+                        fovy_deg=40.0, width=64, height=64, device=cuda)
+    kw = dict(sample_size=2, level=4, hittable_pdf_weight=0.5)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"GPT_TPU_COORDINATOR": f"127.0.0.1:{port}", "GPT_TPU_NUM_PROCESSES": "1",
+           "GPT_TPU_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        assert pdist.init_distributed(backend="nccl", timeout=60)
+        mesh = shard.make_mesh()
+        assert mesh.size == 1 and mesh.group is not None
+        before = shard.collectives["all_gather"]
+        with torch.no_grad():
+            got = shard.render_image_distributed(
+                scene, cam, 64, 64, mesh, generator=torch.Generator(device=cuda).manual_seed(3),
+                **kw)
+            want = render_image(scene, cam, 64, 64,
+                                generator=torch.Generator(device=cuda).manual_seed(3), **kw)
+        assert shard.collectives["all_gather"] == before + 1
+        assert torch.equal(got, want) and float(want.mean()) > 0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v

@@ -123,12 +123,20 @@ def test_cli_renders_cornell_master_file(tmp_path):
 
 
 def test_renderer_refuses_what_is_not_ported(tmp_path):
+    """Nothing of the master file is refused any more: `shard_rays` renders
+    (on one process, over that one), path tracing bit for bit the unsharded
+    image and SPPM through the sharded photon pass; SSS is ported too.  The
+    renderer still refuses to pick the CPU by itself."""
     testscenes.make_cornell_box(tmp_path, spheres=False)
     master = testscenes.cornell_master_file(tmp_path, width=4, height=4, spp=1, level=1)
+    plain = renderer.render_from_config(parse_master_file(master), device="cpu")
     cfg = parse_master_file(master)
     cfg.shard_rays = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        renderer.render_from_config(cfg, device="cpu")
+    np.testing.assert_array_equal(renderer.render_from_config(cfg, device="cpu"), plain)
+    cfg.render_mode, cfg.ppm_num_photon_per_pass, cfg.ppm_num_pass = 2, 64, 1
+    cfg.ppm_max_bounce = 2
+    sharded = renderer.render_from_config(cfg, device="cpu")
+    assert sharded.shape == (4, 4, 3) and np.isfinite(sharded).all() and sharded.max() > 0
     # SSS is ported: on a scene without an SSS material the stage changes nothing
     cfg = parse_master_file(master)
     cfg.sss_pts_per_object = 8

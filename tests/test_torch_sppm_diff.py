@@ -294,8 +294,20 @@ def test_neon_sign_renders_and_differentiates(tmp_path):
 
 
 def test_pixel_sharding_raises(dim_box):
-    with pytest.raises(NotImplementedError, match="A4"):
-        sppm.render_sppm_differentiable(dim_box, _cam(), **KW, pixel_sharding=object())
+    """`pixel_sharding` is ported (it no longer raises): a mesh of this
+    process alone gives the unsharded image bit for bit, and the same
+    gradient to `ke` (the two-rank job is `tests/test_torch_parallel.py`)."""
+    from gpu_pathtracer_tpu_torch.parallel.shard import make_mesh
+
+    ke = dim_box.materials.ke.clone().requires_grad_(True)
+    scene = dataclasses.replace(dim_box, materials=dataclasses.replace(dim_box.materials, ke=ke))
+    images, grads = [], []
+    for kw in ({}, dict(pixel_sharding=make_mesh(device="cpu"))):
+        img = sppm.render_sppm_differentiable(scene, _cam(), **KW, **kw)
+        images.append(img.detach())
+        grads.append(torch.autograd.grad(img.mean(), ke)[0])
+    assert torch.equal(images[0], images[1]) and torch.equal(grads[0], grads[1])
+    assert float(grads[0].abs().max()) > 0
 
 
 def test_photon_pass_fn_hook(dim_box):

@@ -122,12 +122,49 @@ Phases (any failure exits non-zero; nothing is caught):
      part and `anyhit` in the step.  Part (b) runs below the main widths:
      two processes share one card, and gloo takes every collective through
      host memory.  One card measures no scaling, so no speed-up is printed.
+     Rank 0 binds the group's port and hands it on (no other process can
+     take it between pick and bind), the ranks write their output to files
+     and use gloo on the loopback interface, and their time limit counts
+     from their start;
+ 19. the textured large mesh (BASELINE config 2 with its textures): the
+     327,684-triangle mesh whose material 1 carries a 1,024x1,024 map_Kd
+     checker and a 256x256 `map_Bump -bm 5.0` sine field, lit by its quad
+     and a 256x512 equirect sky bright over its top quarter, through
+     `render_image` at the main widths on `closest_hit_pipe` alone (seconds,
+     rays/s, launches): the checker must show (red > 2 blue and blue > 2
+     red each on >= 20% of the mesh's pixels), the bump must change the
+     image against the same render without it (mean |difference| > 1e-3),
+     the means of the image and of the mesh's pixels must agree within 5%
+     with a CPU plain-path render of the same textures on the mesh at
+     subdiv 4 (64x64, 8 samples a pixel); on that mesh at 32x32 from the
+     same uniforms, card against CPU, >= 99% of rays at level 8 (phase 5's
+     gate) and, at level 3, the bumped texel gradient NaN on the same rows; the gradient leg without
+     the bump map (512x512, spp 2, level 8, the L2 loss against its own
+     forward image, d loss / d atlas_rgb by path replay: seconds,
+     grad-rays/s, peak memory, launches), the texel gather's float64
+     backward against a float32 one, the gradient at 64x64 within 5% of a
+     central difference along one checker cell's texels, three `optimize`
+     steps of `atlas_rgb` whose loss must fall, and `closest_hit_pipe`
+     against its plain version and `closest_hit` on a recorded textured
+     wavefront (phase 4's checks and times);
+ 20. the bench's glass + depth-of-field leg: the Cornell box with
+     `glass_priority`, aperture 0.08, focus 2.0, through
+     `renderer.render_from_config` at 512x512, sample_size 4 x
+     dof_sample_size 2, level 8 on `closest_hit` alone (seconds and
+     `rays_per_sec_fwd_glass_dof`): the card's image mean at 64x64 within
+     5% of a CPU render's at that size (the main path's printed beside
+     them: the camera samples pixel centres, so a frame's mean depends on
+     its size), the spread of the central crop's red channel
+     (`test_depth_of_field_blurs_out_of_focus`'s measure) below the pinhole
+     render's of as many samples, and `closest_hit` against its plain
+     version on the fullest recorded wavefront (phase 3's checks and times).
 To keep the run short some references run at a smaller depth than the main
 paths: the Cornell SPPM render makes 2 of the bench's passes and its CPU
 reference is 48x48, the render forced onto `closest_hit` and the mesh's CPU
-reference take 2 samples a pixel, the Cornell CPU reference 16, the
-many-lights one 4, and the ragged-tail mesh wavefronts hold 4,096 rays
-against the plain versions.
+reference (phase 7) takes 2 samples a pixel, phase 19's 8 on the mesh at
+subdiv 4, the Cornell CPU reference 16, the many-lights one 4, the glass
+one 16 (8 x 2 lens samples), and the ragged-tail mesh wavefronts hold 4,096
+rays against the plain versions.
 Each phase logs its seconds, and a line before the JSON record lists them.
 The line before the card's line is the per-kernel JSON record; the last line
 is {"ok": true, "device": {...}}.
@@ -172,6 +209,17 @@ DIFF_EPS = 1e-2  # the central difference's step in the scale of ke
 # share the card, and gloo takes every collective through host memory)
 SCALE_OUT = dict(side=256, spp=2, level=8, photons=50000, max_bounce=8, train_side=128, seed=5)
 RANK_TIMEOUT = 300  # seconds that a rank of phase 18(b) may take, its process group's limit
+# phase 19: BASELINE config 2 with textures (`tests/test_integration_tex.py`'s
+# checker and bump field at these sizes, its directional sky at this size)
+TEX = dict(checker=1024, bump=256, bm=5.0, sky_h=256, sky_w=512, sky_band=4.0)
+TEX_GRAD_SPP = 2  # the gradient leg's samples a pixel (the bench's backward leg)
+# the CPU references of phase 19: the textured mesh at subdiv 4 (on the card its
+# image and mesh means are subdiv 7's within 0.9%: scripts/reference_spread.py),
+# 64x64 at 8 samples a pixel
+TEX_CPU = dict(subdiv=4, side=64, spp=8)
+TEX_NAN_SIDE = 32  # the bumped texel gradient, card against CPU
+# phase 20: the bench's glass + depth-of-field leg (bench.py:280-303)
+GLASS = dict(aperture=0.08, focus_dist=2.0, spp=MAIN["spp"] // 2, dof=2)
 FLOPS_PER_PAIR = 42  # fp32 operations of one (ray, triangle) Woop test, t included
 PEAK_FP32 = 67e12  # H100 SXM, FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM bytes/s
@@ -1038,12 +1086,41 @@ def diff_sppm(dev, card: str, stats: dict, anyhit_err: dict) -> dict:
                             "triangles, the fullest gather chunk of the differentiable SPPM step"))
 
 
-def free_port() -> int:
-    import socket
+def rendezvous(rank: int, world: int, port_file, timeout: float):
+    """Set the `GPT_TPU_*` variables of a process group of `world` processes
+    on this host, with no race for its port: rank 0 binds the group's store
+    on a port that the OS picks (`init_distributed`'s own store on that port
+    then shares this server: `multi_tenant`) and writes the port to
+    `port_file`, which the other ranks wait for.  Returns rank 0's store,
+    which must outlive the group (None on the other ranks)."""
+    import datetime
+    import os
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    import torch.distributed as dist
+
+    port_file = pathlib.Path(port_file)
+    store = None
+    if rank == 0:
+        store = dist.TCPStore("127.0.0.1", 0, world, True, multi_tenant=True,
+                              wait_for_workers=False, timeout=datetime.timedelta(seconds=timeout))
+        port_file.with_suffix(".tmp").write_text(str(store.port))
+        os.replace(port_file.with_suffix(".tmp"), port_file)
+    else:
+        deadline = time.monotonic() + timeout
+        while not port_file.exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"rank 0 wrote no port to {port_file} in {timeout} s")
+            time.sleep(0.05)
+    os.environ.update(GPT_TPU_COORDINATOR=f"127.0.0.1:{port_file.read_text()}",
+                      GPT_TPU_NUM_PROCESSES=str(world), GPT_TPU_PROCESS_ID=str(rank))
+    return store
+
+
+def exit_reason(rc: int) -> str:
+    """A child's exit code in words: the signal that ended it, if one did."""
+    import signal
+
+    return f"killed by {signal.Signals(-rc).name}" if rc < 0 else f"exited with code {rc}"
 
 
 def kernel_launches(ch, ah) -> dict:
@@ -1054,10 +1131,11 @@ def kernel_launches(ch, ah) -> dict:
             "anyhit": ah.launch_anyhit.launches, "anyhit_pipe": ah.launch_anyhit_pipe.launches}
 
 
-def scale_out_rank(rank: int, port: int, out_dir: str, cornell_dir: str, box_dir: str) -> int:
-    """One of phase 18(b)'s two ranks (`chip_smoke.py --scale-out-rank R PORT
-    OUT CORNELL BOX`): a gloo group of 2 on `cuda:0`; the sharded render, the
-    sharded photon pass, the sharded differentiable SPPM step and one
+def scale_out_rank(rank: int, out_dir: str, cornell_dir: str, box_dir: str) -> int:
+    """One of phase 18(b)'s two ranks (`chip_smoke.py --scale-out-rank R OUT
+    CORNELL BOX`): a gloo group of 2 on `cuda:0` (rank 0 binds its port and
+    hands it on through OUT/port); the sharded render, the sharded photon
+    pass, the sharded differentiable SPPM step and one
     `train_step_distributed`.  Rank 0 writes the results; each rank writes
     its seconds and launches."""
     import functools
@@ -1076,8 +1154,7 @@ def scale_out_rank(rank: int, port: int, out_dir: str, cornell_dir: str, box_dir
     from gpu_pathtracer_tpu_torch.render import sppm
     from gpu_pathtracer_tpu_torch.utils import obj_io
 
-    os.environ.update(GPT_TPU_COORDINATOR=f"127.0.0.1:{port}", GPT_TPU_NUM_PROCESSES="2",
-                      GPT_TPU_PROCESS_ID=str(rank))
+    store = rendezvous(rank, 2, pathlib.Path(out_dir) / "port", RANK_TIMEOUT)  # noqa: F841
     check(pdist.init_distributed(backend="gloo", timeout=RANK_TIMEOUT), "no process group")
     mesh = shard.make_mesh()
     dev = mesh.device
@@ -1170,8 +1247,8 @@ def scale_out(dev, card: str, folder, master, img, sppm_folder, scfg) -> dict:
 
     rec = {}
     # ---- (a) NCCL, world size 1, the main widths
-    os.environ.update(GPT_TPU_COORDINATOR=f"127.0.0.1:{free_port()}", GPT_TPU_NUM_PROCESSES="1",
-                      GPT_TPU_PROCESS_ID="0")
+    out_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    store = rendezvous(0, 1, out_dir / "port_world_of_1", RANK_TIMEOUT)  # noqa: F841
     check(pdist.init_distributed(timeout=RANK_TIMEOUT), "phase 18: no process group")
     mesh = shard.make_mesh()
     check(mesh.size == 1 and mesh.group is not None and dist.get_backend() == "nccl",
@@ -1227,26 +1304,37 @@ def scale_out(dev, card: str, folder, master, img, sppm_folder, scfg) -> dict:
                                                        for p in slog],
                        launches=slaunches, collectives=scolls)
 
-    # ---- (b) two ranks on gloo sharing the card
-    out_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
-    port = free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, str(HERE / "chip_smoke.py"), "--scale-out-rank", str(r), str(port),
-         str(out_dir), str(folder), str(sppm_folder)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    # ---- (b) two ranks on gloo sharing the card; each writes its output to a
+    # file (no pipe to fill), gloo on the loopback interface, one time limit
+    # from their start
+    procs, logs = [], [out_dir / f"rank{r}.log" for r in range(2)]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", PYTHONUNBUFFERED="1")
     t0 = time.perf_counter()
+    for r in range(2):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(HERE / "chip_smoke.py"), "--scale-out-rank", str(r),
+                 str(out_dir), str(folder), str(sppm_folder)],
+                stdout=f, stderr=subprocess.STDOUT, env=env))
+    timed_out = False
     try:
-        outs = [p.communicate(timeout=RANK_TIMEOUT) for p in procs]
+        for p in procs:
+            p.wait(timeout=max(0.0, t0 + RANK_TIMEOUT - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        timed_out = True
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
     ranks_s = time.perf_counter() - t0
-    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
-        for line in so.strip().splitlines()[-6:]:
+    for r, p in enumerate(procs):
+        text = logs[r].read_text()
+        for line in text.strip().splitlines()[-6:]:
             log(f"rank {r}: {line}")
-        check(p.returncode == 0, f"phase 18: rank {r} exited {p.returncode}:\n{se[-3000:]}")
+        check(p.returncode == 0, f"phase 18: rank {r} {exit_reason(p.returncode)} after "
+              f"{ranks_s:.1f}s{f' (the limit of {RANK_TIMEOUT} s)' if timed_out else ''}:\n"
+              f"{text[-3000:]}")
     got = dict(np.load(out_dir / "results.npz"))
     ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
     for rk in ranks:
@@ -1312,6 +1400,367 @@ def scale_out(dev, card: str, folder, master, img, sppm_folder, scfg) -> dict:
     check(train_ok, "phase 18: the two-rank train step is off the single-process step")
     dist.destroy_process_group()
     rec["two_ranks"] = dict(seconds=ranks_s, ranks=ranks)
+    return rec
+
+
+def mesh_pixels(scene, camera, side: int):
+    """The pixels of a side x side frame whose centre ray first meets object
+    0 (the mesh; the floor shares its material), as a (side, side) bool
+    array.  One closest-hit query, outside any counted run."""
+    import torch
+    from gpu_pathtracer_tpu_torch.ops import trace
+
+    dev = scene.geom.p.device
+    ii, jj = torch.meshgrid(torch.arange(side, dtype=torch.float32, device=dev),
+                            torch.arange(side, dtype=torch.float32, device=dev), indexing="ij")
+    zeros = torch.zeros(side * side, device=dev)
+    o, d = camera.generate_rays(ii.reshape(-1) + 0.5, jj.reshape(-1) + 0.5, zeros, zeros)
+    with torch.no_grad():
+        _, slot, _, hit = trace.closest_hit(scene.geom, o, d)
+    mesh = hit & (scene.geom.obj_id[torch.clamp(slot, min=0).long()] == 0)
+    return mesh.reshape(side, side).cpu().numpy()
+
+
+def without_bump(host):
+    """The host scene as if its MTL had no `map_Bump` line: every bump slot
+    the default 1x1 texel (the atlas keeps the bump image, unread)."""
+    tex_slot = host.materials.tex_slot.copy()
+    tex_slot[:, 4] = 0
+    return dataclasses.replace(host, materials=dataclasses.replace(host.materials,
+                                                                   tex_slot=tex_slot))
+
+
+def textured_mesh(dev, card: str, stats: dict, pipe_err: dict) -> dict:
+    """Phase 19: BASELINE config 2 with textures at the main widths (see the
+    module docstring).  Returns the phase's record."""
+    import numpy as np
+    import torch
+    from gpu_pathtracer_tpu_torch import optim
+    from gpu_pathtracer_tpu_torch.models.camera import Camera
+    from gpu_pathtracer_tpu_torch.models.scene import build_scene
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.ops import texture
+    from gpu_pathtracer_tpu_torch.render.integrator import (
+        N_UNIFORMS,
+        render_image,
+        render_image_value_and_grad,
+        trace_paths,
+    )
+
+    rec = {}
+    folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_tex_"))
+    t0 = time.perf_counter()
+    host = textured_mesh_host(folder, MESH_SUBDIV)
+    sky = sky_image(TEX["sky_h"], TEX["sky_w"], TEX["sky_band"])
+    skw = dict(sky_emission=(1.0, 1.0, 1.0), sky_image=sky)
+    scene = build_scene(host, dev, **skw)
+    flat = build_scene(without_bump(host), dev, **skw)
+    torch.cuda.synchronize()
+    atlas = scene.materials.atlas
+    log(f"textured mesh: {scene.geom.num_tris} triangles; atlas {atlas.rgb.shape[0]} texels "
+        f"(checker {TEX['checker']}x{TEX['checker']}, bump {TEX['bump']}x{TEX['bump']} -bm "
+        f"{TEX['bm']}), sky {TEX['sky_h']}x{TEX['sky_w']}; host arrays and both scenes "
+        f"{time.perf_counter() - t0:.2f}s")
+    check(scene.geom.num_tris == MESH_TRIS, f"the textured mesh has {scene.geom.num_tris} tris")
+    w, h, spp, level = MAIN["width"], MAIN["height"], MAIN["spp"], MAIN["level"]
+    mcam = Camera.create(**MESH_CAM, width=w, height=h, device=dev)
+    kw = dict(width=w, height=h, sample_size=spp, level=level, hittable_pdf_weight=MAIN["weight"])
+    expected = -(-w * h // WAVE_RAYS) * spp * level
+    rays = w * h * spp * level
+
+    def render(scn, **changes):
+        reset_launches(ch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = render_image(scn, mcam, generator=torch.Generator(device=dev).manual_seed(12),
+                               **dict(kw, **changes))
+        torch.cuda.synchronize()
+        return out.cpu().numpy(), time.perf_counter() - t0, kernel_launches(ch, ah)
+
+    img, seconds, launches = render(scene)
+    log(f"textured mesh main path: {w}x{h} spp {spp} level {level}, map_Kd + map_Bump + sky: "
+        f"render {seconds:.3f}s, {rays / seconds:.0f} rays/s; launches {launches} (expected "
+        f"{expected} closest_hit_pipe); card: {card}")
+    check(launches["closest_hit_pipe"] == expected
+          and sum(launches.values()) == launches["closest_hit_pipe"],
+          f"textured mesh: launches {launches}, expected {expected} closest_hit_pipe alone")
+    check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 1e-3,
+          "textured mesh image not finite or black")
+    rec.update(seconds=seconds, rays_per_s=rays / seconds, launches=launches)
+
+    on_mesh = mesh_pixels(scene, mcam, w)
+    red, blue = img[..., 0][on_mesh], img[..., 2][on_mesh]
+    red_share, blue_share = float((red > 2 * blue).mean()), float((blue > 2 * red).mean())
+    log(f"checker on the mesh's {int(on_mesh.sum())} pixels: red > 2 blue on {red_share:.3f}, "
+        f"blue > 2 red on {blue_share:.3f}")
+    check(red_share >= 0.2 and blue_share >= 0.2, "the checker does not show on the mesh")
+
+    flat_img, flat_s, flat_launches = render(flat)
+    bump_diff = float(np.abs(img - flat_img).mean())
+    log(f"the same render without map_Bump: {flat_s:.3f}s ({rays / flat_s:.0f} rays/s), "
+        f"launches {flat_launches}; mean |bumped - flat| {bump_diff:.3e}")
+    check(bump_diff > 1e-3, f"the bump map does not change the image ({bump_diff:.3e})")
+    rec.update(flat_seconds=flat_s, bump_mean_abs_diff=bump_diff)
+
+    # the CPU plain path on the mesh at subdiv 4 with the same textures and sky
+    cpu_side, cpu_spp = TEX_CPU["side"], TEX_CPU["spp"]
+    host_cpu = textured_mesh_host(folder / "cpu", TEX_CPU["subdiv"])
+    scene_cpu = build_scene(host_cpu, "cpu", **skw)
+    cam64 = Camera.create(**MESH_CAM, width=cpu_side, height=cpu_side)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        img_cpu = render_image(scene_cpu, cam64, generator=torch.Generator().manual_seed(12),
+                               **dict(kw, width=cpu_side, height=cpu_side,
+                                      sample_size=cpu_spp)).numpy()
+    cpu_s = time.perf_counter() - t0
+    on_mesh64 = mesh_pixels(scene_cpu, cam64, cpu_side)
+    regions = {"image": (img.mean(), img_cpu.mean()),
+               "mesh": (img[on_mesh].mean(), img_cpu[on_mesh64].mean())}
+    rel = {k: abs(float(a) - float(b)) / float(b) for k, (a, b) in regions.items()}
+    channels = {c: (float(img[..., i][on_mesh].mean()), float(img_cpu[..., i][on_mesh64].mean()))
+                for i, c in enumerate("rgb")}
+    log(f"region means, card against the CPU plain path (subdiv {TEX_CPU['subdiv']}, "
+        f"{cpu_side}x{cpu_side} spp {cpu_spp}, {cpu_s:.1f}s): "
+        + ", ".join(f"{k} {float(a):.6f} / {float(b):.6f} (rel {rel[k]:.4f})"
+                    for k, (a, b) in regions.items())
+        + f"; the mesh's channels (printed, not held: {int(on_mesh64.sum())} CPU pixels x "
+        f"{cpu_spp} samples) {channels}")
+    check(max(rel.values()) < 0.05, f"textured mesh region means off the CPU render: {rel}")
+    rec.update(region_rel_diff=rel, mesh_channel_means=channels)
+
+    # the same uniforms card against CPU (phase 5's gate), and the bumped
+    # texel gradient's NaN rows, on that mesh
+    scene_small = build_scene(host_cpu, dev, **skw)
+    cam32 = Camera.create(**MESH_CAM, width=TEX_NAN_SIDE, height=TEX_NAN_SIDE)
+    n = TEX_NAN_SIDE
+    ii, jj = torch.meshgrid(torch.arange(float(n)), torch.arange(float(n)), indexing="ij")
+    o32, d32 = cam32.generate_rays(ii.reshape(-1) + 0.5, jj.reshape(-1) + 0.5,
+                                   torch.zeros(n * n), torch.zeros(n * n))
+    uni = torch.rand((level, N_UNIFORMS, n * n), generator=torch.Generator().manual_seed(3))
+
+    def same_uniforms(scn, lvl, grad):
+        rgb = scn.materials.atlas.rgb.clone().requires_grad_(grad)
+        d_ = scn.geom.p.device
+        with torch.set_grad_enabled(grad):
+            col = trace_paths(optim._substitute(scn, {"atlas_rgb": rgb}), o32.to(d_), d32.to(d_),
+                              level=lvl, hittable_pdf_weight=MAIN["weight"],
+                              uniforms=uni[:lvl].to(d_))
+        if not grad:
+            return col.cpu(), None
+        return col.detach().cpu(), torch.autograd.grad(col.sum(), rgb)[0].cpu()
+
+    col_card, _ = same_uniforms(scene_small, level, False)
+    col_cpu, _ = same_uniforms(scene_cpu, level, False)
+    match = float(torch.isclose(col_card, col_cpu, rtol=1e-4, atol=1e-5).all(dim=-1).float().mean())
+    log(f"textured mesh (subdiv {TEX_CPU['subdiv']}, map_Kd + map_Bump + sky), same uniforms "
+        f"{n}x{n} level {level}: {match:.4f} of rays match card vs CPU")
+    check(match >= 0.99, f"textured mesh, same uniforms: only {match:.4f} of rays match")
+    nan_level = 3
+    _, g_card = same_uniforms(scene_small, nan_level, True)
+    _, g_cpu = same_uniforms(scene_cpu, nan_level, True)
+    nan_card, nan_cpu = torch.isnan(g_card).any(dim=-1), torch.isnan(g_cpu).any(dim=-1)
+    log(f"bumped texel gradient, same uniforms {n}x{n} level {nan_level}: NaN on {int(nan_card.sum())} "
+        f"rows on the card, {int(nan_cpu.sum())} on the CPU, the same rows: "
+        f"{bool(torch.equal(nan_card, nan_cpu))}")
+    check(bool(torch.equal(nan_card, nan_cpu)), "the bumped texel gradient's NaN rows differ")
+    rec.update(same_uniforms_match=match, nan_rows=int(nan_card.sum()))
+
+    # the gradient leg: the map_Kd-only mesh, the L2 loss against its own
+    # forward image, d loss / d atlas_rgb from 0.9 of the texels
+    target = torch.as_tensor(flat_img, device=dev)
+    rgb0 = flat.materials.atlas.rgb
+
+    def atlas_loss_and_grad(side, cam, tgt, rgb, seed, spp_=TEX_GRAD_SPP):
+        leaf = rgb.detach().clone().requires_grad_(True)
+        loss, _, (grad,) = render_image_value_and_grad(
+            optim._substitute(flat, {"atlas_rgb": leaf}), cam, side, side,
+            lambda im: torch.mean((im - tgt) ** 2), [leaf], sample_size=spp_, level=level,
+            hittable_pdf_weight=MAIN["weight"],
+            generator=torch.Generator(device=dev).manual_seed(seed))
+        return float(loss), grad
+
+    reset_launches(ch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grad = atlas_loss_and_grad(w, mcam, target, rgb0 * 0.9, 2)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    glaunches = kernel_launches(ch, ah)
+    grad_rays = w * h * TEX_GRAD_SPP * level
+    touched = int((grad[1:].abs().sum(dim=-1) > 0).sum())
+    log(f"textured mesh gradient: {w}x{h} spp {TEX_GRAD_SPP} level {level}, L2 loss {loss:.6e} to "
+        f"atlas_rgb ({rgb0.shape[0]} texels, {touched} with a gradient) by path replay: "
+        f"{grad_s:.3f}s, {grad_rays / grad_s:.0f} grad-rays/s, peak memory {peak_gb:.3f} GB; "
+        f"launches {glaunches}; card: {card}")
+    # the default texel (row 0, which the untextured channels read) has a NaN
+    # gradient on this scene in the reference too (ROADMAP C); every other row is finite
+    check(bool(torch.isfinite(grad[1:]).all()) and touched > 0, "the texel gradient is not finite")
+    check(glaunches["closest_hit_pipe"] == 2 * expected * TEX_GRAD_SPP // spp
+          and sum(glaunches.values()) == glaunches["closest_hit_pipe"],
+          f"textured mesh gradient: launches {glaunches}")
+    rec.update(grad_seconds=grad_s, grad_rays_per_s=grad_rays / grad_s, peak_gb=peak_gb,
+               grad_launches=glaunches)
+
+    # what the float64 sum of the texel gather's backward costs: one lookup
+    # of a wavefront and its backward, float64 against a float32 gather
+    slot = torch.full((WAVE_RAYS,), int(flat.materials.tex_slot[1, 0]), dtype=torch.int32,
+                      device=dev)
+    uv = torch.rand((WAVE_RAYS, 2), generator=torch.Generator(device=dev).manual_seed(9),
+                    device=dev)
+    gout = torch.rand((WAVE_RAYS, 3), generator=torch.Generator(device=dev).manual_seed(10),
+                      device=dev)
+    leaf = rgb0.detach().clone().requires_grad_(True)
+    tex64 = texture.Atlas(leaf, atlas.offsets, atlas.heights, atlas.widths)
+    idx = texture.texel_index(tex64, slot, uv)
+    ms64 = cuda_ms(lambda: torch.autograd.grad(texture.lookup(tex64, slot, uv), leaf, gout), 20)
+    ms32 = cuda_ms(lambda: torch.autograd.grad(leaf[idx], leaf, gout), 20)
+    log(f"texel gather + backward, {WAVE_RAYS} lookups into {rgb0.shape[0]} texels: float64 sum "
+        f"{ms64:.4f} ms, float32 {ms32:.4f} ms (CUDA events, 20 each); card: {card}")
+    rec.update(gather_backward_ms_f64=ms64, gather_backward_ms_f32=ms32)
+
+    # 64x64: against a central difference along one checker cell's texels
+    side = 64
+    cam64c = Camera.create(**MESH_CAM, width=side, height=side, device=dev)
+    with torch.no_grad():
+        tgt64 = render_image(flat, cam64c, generator=torch.Generator(device=dev).manual_seed(4),
+                             **dict(kw, width=side, height=side, sample_size=TEX_GRAD_SPP))
+    start = rgb0 * 0.9
+    _, g64 = atlas_loss_and_grad(side, cam64c, tgt64, start, 5)
+    k = int(flat.materials.tex_slot[1, 0])
+    off, cw = int(atlas.offsets[k]), TEX["checker"]
+    cell = cw // 8
+    texel = torch.arange(cw * cw, device=dev)
+    cell_of = (texel // cw // cell) * 8 + (texel % cw) // cell
+    per_cell = torch.zeros(64, device=dev).index_add_(0, cell_of, g64[off:off + cw * cw].abs().sum(-1))
+    best = int(torch.argmax(per_cell))
+    rows = off + texel[cell_of == best]
+    chan = int(torch.argmax(g64[rows].abs().sum(0)))
+    an = float(g64[rows, chan].sum())
+    eps = 0.05 * float(start[rows, chan].mean())
+    side_losses = []
+    for sign in (1.0, -1.0):
+        rgb = start.clone()
+        rgb[rows, chan] += sign * eps
+        side_losses.append(atlas_loss_and_grad(side, cam64c, tgt64, rgb, 5)[0])
+    fd = (side_losses[0] - side_losses[1]) / (2 * eps)
+    log(f"texel gradient 64x64 along checker cell {best}'s {rows.numel()} texels, channel {chan}: "
+        f"{an:.6e} by autograd, {fd:.6e} by central difference")
+    check(abs(an - fd) < 0.05 * max(abs(fd), abs(an), 1e-12), f"texel gradient {an} vs {fd}")
+    rec.update(grad_autograd=an, grad_central_difference=fd)
+
+    # from 0.4 of the texels, the loss on the target's own paths (its zero at
+    # the truth, as `tests/test_optim.py`'s texel recovery); the steps hold the
+    # default texel, whose gradient is the reference's NaN
+    dim = optim._substitute(flat, {"atlas_rgb": rgb0 * 0.4})
+    base = optim.render_loss_fn(dim, cam64c, tgt64, side, side, sample_size=TEX_GRAD_SPP,
+                                level=level, hittable_pdf_weight=MAIN["weight"])
+
+    def images_only(params, _generator):
+        loss, grads = base(params, torch.Generator(device=dev).manual_seed(4))
+        grads["atlas_rgb"][0] = 0.0
+        return loss, grads
+
+    params, losses = optim.optimize(dim, cam64c, tgt64, param_names=("atlas_rgb",), steps=3,
+                                    lr=0.1, loss_fn=images_only)
+    log(f"optimize atlas_rgb, 3 steps at 64x64 from 0.4 of the texels (the default texel "
+        f"held): losses {losses}")
+    check(bool(np.isfinite(losses).all()) and len(losses) == 3 and losses[-1] < losses[0],
+          f"optimize atlas_rgb: losses {losses}")
+    check(bool((params["atlas_rgb"] >= 0).all()) and bool(torch.isfinite(params["atlas_rgb"]).all()),
+          "optimize left a negative or non-finite texel")
+    rec["optimize_losses"] = [float(x) for x in losses]
+
+    # B2 against its plain version on a recorded textured wavefront (phase 4's check)
+    waves = wavefronts(scene, mcam, WAVE_RAYS, 3, seed=3)
+    b2 = {}
+    compare_pipe("textured mesh bounce 2", sorted_rays(scene.geom, waves[2]), scene.geom.tiles,
+                 scene.geom.tile_aabb, pipe_err, b2, time_it=True)
+    rec["closest_hit_pipe"] = b2
+    return rec
+
+
+def glass_dof(dev, card: str, stats: dict) -> dict:
+    """Phase 20: the bench's glass + depth-of-field leg (see the module
+    docstring).  Returns the phase's record."""
+    import numpy as np
+    import torch
+    from gpu_pathtracer_tpu_torch import renderer
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.utils import config, testscenes
+
+    folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_glass_"))
+    testscenes.make_cornell_box(folder, spheres=True, sphere_subdiv=2, glass_priority=True)
+    lens = dict(aperture=GLASS["aperture"], focus_dist=GLASS["focus_dist"])
+    cfg = path_tracing_master(folder, "box.obj", config, pathtracing_sample_size=GLASS["spp"],
+                              dof_sample_size=GLASS["dof"], **lens)
+    w, h, level = MAIN["width"], MAIN["height"], MAIN["level"]
+    check(cfg.dof_sample_size == GLASS["dof"], f"dof_sample_size {cfg.dof_sample_size}")
+    reset_launches(ch)
+    t0 = time.perf_counter()
+    img = renderer.render_from_config(cfg)
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches(ch, ah)
+    expected = -(-w * h // WAVE_RAYS) * GLASS["spp"] * GLASS["dof"] * level
+    rays = w * h * GLASS["spp"] * GLASS["dof"] * level
+    log(f"glass + DoF main path: {w}x{h}, sample_size {GLASS['spp']} x dof_sample_size "
+        f"{GLASS['dof']}, level {level}, aperture {GLASS['aperture']}, focus {GLASS['focus_dist']}: "
+        f"{seconds:.3f}s end to end, rays_per_sec_fwd_glass_dof {rays / seconds:.1f}; launches "
+        f"{launches} (expected {expected} closest_hit); card: {card}")
+    check(launches["closest_hit"] == expected and sum(launches.values()) == expected,
+          f"glass + DoF: launches {launches}, expected {expected} closest_hit alone")
+    check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 0,
+          "glass + DoF image not finite or black")
+    rec = dict(seconds=seconds, rays_per_sec_fwd_glass_dof=rays / seconds, launches=launches)
+
+    cpu_spp = 8
+    cfg64 = path_tracing_master(folder, "box.obj", config, pathtracing_sample_size=cpu_spp,
+                                dof_sample_size=GLASS["dof"], image_width=REF_SIDE,
+                                image_height=REF_SIDE, **lens)
+    t0 = time.perf_counter()
+    img_cpu = renderer.render_from_config(cfg64, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    # the camera samples pixel centres (it jitters the lens, not the pixel), so
+    # the mean of a frame depends on its size: the card's 64x64 render is the one
+    # held to the CPU's, the main path's is printed beside them
+    img64 = renderer.render_from_config(cfg64)
+    ref = float(img_cpu.mean())
+    rel, rel_main = (abs(float(x.mean()) - ref) / ref for x in (img64, img))
+    log(f"glass + DoF image mean: CPU plain path {REF_SIDE}x{REF_SIDE} sample_size {cpu_spp} x "
+        f"dof {GLASS['dof']} {ref:.6f} ({cpu_s:.1f}s), card at that size {img64.mean():.6f} (rel "
+        f"diff {rel:.4f}), card main path {img.mean():.6f} (rel diff {rel_main:.4f})")
+    check(rel < 0.05, f"glass + DoF 64x64 image mean off the CPU render by {rel:.4f}")
+
+    # test_depth_of_field_blurs_out_of_focus's measure: the red channel's
+    # spread over the central crop, against the pinhole render of as many samples
+    pin = path_tracing_master(folder, "box.obj", config,
+                              pathtracing_sample_size=GLASS["spp"] * GLASS["dof"])
+    t0 = time.perf_counter()
+    img_pin = renderer.render_from_config(pin)
+    pin_s = time.perf_counter() - t0
+
+    def contrast(im):
+        return float(im[h // 4:3 * h // 4, w // 4:3 * w // 4, 0].std())
+
+    c_lens, c_pin = contrast(img), contrast(img_pin)
+    log(f"central crop red std: thin lens {c_lens:.6f}, pinhole {c_pin:.6f} (ratio "
+        f"{c_lens / c_pin:.4f}; pinhole render {pin_s:.3f}s)")
+    check(c_lens < c_pin, "the thin lens does not blur the out-of-focus back of the box")
+    rec.update(image_rel_diff=rel, main_image_rel_diff=rel_main, contrast_lens=c_lens,
+               contrast_pinhole=c_pin)
+
+    # B1 against its plain version on the fullest recorded wavefront (phase 3's check)
+    scene, camera = renderer.load_scene_from_config(cfg, dev)
+    waves = wavefronts(scene, camera, WAVE_RAYS, 4, seed=1)
+    fullest = max(range(len(waves)), key=lambda i: int(waves[i][2].sum()))
+    b1 = compare_plain_load(f"glass + DoF bounce {fullest}", sorted_rays(scene.geom, waves[fullest]),
+                            scene.geom.tiles, scene.geom.tile_aabb, stats, time_it=True)
+    b1["bounce"] = fullest
+    rec["closest_hit"] = b1
     return rec
 
 
@@ -1409,6 +1858,66 @@ def make_sss_box(folder, testscenes) -> None:
     (folder / "box.obj").write_text("\n".join(lines) + "\n")
 
 
+def checker_image(side: int):
+    """8 x 8 cells, red (230, 30, 30) where row + column is even and blue (30,
+    30, 230) elsewhere: `tests/test_integration_tex.py`'s map_Kd at another
+    size.  uint8 (side, side, 3)."""
+    import numpy as np
+
+    cell = np.arange(side) // (side // 8)
+    on = ((cell[:, None] + cell[None, :]) % 2 == 0)[..., None]
+    return np.where(on, np.uint8([230, 30, 30]), np.uint8([30, 30, 230])).astype(np.uint8)
+
+
+def bump_image(side: int):
+    """`tests/test_integration_tex.py`'s map_Bump, a horizontal sine field of
+    six periods, at another size.  uint8 (side, side, 3)."""
+    import numpy as np
+
+    row = (np.sin(np.linspace(0, 12 * np.pi, side)) * 100 + 120).astype(np.uint8)
+    return np.repeat(np.broadcast_to(row[None, :, None], (side, side, 1)), 3, axis=2)
+
+
+def sky_image(height: int, width: int, band: float, base: float = 0.0):
+    """An equirect sky of radiance `base` with a bright band over its top
+    quarter (with base 0, the directional sky of
+    `test_map_bump_changes_shading`).  float32 (H, W, 3)."""
+    import numpy as np
+
+    sky = np.full((height, width, 3), base, np.float32)
+    sky[: height // 4] = band
+    return sky
+
+
+def textured_mesh_host(folder, subdiv: int, bump: bool = True, checker: int = TEX["checker"],
+                       bump_side: int = TEX["bump"]):
+    """`make_mesh_scene_host(subdiv)` with material 1 (`white`, the mesh and
+    the floor) textured as `obj_io` packs an MTL line `map_Kd checker.png`
+    and, with `bump`, `map_Bump -bm 5.0 bump.png`: the images written to
+    `folder` as PNG and packed by `TextureAtlas.build`, their atlas slots in
+    `tex_slot`, the multiplier in `bm`.  The mesh keeps its equirect uvs."""
+    from PIL import Image
+
+    from gpu_pathtracer_tpu_torch.utils import obj_io, testscenes
+
+    folder = pathlib.Path(folder)
+    folder.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(checker_image(checker)).save(folder / "checker.png")
+    names = ["checker.png"]
+    if bump:
+        Image.fromarray(bump_image(bump_side)).save(folder / "bump.png")
+        names.append("bump.png")
+    host = testscenes.make_mesh_scene_host(subdiv=subdiv)
+    atlas = obj_io.TextureAtlas.build(folder, names)
+    tex_slot, bm = host.materials.tex_slot.copy(), host.materials.bm.copy()
+    tex_slot[1, 0] = atlas.slot("checker.png")
+    if bump:
+        tex_slot[1, 4] = atlas.slot("bump.png")
+        bm[1] = TEX["bm"]
+    mats = dataclasses.replace(host.materials, tex_slot=tex_slot, bm=bm)
+    return dataclasses.replace(host, materials=mats, atlas=atlas)
+
+
 def sphere_pixels(side: int):
     """The pixels of a side x side frame from the Cornell camera whose centre
     ray meets the scattering sphere shrunk to 0.9 of its radius."""
@@ -1434,8 +1943,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(HERE))
     if sys.argv[1:2] == ["--scale-out-rank"]:
-        rank, port, out_dir, cornell_dir, box_dir = sys.argv[2:7]
-        return scale_out_rank(int(rank), int(port), out_dir, cornell_dir, box_dir)
+        rank, out_dir, cornell_dir, box_dir = sys.argv[2:6]
+        return scale_out_rank(int(rank), out_dir, cornell_dir, box_dir)
     import numpy as np
     import torch
 
@@ -2106,6 +2615,16 @@ def main() -> int:
                                         for rk in scale["two_ranks"]["ranks"]]}
                       for k in scale["cornell"]["launches"]}
 
+    phases.start(19)
+    # ---- 19. the textured large mesh ------------------------------------------------------
+    tex = textured_mesh(dev, card, stats, pipe_err)
+    log(f"phase 19 record: {json.dumps(tex)}")
+
+    phases.start(20)
+    # ---- 20. glass + depth of field -------------------------------------------------------
+    glass = glass_dof(dev, card, stats)
+    log(f"phase 20 record: {json.dumps(glass)}")
+
     phases.report()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     record = {"kernels": [
@@ -2126,6 +2645,10 @@ def main() -> int:
             "diff_sppm": diff["closest_hit"],
             "shape": "65,536 rays x 972 triangles, Cornell bounce 3",
             "bounce_0": {k: b1s[0][k] for k in ("ms", "bound_ms", "bound_by")},
+            "glass_dof_launches": glass["launches"]["closest_hit"],
+            "glass_dof": {**glass["closest_hit"],
+                          "shape": f"65,536 rays x 972 triangles, glass + DoF bounce "
+                                   f"{glass['closest_hit']['bounce']}"},
         },
         {
             "name": "closest_hit_pipe",
@@ -2149,6 +2672,11 @@ def main() -> int:
             "slowest_group_scan_share": b2["scan_share_slowest"],
             "bounce_0": {k: b2s[0][k] for k in ("ms", "plain_load_ms", "bound_ms", "bound_by",
                                                 "most_scanned", "scan_share_slowest")},
+            "textured_mesh_launches": tex["launches"]["closest_hit_pipe"],
+            "textured_mesh_grad_launches": tex["grad_launches"]["closest_hit_pipe"],
+            "textured_mesh": {**{k: tex["closest_hit_pipe"][k] for k in (
+                "ms", "plain_ms", "plain_rays", "bound_ms", "bound_by", "most_scanned")},
+                "shape": "65,536 rays x 327,684 triangles, textured mesh bounce 2"},
         },
         {
             "name": "anyhit",

@@ -441,3 +441,58 @@ def test_render_image_distributed_nccl_world_of_one(cuda, tmp_path):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def _texture_inputs(rng, n):
+    """An atlas of the white default and two images (8x8, 5x3), and lookups
+    with wrapping uvs and directions over the whole sphere."""
+    from gpu_pathtracer_tpu_torch.ops import texture
+
+    rgb = torch.from_numpy(rng.random((1 + 64 + 15, 3), dtype=np.float32))
+    atlas = texture.Atlas(rgb=rgb, offsets=torch.tensor([0, 1, 65], dtype=torch.int32),
+                          heights=torch.tensor([1, 8, 3], dtype=torch.int32),
+                          widths=torch.tensor([1, 8, 5], dtype=torch.int32))
+    slot = torch.from_numpy(rng.integers(0, 3, n)).to(torch.int32)
+    uv = torch.from_numpy(rng.uniform(-2.0, 3.0, (n, 2)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    return atlas, slot, uv, d / d.norm(dim=-1, keepdim=True)
+
+
+def test_texture_lookups_on_cuda_match_cpu(cuda):
+    """`lookup` and `lookup_sky` on the card equal the CPU's bit for bit."""
+    import dataclasses
+
+    from gpu_pathtracer_tpu_torch.ops import texture
+
+    atlas, slot, uv, d = _texture_inputs(np.random.default_rng(31), 65536)
+    on_card = dataclasses.replace(atlas, **{f.name: getattr(atlas, f.name).to(cuda)
+                                            for f in dataclasses.fields(atlas)})
+    assert torch.equal(texture.lookup(on_card, slot.to(cuda), uv.to(cuda)).cpu(),
+                       texture.lookup(atlas, slot, uv))
+    sky, emission = atlas.rgb[1:65], torch.tensor([1.0, 0.5, 2.0])
+    assert torch.equal(
+        texture.lookup_sky(sky.to(cuda), 8, 8, d.to(cuda), emission.to(cuda)).cpu(),
+        texture.lookup_sky(sky, 8, 8, d, emission))
+
+
+def test_texel_gradient_on_cuda_halves_equal_whole(cuda):
+    """The texel gather's backward on the card: summed over 65,536 lookups
+    whole or in two halves (two ranks' shares), both the float64 sum
+    rounded once (rtol 2e-7)."""
+    from gpu_pathtracer_tpu_torch.ops import texture
+
+    rng = np.random.default_rng(32)
+    atlas, slot, uv, _ = _texture_inputs(rng, 65536)
+    g = torch.from_numpy(rng.random((65536, 3), dtype=np.float32) * 1e-3)
+    idx = texture.texel_index(atlas, slot, uv)
+    want = np.zeros(tuple(atlas.rgb.shape))
+    np.add.at(want, idx.numpy(), g.numpy().astype(np.float64))
+    rgb = atlas.rgb.to(cuda).requires_grad_(True)
+    card = texture.Atlas(rgb=rgb, offsets=atlas.offsets.to(cuda), heights=atlas.heights.to(cuda),
+                         widths=atlas.widths.to(cuda))
+    slot, uv, g = slot.to(cuda), uv.to(cuda), g.to(cuda)
+    (whole,) = torch.autograd.grad(texture.lookup(card, slot, uv), rgb, g)
+    halves = sum(torch.autograd.grad(texture.lookup(card, slot[s], uv[s]), rgb, g[s])[0]
+                 for s in (slice(0, 32768), slice(32768, None)))
+    np.testing.assert_allclose(whole.cpu().numpy(), want, rtol=2e-7)
+    np.testing.assert_allclose(halves.cpu().numpy(), want, rtol=2e-7)

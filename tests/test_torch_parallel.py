@@ -23,8 +23,13 @@ results, and while the ranks run this process computes the references:
   with the rank streams emulated, and the sharded `sppm_loss_fn` step against
   the emulated one (loss rtol 1e-5, gradient rtol 1e-4 / atol 1e-7).
 
-Each rank and its process group have a time limit, so a hang fails the job
-instead of stalling the suite.
+The launch cannot stall or race: each rank writes its output to a file (no
+pipe to fill while the references run), rank 0 binds the rendezvous port
+that the OS picks and hands it on (`chip_smoke.rendezvous`), gloo is pinned
+to the loopback interface, and the job has one time limit counted from the
+ranks' start, besides the process group's limit on any one wait.  A rank
+that fails is named with its exit code or signal, its seconds and the tail
+of its log (each rank logs the seconds at which it ends each part).
 """
 
 from __future__ import annotations
@@ -32,15 +37,16 @@ from __future__ import annotations
 import functools
 import os
 import pathlib
-import socket
 import subprocess
 import sys
+import time
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import torch_parity
 from gpu_pathtracer_tpu_torch import optim
 from gpu_pathtracer_tpu_torch.models.camera import Camera
@@ -57,11 +63,15 @@ COMPACT_SIDE = 40  # 1,600 rays: one compaction stage of 1,024
 ODD = 15  # 225 pixels: the ranks' columns differ in width
 CAM = dict(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0), fovy_deg=40.0)
 JAX_KEY = 3
-RANK_TIMEOUT = 240  # seconds a rank may take; the process group's own limit is shorter
+# the ranks take ~8 s on an idle 8-CPU box and 23 s on 2 CPUs beside the
+# other five workers of the tier-1 run: 10x and 5x that
+RANK_TIMEOUT = 240  # seconds from the ranks' start to their exit
+GROUP_TIMEOUT = 120  # seconds that the rendezvous or one collective may wait
 GRID_MIN_PAIRS = 1000  # the forward SPPM render takes the hash-grid gathers at 16x16
 
 CHILD = r'''
-import functools, os, sys
+import functools, os, sys, time
+t0 = time.perf_counter()
 sys.path.insert(0, %(repo)r)
 sys.path.insert(0, %(tests)r)
 import numpy as np
@@ -71,11 +81,16 @@ from gpu_pathtracer_tpu_torch import optim, renderer
 from gpu_pathtracer_tpu_torch.parallel import dist as pdist, shard, sppm_shard
 from gpu_pathtracer_tpu_torch.render import sppm
 from gpu_pathtracer_tpu_torch.utils import config
+import chip_smoke
 import test_torch_parallel as T
 
-assert pdist.init_distributed(timeout=120)
+store = chip_smoke.rendezvous(int(os.environ["MP_RANK"]), 2,
+                              os.path.join(os.environ["MP_DIR"], "port"), T.GROUP_TIMEOUT)
+assert pdist.init_distributed(timeout=T.GROUP_TIMEOUT)
 mesh = shard.make_mesh(device="cpu")
 assert mesh.size == 2
+step = lambda name: print(f"{time.perf_counter() - t0:7.1f} s  {name}", flush=True)
+step("process group")
 sppm.GRID_MIN_PAIRS = T.GRID_MIN_PAIRS
 cornell, box, cam, cam40 = T.scenes(os.environ["MP_DIR"])
 cam_odd = T.Camera.create(**T.CAM, width=T.ODD, height=T.ODD)
@@ -93,10 +108,12 @@ with torch.no_grad():
     for run in range(2):
         out[f"shard_map_{run}"] = shard.render_image_shard_map(
             cornell, cam, T.SEED, T.SIDE, T.SIDE, mesh, **T.PT_KW).numpy()
+step("renders")
 loss, new = shard.train_step_distributed(
     cornell, cam, T.train_params(cornell), T.train_target(), torch.Generator().manual_seed(11),
     mesh, width=T.SIDE, height=T.SIDE, **T.PT_KW)
 out["train_loss"], out["train_ke"] = float(loss), new["ke"].numpy()
+step("train step")
 with torch.no_grad():
     ph = sppm_shard.photon_pass_distributed(box, T.PHOTONS, mesh, max_bounce=T.BOUNCE,
                                             generator=T.photon_generator())
@@ -107,6 +124,7 @@ with torch.no_grad():
     ph = sppm_shard.photon_pass_distributed(box, T.PHOTONS, mesh, max_bounce=T.BOUNCE,
                                             uniforms=mine)
     out.update({f"jax_photons_{k}": v.numpy() for k, v in T.photon_fields(ph).items()})
+    step("photon passes")
     n = T.COMPACT_SIDE * T.COMPACT_SIDE
     cols = sppm.Columns.share(mesh, n)
     pi, pj = T.pixels(T.COMPACT_SIDE)
@@ -116,14 +134,17 @@ with torch.no_grad():
                         cols=cols)
     for i, x in enumerate(eye):
         out[f"eye_{i}"] = mesh.all_gather(x).numpy()
+    step("eye pass")
     out["sppm"] = sppm_shard.render_sppm_distributed(box, cam, T.sppm_config(os.environ["MP_DIR"]),
                                                      T.SEED, mesh)
+step("sppm render")
 loss, grads = T.sppm_step(box, cam, functools.partial(sppm_shard.photon_pass_distributed,
                                                       mesh=mesh), mesh)
+step("sppm loss step")
 out["sppm_loss"], out["sppm_grad"] = float(loss), grads["ke"].numpy()
 if mesh.rank == 0:
     np.savez(os.environ["MP_OUT"], **out)
-print("rank", mesh.rank, "ok", dict(shard.collectives))
+step(f"rank {mesh.rank} ok, collectives {dict(shard.collectives)}")
 '''
 
 PT_KW = dict(sample_size=SPP, level=LEVEL, hittable_pdf_weight=WEIGHT)
@@ -205,10 +226,11 @@ def sppm_step(box, cam, photon_pass_fn, mesh=None):
 # the job and the references
 # ---------------------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _failure(rank: int, rc: int, seconds: float, timed_out: bool, log: pathlib.Path) -> str:
+    how = chip_smoke.exit_reason(rc)
+    if timed_out:
+        how += f" at the job's limit of {RANK_TIMEOUT} s"
+    return f"rank {rank} {how} after {seconds:.1f} s; its log ends:\n{log.read_text()[-4000:]}"
 
 
 def _jax_photons(n_ranks: int):
@@ -277,26 +299,31 @@ def two_ranks(tmp_path_factory):
     make_folders(root)
     jax_map, uniforms = _jax_photons(2)
     np.savez(root / "uniforms.npz", **uniforms)
-    port = _free_port()
-    procs = []
+    procs, logs = [], [root / f"rank{pid}.log" for pid in range(2)]
+    t0 = time.monotonic()
     for pid in range(2):
-        env = dict(os.environ, GPT_TPU_COORDINATOR=f"127.0.0.1:{port}",
-                   GPT_TPU_NUM_PROCESSES="2", GPT_TPU_PROCESS_ID=str(pid), MP_DIR=str(root),
-                   MP_OUT=str(root / "out.npz"), MP_UNIFORMS=str(root / "uniforms.npz"),
-                   OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", CHILD % {"repo": str(REPO), "tests": str(REPO / "tests")}],
-            env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        env = dict(os.environ, MP_RANK=str(pid), MP_DIR=str(root), MP_OUT=str(root / "out.npz"),
+                   MP_UNIFORMS=str(root / "uniforms.npz"), OMP_NUM_THREADS="1",
+                   CUDA_VISIBLE_DEVICES="", GLOO_SOCKET_IFNAME="lo", PYTHONUNBUFFERED="1")
+        with open(logs[pid], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", CHILD % {"repo": str(REPO), "tests": str(REPO / "tests")}],
+                env=env, cwd=root, stdout=log, stderr=subprocess.STDOUT))
+    timed_out = False
     try:
         ref = _references(root)
-        outs = [p.communicate(timeout=RANK_TIMEOUT) for p in procs]
+        for p in procs:
+            p.wait(timeout=max(0.0, t0 + RANK_TIMEOUT - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        timed_out = True
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
-    for p, (so, se) in zip(procs, outs):
-        assert p.returncode == 0, f"rank failed:\n{so[-2000:]}\n{se[-4000:]}"
+                p.wait()
+    seconds = time.monotonic() - t0
+    for pid, p in enumerate(procs):
+        assert p.returncode == 0, _failure(pid, p.returncode, seconds, timed_out, logs[pid])
     got = dict(np.load(root / "out.npz"))
     return got, ref, jax_map
 

@@ -157,7 +157,28 @@ Phases (any failure exits non-zero; nothing is caught):
      its size), the spread of the central crop's red channel
      (`test_depth_of_field_blurs_out_of_focus`'s measure) below the pinhole
      render's of as many samples, and `closest_hit` against its plain
-     version on the fullest recorded wavefront (phase 3's checks and times).
+     version on the fullest recorded wavefront (phase 3's checks and times);
+ 21. the paths no earlier phase runs on the card, each held to the port's
+     CPU run (uniforms drawn on the CPU where both run): (1) the gradient to
+     `kd` and `ks` on phase 8's Cornell at 64x64, spp 2, level 8 by path
+     replay (within 5% of a central difference along a random direction in
+     kd-space; card vs CPU on the same uniforms within 1e-3, the NaN rows of
+     the `n_s` gradient the CPU's) and three `optimize` steps on fixed paths
+     whose loss must fall; (2) phase 17's differentiable SPPM step on the fog
+     box with the grid gathers and the volume gather at 32x32, 1,024 photons
+     (d mean / d ke within 1% of a central difference; card vs CPU: >= 99%
+     of pixels, gradients within 1%); (3) a `MAX_POTENTIAL_TARGETS` overflow:
+     phase 15's 2,048 emitters hung as 32 parallel sheets (the flat panel
+     cannot overflow: its grazing rays stab at most two leaves), 4,096 rays
+     under them: at level 1 `mis_targets_dropped` > 0 and the CPU's, at
+     level 3 parting only at rays that met a leaf box's boundary (started
+     on a sheet's plane, crossed a quad's edge), >= 99% of rays agreeing at
+     both; (4) `optimize` stopped after 2 steps and resumed to 4,
+     `render_sppm` after 1 pass and resumed to 2, each bit for bit the
+     uninterrupted run, the checkpoint loaded onto the card; (5) the CLI as a
+     child process without `--device` on phase 6's Cornell and phase 9's
+     box at 64x64: exit 0, a CUDA render in its log, the files that the CPU
+     run writes, the image an in-process render's to 8 bits.
 To keep the run short some references run at a smaller depth than the main
 paths: the Cornell SPPM render makes 2 of the bench's passes and its CPU
 reference is 48x48, the render forced onto `closest_hit` and the mesh's CPU
@@ -220,6 +241,16 @@ TEX_CPU = dict(subdiv=4, side=64, spp=8)
 TEX_NAN_SIDE = 32  # the bumped texel gradient, card against CPU
 # phase 20: the bench's glass + depth-of-field leg (bench.py:280-303)
 GLASS = dict(aperture=0.08, focus_dist=2.0, spp=MAIN["spp"] // 2, dof=2)
+# phase 21: the gradient to kd and ks on phase 8's Cornell (the central
+# difference's step and the optimize steps' start, a fraction of the true
+# tables, and learning rate)
+CARD_GRAD = dict(side=64, spp=2, target_spp=16, seed=32, eps=3e-4, start=0.7, lr=0.05, steps=3)
+GRAD_SAME_TOL = 1e-3  # |g card - g CPU| / |g CPU| on the same uniforms
+LOUVRE = dict(sheets=32, nz=8, ny=4, rays=4096, level=3)  # 32 x 8 x 4 quads: 2,048 emitters
+BOUNDARY_TOL = 1e-5  # a ray meets a leaf box's boundary: ~100 float32 ulps at 0.5
+CKPT = dict(side=64, photons=8192)  # the checkpointed SPPM render: 64^2 x 8,192 > GRID_MIN_PAIRS
+CLI_SIDE = 64
+CLI_TIMEOUT = 300  # seconds that one CLI child may take
 FLOPS_PER_PAIR = 42  # fp32 operations of one (ray, triangle) Woop test, t included
 PEAK_FP32 = 67e12  # H100 SXM, FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM bytes/s
@@ -783,6 +814,26 @@ def eye_uniforms(rand, r: int, bounces: int) -> dict:
             "direct_light": rand(2, r), "direct_chain": rand(sppm.DIRECT_CHAIN_STEPS, 4, r)}
 
 
+def diff_sppm_uniforms(seed: int, kw: dict) -> dict:
+    """Explicit uniforms of `render_sppm_differentiable` (its docstring's
+    layout) for the render keywords `kw` (width, height, n_photons, num_pass,
+    max_bounce, eye_bounce), drawn on the CPU from `torch.Generator` seed
+    `seed`."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen)
+
+    r, eb, mb = kw["width"] * kw["height"], kw["eye_bounce"], kw["max_bounce"]
+    return {"init": eye_uniforms(rand, r, eb),
+            "corners": [eye_uniforms(rand, r, eb) for _ in range(4)],
+            "passes": [{"photon": photon_uniforms(rand, kw["n_photons"], mb),
+                        "eye": eye_uniforms(rand, r, eb), "jitter": rand(2, r)}
+                       for _ in range(kw["num_pass"])]}
+
+
 def sppm_same_inputs(folder, dev, side: int, n_photons: int, max_bounce: int):
     """One SPPM pass on the same inputs on the card and on the CPU's plain
     path: the photon pass and the eye pass from the same explicit uniforms,
@@ -1026,19 +1077,8 @@ def diff_sppm(dev, card: str, stats: dict, anyhit_err: dict) -> dict:
 
     # the same uniforms, drawn on the CPU, through the grid gathers on both devices
     sside, sphot = DIFF_SAME["side"], DIFF_SAME["photons"]
-    r = sside * sside
-    gen = torch.Generator().manual_seed(17)
-
-    def rand(*shape):
-        return torch.rand(shape, generator=gen)
-
-    eb, mb = kw["eye_bounce"], kw["max_bounce"]
-    uniforms = {"init": eye_uniforms(rand, r, eb),
-                "corners": [eye_uniforms(rand, r, eb) for _ in range(4)],
-                "passes": [{"photon": photon_uniforms(rand, sphot, mb),
-                            "eye": eye_uniforms(rand, r, eb), "jitter": rand(2, r)}
-                           for _ in range(passes)]}
     skw = dict(kw, width=sside, height=sside, n_photons=sphot)
+    uniforms = diff_sppm_uniforms(17, skw)
     same = {}
     t0 = time.perf_counter()
     for name, d, scn in (("cpu", torch.device("cpu"), build_scene(host, "cpu")),
@@ -1761,6 +1801,641 @@ def glass_dof(dev, card: str, stats: dict) -> dict:
                             scene.geom.tiles, scene.geom.tile_aabb, stats, time_it=True)
     b1["bounce"] = fullest
     rec["closest_hit"] = b1
+    return rec
+
+
+def sync(dev) -> float:
+    """The clock after the device's queue has drained."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
+def rel_norm(a, b) -> float:
+    """|a - b| / |b| over the entries where both are finite, in float64."""
+    import torch
+
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[ok].double() - b[ok].double()).norm() / b[ok].double().norm())
+
+
+def grad_kd_ks(dev, card: str) -> dict:
+    """Phase 21.1: the gradient to the diffuse and specular tables (`kd`,
+    `ks`) on phase 8's Cornell by path replay, against a central difference,
+    against the CPU on the same uniforms (with the NaN rows of `n_s`), and
+    three `optimize` steps.  Returns the sub-phase's record."""
+    import numpy as np
+    import torch
+    from gpu_pathtracer_tpu_torch import optim
+    from gpu_pathtracer_tpu_torch.models.camera import Camera
+    from gpu_pathtracer_tpu_torch.models.scene import build_scene
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.ops import linalg
+    from gpu_pathtracer_tpu_torch.render.integrator import (
+        N_UNIFORMS,
+        render_image,
+        render_image_value_and_grad,
+        trace_paths,
+    )
+    from gpu_pathtracer_tpu_torch.utils import obj_io, testscenes
+
+    cg = CARD_GRAD
+    side, spp, level = cg["side"], cg["spp"], MAIN["level"]
+    kw = dict(sample_size=spp, level=level, hittable_pdf_weight=MAIN["weight"])
+    folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_kd_"))
+    testscenes.make_cornell_box(folder, spheres=True, sphere_subdiv=2)
+    host = obj_io.load_scene(folder, "box.obj")
+    scene = build_scene(host, dev)
+    mats = scene.materials
+    cam = Camera.create(**CORNELL_CAM, width=side, height=side, device=dev)
+    with torch.no_grad():
+        target = render_image(scene, cam, side, side, generator=torch.Generator(device=dev).manual_seed(31),
+                              **dict(kw, sample_size=cg["target_spp"]))
+    kd = (mats.kd * cg["start"]).requires_grad_(True)
+    ks = (mats.ks * cg["start"]).requires_grad_(True)
+
+    # autograd by path replay: the main path of the sub-phase
+    reset_launches(ch)
+    t0 = sync(dev)
+    loss, _, (g_kd, g_ks) = render_image_value_and_grad(
+        optim._substitute(scene, {"kd": kd, "ks": ks}), cam, side, side,
+        lambda img: torch.mean((img - target) ** 2), [kd, ks],
+        generator=torch.Generator(device=dev).manual_seed(cg["seed"]), **kw)
+    grad_s = sync(dev) - t0
+    launches = kernel_launches(ch, ah)
+    expected = 2 * spp * level  # one chunk a sample, rendered twice (path replay)
+    log(f"gradient to kd, ks: Cornell {side}x{side} spp {spp} level {level} from {cg['start']} "
+        f"kd, ks: L2 loss {float(loss):.6e} in {grad_s:.3f}s, launches {launches} (expected "
+        f"{expected} closest_hit); d loss / d kd {g_kd.flatten().tolist()}, d loss / d ks "
+        f"{g_ks.flatten().tolist()}; card: {card}")
+    check(launches["closest_hit"] == expected and sum(launches.values()) == expected,
+          f"kd/ks gradient: launches {launches}, expected {expected} closest_hit alone")
+    check(bool(torch.isfinite(g_kd).all() and torch.isfinite(g_ks).all()),
+          "the kd/ks gradient is not finite")
+    check(float(g_kd.abs().max()) > 0 and float(g_ks.abs().max()) > 0,
+          "the kd/ks gradient is zero")
+
+    # a central difference along a seeded random direction in kd-space (no
+    # gradient support where kd == 0), on the same paths; the loss in float64
+    v = torch.as_tensor(np.random.default_rng(0).standard_normal(tuple(kd.shape)),
+                        dtype=torch.float32, device=dev)
+    v[mats.kd.amax(dim=-1) <= 0] = 0.0
+
+    def loss_at(kd_v):
+        with torch.no_grad():
+            img = render_image(optim._substitute(scene, {"kd": kd_v, "ks": ks.detach()}), cam,
+                               side, side, generator=torch.Generator(device=dev).manual_seed(cg["seed"]), **kw)
+        return float(torch.mean((img.double() - target.double()) ** 2))
+
+    eps = cg["eps"]
+    fd = (loss_at(kd.detach() + eps * v) - loss_at(kd.detach() - eps * v)) / (2 * eps)
+    an = float((g_kd.double() * v.double()).sum())
+    fd_rel = abs(an - fd) / max(abs(fd), abs(an), 1e-3)
+    log(f"gradient to kd along a random direction: {an:.6e} by autograd, {fd:.6e} by central "
+        f"difference (eps {eps}), rel diff {fd_rel:.2e}")
+    check(fd_rel < 0.05, f"kd gradient {an} vs central difference {fd}")
+
+    # the same uniforms, drawn on the CPU, card against CPU: kd, ks and n_s
+    # (whose rows of the sphere materials are NaN in both packages)
+    r = side * side * spp
+    uni = torch.rand((level, N_UNIFORMS, r), generator=torch.Generator().manual_seed(33))
+    ii, jj = torch.meshgrid(torch.arange(float(side)), torch.arange(float(side)), indexing="ij")
+    o, dd = Camera.create(**CORNELL_CAM, width=side, height=side).generate_rays(
+        (ii.reshape(-1) + 0.5).repeat(spp), (jj.reshape(-1) + 0.5).repeat(spp), torch.zeros(r),
+        torch.zeros(r))  # spp rays through each pixel centre, sample-major as `render_image`
+    names = ("kd", "ks", "n_s")
+    grads = {}
+    t0 = time.perf_counter()
+    for name, d, scn in (("cpu", torch.device("cpu"), build_scene(host, "cpu")),
+                         ("card", dev, scene)):
+        leaves = {n: optim._get_param(scn.materials, n).detach().clone() for n in names}
+        leaves["kd"] *= cg["start"]
+        leaves["ks"] *= cg["start"]
+        for leaf in leaves.values():
+            leaf.requires_grad_(True)
+        col = linalg.de_nan(trace_paths(optim._substitute(scn, leaves), o.to(d), dd.to(d),
+                                        uniforms=uni.to(d), level=level,
+                                        hittable_pdf_weight=MAIN["weight"]))
+        img = col.reshape(spp, side, side, 3).mean(dim=0)
+        same_loss = torch.mean((img - target.to(d)) ** 2)
+        grads[name] = {n: g.cpu() for n, g in zip(names, torch.autograd.grad(
+            same_loss, list(leaves.values())))}
+    same_s = time.perf_counter() - t0
+    rel = {n: rel_norm(grads["card"][n], grads["cpu"][n]) for n in names}
+    nan_rows = {n: [torch.isnan(grads[s][n]).reshape(len(grads[s][n]), -1).any(dim=-1)
+                    for s in ("card", "cpu")] for n in names}
+    log(f"kd/ks gradient, same uniforms {side}x{side} spp {spp} level {level}, card vs CPU "
+        f"({same_s:.1f}s): |g card - g CPU| / |g CPU| {rel}; NaN rows card / CPU "
+        f"{ {n: [torch.nonzero(m)[:, 0].tolist() for m in v] for n, v in nan_rows.items()} }")
+    check(rel["kd"] < GRAD_SAME_TOL and rel["ks"] < GRAD_SAME_TOL,
+          f"kd/ks gradient card vs CPU on the same uniforms: {rel}")
+    check(all(torch.equal(*v) for v in nan_rows.values()),
+          "kd/ks/n_s gradient: the card's NaN rows are not the CPU's")
+    check(bool(nan_rows["n_s"][1].any()), "no NaN row of the n_s gradient on the CPU")
+
+    # three optimize steps on fixed paths: the loss function draws its paths
+    # from its own seed, so each step's loss is one function of the
+    # parameters, and its fall is the gradient's, not the paths' noise
+    with torch.no_grad():
+        fixed_target = render_image(scene, cam, side, side, generator=torch.Generator(device=dev).manual_seed(7), **kw)
+    start = optim._substitute(scene, {"kd": mats.kd * cg["start"], "ks": mats.ks * cg["start"]})
+    inner = optim.render_loss_fn(start, cam, fixed_target, side, side, **kw)
+    reset_launches(ch)
+    t0 = sync(dev)
+    params, losses = optim.optimize(
+        start, cam, fixed_target, param_names=("kd", "ks"), steps=cg["steps"], lr=cg["lr"],
+        seed=1, loss_fn=lambda p, generator: inner(p, torch.Generator(device=dev).manual_seed(7)))
+    opt_s = sync(dev) - t0
+    at_zero = int(sum(int((params[n] == 0).sum()) for n in params))
+    log(f"optimize kd, ks on fixed paths, {cg['steps']} steps at {side}x{side} from {cg['start']} "
+        f"kd, ks, lr {cg['lr']}: losses {losses} ({opt_s:.1f}s, launches {kernel_launches(ch, ah)}); "
+        f"{at_zero} components at the clamp; kd {params['kd'].flatten().tolist()} (true "
+        f"{mats.kd.flatten().tolist()})")
+    check(len(losses) == cg["steps"] and bool(np.isfinite(losses).all())
+          and all(b < a for a, b in zip(losses, losses[1:])), f"optimize kd, ks: losses {losses}")
+    check(all(bool(torch.isfinite(p).all() and (p >= 0).all()) for p in params.values()),
+          "optimize kd, ks left a negative or non-finite parameter")
+    return dict(launches=launches, grad_s=grad_s, fd_rel=fd_rel, same_rel=rel,
+                nan_rows_n_s=torch.nonzero(nan_rows["n_s"][0])[:, 0].tolist(), losses=losses)
+
+
+def fog_diff_sppm(dev, card: str) -> dict:
+    """Phase 21.2: phase 17's differentiable SPPM step on the fog box with
+    the volume gather, at phase 17's same-uniforms size: its d mean / d ke
+    against a central difference, and card against CPU on uniforms drawn on
+    the CPU.  Returns the sub-phase's record."""
+    import torch
+    from gpu_pathtracer_tpu_torch import optim
+    from gpu_pathtracer_tpu_torch.models.camera import Camera
+    from gpu_pathtracer_tpu_torch.models.scene import build_scene
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.render import sppm
+    from gpu_pathtracer_tpu_torch.utils import config, obj_io, testscenes
+
+    folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_fogdiff_"))
+    sppm_box_master(folder, True, config, testscenes)
+    host = obj_io.load_scene(folder, "box.obj")
+    scene = build_scene(host, dev)
+    check(bool(torch.any(scene.materials.scattering_coef > 0)), "the fog box has no medium")
+    side, photons, passes = DIFF_SAME["side"], DIFF_SAME["photons"], DIFF_SPPM["passes"]
+    cam = Camera.create(**CORNELL_CAM, width=side, height=side, device=dev)
+    kw = dict(width=side, height=side, n_photons=photons, num_pass=passes,
+              max_bounce=DIFF_SPPM["max_bounce"], eye_bounce=DIFF_SPPM["eye_bounce"],
+              gather_grid=True, gather_volume=True)
+    ke0, seed = scene.materials.ke, DIFF_SPPM["seed"]
+    light = ke0.amax(dim=-1) > 0
+
+    reset_launches(ch)
+    img, grad, fwd_s, bwd_s = diff_sppm_step(scene, cam, kw, ke0, seed=seed)
+    launches = kernel_launches(ch, ah)
+    with torch.no_grad():
+        no_vol = sppm.render_sppm_differentiable(scene, cam, **dict(kw, gather_volume=False),
+                                                 seed=seed)
+    vol_share = 1.0 - float(no_vol.double().mean() / img.double().mean())
+    log(f"differentiable SPPM on the fog box: {side}x{side}, {photons} photons x {passes} passes, "
+        f"grid gathers and the volume gather: forward {fwd_s:.3f}s + backward {bwd_s:.3f}s, "
+        f"launches {launches}; image mean {float(img.mean()):.6f} ({vol_share:.4f} of it from the "
+        f"volume gather); d mean / d ke on the light's row {grad[light].flatten().tolist()}; "
+        f"card: {card}")
+    check(launches["closest_hit"] > 0 and launches["anyhit"] > 0
+          and launches["closest_hit_pipe"] == launches["closest_hit_mxu"]
+          == launches["anyhit_pipe"] == 0,
+          f"fog differentiable SPPM: launches {launches}, expected closest_hit and anyhit")
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0 and vol_share > 0,
+          "fog differentiable SPPM: image not finite, black or without the volume term")
+    check(bool(torch.isfinite(grad).all()) and bool((grad[light] != 0).all()),
+          "fog differentiable SPPM: gradient not finite or zero on the light's row")
+
+    with torch.no_grad():
+        sides = [float(sppm.render_sppm_differentiable(
+            optim._substitute(scene, {"ke": ke0 * t}), cam, **kw, seed=seed).double().mean())
+            for t in (1.0 + DIFF_EPS, 1.0 - DIFF_EPS)]
+    fd = (sides[0] - sides[1]) / (2 * DIFF_EPS)
+    an = float((grad * ke0).sum())
+    grad_rel = abs(an - fd) / abs(fd)
+    log(f"fog differentiable SPPM: d mean / d theta for ke * theta = {an:.6e} by autograd, "
+        f"{fd:.6e} by central difference (eps {DIFF_EPS}), rel diff {grad_rel:.2e}")
+    check(fd > 0 and grad_rel < 0.01, f"fog differentiable SPPM gradient {an} vs difference {fd}")
+
+    uniforms = diff_sppm_uniforms(19, kw)
+    same = {}
+    t0 = time.perf_counter()
+    for name, d, scn in (("cpu", torch.device("cpu"), build_scene(host, "cpu")),
+                         ("card", dev, scene)):
+        scam = Camera.create(**CORNELL_CAM, width=side, height=side, device=d)
+        simg, sgrad, _, _ = diff_sppm_step(scn, scam, kw, scn.materials.ke, uniforms=uniforms)
+        same[name] = (simg.cpu(), sgrad.cpu())
+    same_s = time.perf_counter() - t0
+    (img_cpu, g_cpu), (img_card, g_card) = same["cpu"], same["card"]
+    pixel_share = float(torch.isclose(img_card, img_cpu, rtol=1e-4, atol=1e-6).all(dim=-1)
+                        .float().mean())
+    same_rel = float((g_card - g_cpu).norm() / g_cpu.norm())
+    log(f"fog differentiable SPPM, same uniforms: {pixel_share:.4f} of the pixels agree card vs "
+        f"CPU (rtol 1e-4, atol 1e-6), image means {float(img_card.mean()):.6f} / "
+        f"{float(img_cpu.mean()):.6f}; |grad card - grad CPU| / |grad CPU| = {same_rel:.2e} "
+        f"({same_s:.1f}s)")
+    check(pixel_share >= 0.99, f"fog differentiable SPPM same uniforms: {pixel_share:.4f} of pixels")
+    check(same_rel < 0.01, f"fog differentiable SPPM same uniforms: gradients {same_rel:.2e}")
+    return dict(launches=launches, fwd_s=fwd_s, bwd_s=bwd_s, volume_share=vol_share,
+                grad_rel=grad_rel, same_pixels=pixel_share, same_grad_rel=same_rel)
+
+
+def louvre_x(k: int, sheets: int) -> float:
+    """The plane x of sheet k of `louvre_panel`."""
+    return round(0.2 + 0.6 * k / (sheets - 1), 6)
+
+
+def louvre_boundaries(o, d, lv: dict):
+    """For rays (o, d) (float64) against the sheets of `louvre_panel`:
+    whether each starts on a sheet's plane, and whether it crosses a sheet
+    ahead of it on the edge of a quad (both within BOUNDARY_TOL)."""
+    import torch
+
+    xs = torch.tensor([louvre_x(k, lv["sheets"]) for k in range(lv["sheets"])],
+                      dtype=torch.float64)
+    y_edges = 0.55 + 0.4 * torch.arange(lv["ny"] + 1, dtype=torch.float64) / lv["ny"]
+    z_edges = 0.1 + 0.8 * torch.arange(lv["nz"] + 1, dtype=torch.float64) / lv["nz"]
+    gap = xs[None, :] - o[:, :1]
+    plane = (gap.abs() < BOUNDARY_TOL).any(dim=-1)
+    t = gap / d[:, :1]
+    y, z = o[:, 1:2] + t * d[:, 1:2], o[:, 2:3] + t * d[:, 2:3]
+    tol = BOUNDARY_TOL
+    inside = (t > 0) & (y > 0.55 - tol) & (y < 0.95 + tol) & (z > 0.1 - tol) & (z < 0.9 + tol)
+    near = (((y[..., None] - y_edges).abs().amin(dim=-1) < tol)
+            | ((z[..., None] - z_edges).abs().amin(dim=-1) < tol))
+    return plane, (inside & near).any(dim=-1)
+
+
+def louvre_panel(folder, sheets: int, nz: int, ny: int) -> str:
+    """The many-lights box with its 2,048 emitters hung as louvres: `sheets`
+    parallel emitter sheets (planes x = const over the upper half of the
+    box), each `nz` x `ny` quads of `make_emitter_panel`'s LED material.  A
+    ray along x stabs one quad (two leaf boxes) per sheet it crosses.  Writes
+    louvres.obj / .mtl; returns the OBJ's name."""
+    folder = pathlib.Path(folder)
+    mtl = ["newmtl white", "Kd 0.73 0.73 0.73", "Ks 0 0 0", "d 1.0", "Ns 1",
+           "newmtl led", "Kd 0 0 0", "Ke 15 15 15", "d 1.0", "Ns 1"]
+    obj, verts = ["mtllib louvres.mtl"], []
+
+    def quad(*corners):
+        for p in corners:
+            obj.append("v {} {} {}".format(*p))
+        n = len(verts) + 1
+        verts.extend(corners)
+        obj.extend([f"f {n} {n + 1} {n + 2}", f"f {n} {n + 2} {n + 3}"])
+
+    obj.append("usemtl white")
+    quad((0, 0, 0), (0, 0, 1), (1, 0, 1), (1, 0, 0))
+    quad((0, 1, 0), (1, 1, 0), (1, 1, 1), (0, 1, 1))
+    quad((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0))
+    quad((0, 0, 0), (0, 1, 0), (0, 1, 1), (0, 0, 1))
+    quad((1, 0, 0), (1, 0, 1), (1, 1, 1), (1, 1, 0))
+    obj.append("usemtl led")
+    for k in range(sheets):
+        x = louvre_x(k, sheets)
+        for a in range(nz):
+            for b in range(ny):
+                z0, z1 = 0.1 + 0.8 * a / nz, 0.1 + 0.8 * (a + 1) / nz
+                y0, y1 = 0.55 + 0.4 * b / ny, 0.55 + 0.4 * (b + 1) / ny
+                quad((x, y0, z0), (x, y1, z0), (x, y1, z1), (x, y0, z1))  # normal -x
+    (folder / "louvres.mtl").write_text("\n".join(mtl) + "\n")
+    (folder / "louvres.obj").write_text("\n".join(obj) + "\n")
+    return "louvres.obj"
+
+
+def mis_overflow(dev, card: str) -> dict:
+    """Phase 21.3: a `MAX_POTENTIAL_TARGETS` overflow at the default cap on
+    the card.  The panel of phase 15 cannot overflow (its emitters lie in one
+    plane, so a ray stabs at most one LED's two leaf boxes: shown on grazing
+    rays on the CPU); its 2,048 emitters hung as louvres can.  Rays from
+    below the louvres to the left wall under them, whose mixture-pdf rays
+    then run along x through the sheets, on the same uniforms and pick
+    uniforms on card and CPU.  Returns the sub-phase's record."""
+    import numpy as np
+    import torch
+    from gpu_pathtracer_tpu_torch.constants import MAX_POTENTIAL_TARGETS
+    from gpu_pathtracer_tpu_torch.models.scene import build_scene
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.ops import lights as lights_mod
+    from gpu_pathtracer_tpu_torch.ops import trace
+    from gpu_pathtracer_tpu_torch.render.integrator import N_UNIFORMS, trace_paths
+    from gpu_pathtracer_tpu_torch.utils import obj_io, testscenes
+
+    lv = LOUVRE
+    rng = np.random.default_rng(23)
+    n = lv["rays"]
+
+    def unit(v):
+        return torch.as_tensor(v / np.linalg.norm(v, axis=-1, keepdims=True), dtype=torch.float32)
+
+    panel_folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_grazing_"))
+    testscenes.make_emitter_panel(panel_folder, nx=PANEL["nx"], ny=PANEL["ny"])
+    panel = build_scene(obj_io.load_scene(panel_folder, "panel.obj"), "cpu")
+    graze_o = torch.as_tensor(np.stack([np.full(n, 0.001), 0.999 - 10.0 ** rng.uniform(-9, -2, n),
+                                        rng.uniform(0.1, 0.9, n)], -1), dtype=torch.float32)
+    graze_d = unit(np.stack([np.ones(n), rng.uniform(-1e-3, 1e-3, n), rng.uniform(-0.3, 0.3, n)], -1))
+    _, stabbed, _ = lights_mod.collect_hit_leaves(panel.light_tree, graze_o, graze_d,
+                                                  max_k=PANEL["emitters"])
+    panel_most = int(stabbed.sum(dim=-1).max())
+
+    folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_louvres_"))
+    host = obj_io.load_scene(folder, louvre_panel(folder, lv["sheets"], lv["nz"], lv["ny"]))
+    scenes = {"cpu": build_scene(host, "cpu"), "card": build_scene(host, dev)}
+    lt = scenes["card"].light_tree
+    check(scenes["card"].num_lights == PANEL["emitters"] and not lt.dense,
+          f"the louvres have {scenes['card'].num_lights} emitters, dense {lt.dense}")
+    z = rng.uniform(0.15, 0.85, n)
+    origin = np.stack([np.full(n, 0.1), np.full(n, 0.05), z], -1)
+    wall = np.stack([np.zeros(n), rng.uniform(0.6, 0.9, n), z + rng.uniform(-0.05, 0.05, n)], -1)
+    o, d = torch.as_tensor(origin, dtype=torch.float32), unit(wall - origin)
+    gen = torch.Generator().manual_seed(29)
+    uni = torch.rand((lv["level"], N_UNIFORMS, n), generator=gen)
+    picks = torch.rand((lv["level"], lights_mod.descent_steps(lt), n), generator=gen)
+    inner, inner_hit = lights_mod.hittable_pdf_sum_sparse, trace.closest_hit
+
+    def run(name, dv, level):
+        """(radiance, total dropped, seconds, launches, host syncs, [(origin,
+        direction, dropped, counted) of each mixture-pdf sum]): a sum counts
+        where its bounce's closest hit found a surface for a live ray (the
+        louvres have no dielectric, so no false hit)."""
+        calls, hits = [], []
+
+        def recording(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            calls.append((args[1].cpu(), args[2].cpu(), out[1].cpu(), hits[-1]))
+            return out
+
+        def recording_hit(*args, live=None, **kwargs):
+            out = inner_hit(*args, live=live, **kwargs)
+            hits.append((out[3] & live).cpu())
+            return out
+
+        lights_mod.hittable_pdf_sum_sparse = recording
+        trace.closest_hit = recording_hit
+        reset_launches(ch)
+        lights_mod.host_syncs = 0
+        try:
+            t0 = sync(dv)
+            with torch.no_grad():
+                col, stats = trace_paths(scenes[name], o.to(dv), d.to(dv), level=level,
+                                         hittable_pdf_weight=MAIN["weight"],
+                                         uniforms=uni[:level].to(dv),
+                                         pick_uniforms=picks[:level].to(dv), return_stats=True)
+            seconds = sync(dv) - t0
+        finally:
+            lights_mod.hittable_pdf_sum_sparse, trace.closest_hit = inner, inner_hit
+        return (col.cpu(), int(stats["mis_targets_dropped"]), seconds, kernel_launches(ch, ah),
+                lights_mod.host_syncs, calls)
+
+    def agree(a, b):
+        return float(torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=-1).float().mean())
+
+    # the first bounce: every mixture-pdf ray starts on the wall, off the emitters
+    first = {name: run(name, dv, 1) for name, dv in (("cpu", torch.device("cpu")), ("card", dev))}
+    drop1_cpu, drop1_card = first["cpu"][1], first["card"][1]
+    share1 = agree(first["card"][0], first["cpu"][0])
+    launches = first["card"][3]
+    log(f"MIS target cap {MAX_POTENTIAL_TARGETS}: the panel's grazing rays stab at most "
+        f"{panel_most} emitter leaves; the louvres ({lv['sheets']} sheets of {lv['nz']}x{lv['ny']} "
+        f"quads), {n} rays to the wall under them, level 1: mis_targets_dropped {drop1_card} on the "
+        f"card, {drop1_cpu} on the CPU; {share1:.4f} of the rays agree (rtol 1e-4, atol 1e-5); "
+        f"card {first['card'][2]:.3f}s ({launches}, {first['card'][4]} host syncs); card: {card}")
+    check(drop1_cpu > 0, "the louvres' rays dropped no MIS target on the CPU")
+    check(drop1_card == drop1_cpu,
+          f"mis_targets_dropped {drop1_card} on the card, {drop1_cpu} on the CPU")
+    check(share1 >= 0.99, f"MIS overflow, same uniforms: {share1:.4f} of the rays agree")
+    check(launches["closest_hit"] == 1 and sum(launches.values()) == 1,
+          f"MIS overflow: launches {launches}, expected 1 closest_hit")
+
+    # all bounces: a stab turns on the last ulp of a ray that meets a leaf
+    # box's boundary: a ray that starts on a sheet (a hit on an emitter) stabs
+    # that sheet's leaf when its origin lies before the sheet's plane, not on
+    # or after it, and one that crosses a sheet on the edge two quads share
+    # stabs both.  From such a ray on, the two sides' counts may part, and so
+    # may the path (a ray leaving a sheet's plane may meet the sheet again)
+    full = {name: run(name, dv, lv["level"]) for name, dv in (("cpu", torch.device("cpu")),
+                                                              ("card", dev))}
+    share = agree(full["card"][0], full["cpu"][0])
+    met = torch.zeros(n, dtype=torch.bool)  # the ray has met a boundary by this bounce
+    parted, on_plane, on_edge, unexplained, counted_diff = [], 0, 0, 0, 0
+    for b, ((o_cpu, d_cpu, k_cpu, c_cpu), (o_card, d_card, k_card, c_card)) in enumerate(
+            zip(full["cpu"][5], full["card"][5])):
+        plane, edge = louvre_boundaries(o_cpu.double(), d_cpu.double(), lv)
+        met |= c_cpu & (plane | edge)
+        rows = torch.nonzero((c_cpu != c_card) | (c_cpu & (k_cpu != k_card)))[:, 0]
+        counted_diff += int(k_card[c_card].sum()) - int(k_cpu[c_cpu].sum())
+        parted.append(int(rows.numel()))
+        on_plane += int((plane[rows] & c_cpu[rows]).sum())
+        on_edge += int((edge[rows] & ~plane[rows] & c_cpu[rows]).sum())
+        for row in rows[~met[rows]].tolist():
+            unexplained += 1
+            log(f"MIS overflow: bounce {b}, ray {row} parts having met no boundary: origin "
+                f"{o_cpu[row].tolist()} / {o_card[row].tolist()}, direction {d_cpu[row].tolist()} "
+                f"/ {d_card[row].tolist()}, dropped {int(k_cpu[row])} / {int(k_card[row])}, live "
+                f"hit {bool(c_cpu[row])} / {bool(c_card[row])} (CPU / card)")
+    log(f"MIS overflow, level {lv['level']}: mis_targets_dropped {full['card'][1]} on the card, "
+        f"{full['cpu'][1]} on the CPU ({full['card'][3]}, {full['card'][4]} host syncs, "
+        f"{full['card'][2]:.3f}s); rays whose count or path parts, by bounce: {parted}, of them "
+        f"{on_plane} starting on a sheet's plane and {on_edge} crossing a sheet within "
+        f"{BOUNDARY_TOL} of a quad's edge at that bounce, {unexplained} meeting no boundary "
+        f"before; {share:.4f} of the rays agree")
+    check(len(full["card"][5]) == len(full["cpu"][5]) == lv["level"],
+          "MIS overflow: a mixture-pdf sum per bounce expected")
+    check(counted_diff == full["card"][1] - full["cpu"][1],
+          f"MIS overflow: the parted rays account for {counted_diff} of the totals' difference")
+    check(unexplained == 0, f"MIS overflow: {unexplained} rays part having met no leaf box's "
+          "boundary")
+    check(share >= 0.99, f"MIS overflow, level {lv['level']}: {share:.4f} of the rays agree")
+    return dict(launches=launches, dropped=drop1_card, dropped_cpu=drop1_cpu, rays_agree=share1,
+                panel_most_stabbed=panel_most, card_s=first["card"][2],
+                level3=dict(dropped=full["card"][1], dropped_cpu=full["cpu"][1], parted=parted,
+                            parted_on_plane=on_plane, parted_on_edge=on_edge, rays_agree=share,
+                            launches=full["card"][3]))
+
+
+def checkpoint_resume(dev, card: str) -> dict:
+    """Phase 21.4: `optimize` stopped after 2 steps and resumed to 4, and
+    `render_sppm` stopped after 1 pass and resumed to 2, on the card, each
+    against the uninterrupted run bit for bit.  Returns the sub-phase's
+    record."""
+    import numpy as np
+    import torch
+    from gpu_pathtracer_tpu_torch import optim, renderer
+    from gpu_pathtracer_tpu_torch.models.camera import Camera
+    from gpu_pathtracer_tpu_torch.models.scene import build_scene
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.render import sppm
+    from gpu_pathtracer_tpu_torch.render.integrator import render_image
+    from gpu_pathtracer_tpu_torch.utils import config, obj_io, testscenes
+
+    cg = CARD_GRAD
+    side = cg["side"]
+    folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    testscenes.make_cornell_box(folder, spheres=True, sphere_subdiv=2)
+    scene = build_scene(obj_io.load_scene(folder, "box.obj"), dev)
+    cam = Camera.create(**CORNELL_CAM, width=side, height=side, device=dev)
+    kw = dict(sample_size=cg["spp"], level=MAIN["level"], hittable_pdf_weight=MAIN["weight"])
+    with torch.no_grad():
+        target = render_image(scene, cam, side, side, generator=torch.Generator(device=dev).manual_seed(31), **kw)
+    start = optim._substitute(scene, {"kd": scene.materials.kd * cg["start"],
+                                      "ks": scene.materials.ks * cg["start"]})
+    okw = dict(param_names=("kd", "ks"), lr=cg["lr"], seed=3, **kw)
+    reset_launches(ch)
+    t0 = sync(dev)
+    whole, whole_losses = optim.optimize(start, cam, target, steps=4, **okw)
+    ckpt = folder / "optimize"
+    _, first = optim.optimize(start, cam, target, steps=2, checkpoint_dir=str(ckpt), **okw)
+    saved = sorted(p.name for p in ckpt.iterdir())
+    state = torch.load(ckpt / "step_1.pt", map_location=dev, weights_only=True)
+    held = list(state["params"].values()) + [
+        v for s in state["opt_state"]["state"].values() for v in s.values() if v.dim()]
+    resumed, rest = optim.optimize(start, cam, target, steps=4, checkpoint_dir=str(ckpt), **okw)
+    opt_s = sync(dev) - t0
+    opt_launches = kernel_launches(ch, ah)
+    opt_equal = (first + rest == whole_losses
+                 and all(torch.equal(resumed[k], whole[k]) for k in whole))
+    diffs = {k: float((resumed[k] - whole[k]).abs().max()) for k in whole}
+    log(f"optimize checkpoint: 2 steps saved {saved}, resumed to 4: losses {first} + {rest}, "
+        f"uninterrupted {whole_losses}; parameters' largest difference {diffs}; equal bit for bit: "
+        f"{opt_equal}; the checkpoint's {len(held)} tensors loaded on "
+        f"{sorted({str(t.device) for t in held})} ({opt_s:.1f}s, launches {opt_launches})")
+    check(saved == ["step_0.pt", "step_1.pt"], f"optimize checkpoint files {saved}")
+    check(all(t.device.type == dev.type for t in held),
+          "torch.load(map_location=device) left checkpoint state off the card")
+    check(len(rest) == 2, f"the resumed optimize ran {len(rest)} steps, expected 2")
+    check(opt_equal, f"the resumed optimize differs from the uninterrupted one: {diffs}")
+
+    box = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_box_"))
+    cfg = sppm_box_master(box, False, config, testscenes, image_width=CKPT["side"],
+                          image_height=CKPT["side"], ppm_num_photon_per_pass=CKPT["photons"],
+                          ppm_num_pass=2)
+    box_scene, box_cam = renderer.load_scene_from_config(cfg, dev)
+    one = dataclasses.replace(cfg, ppm_num_pass=1)
+    ckpt = box / "sppm"
+    reset_launches(ch)
+    log_whole, log_resumed = [], []
+    t0 = sync(dev)
+    with torch.no_grad():
+        img_whole = sppm.render_sppm(box_scene, box_cam, cfg, cfg.seed, pass_log=log_whole)
+        sppm.render_sppm(box_scene, box_cam, one, cfg.seed, checkpoint_dir=str(ckpt),
+                         checkpoint_every=1)
+        img_resumed = sppm.render_sppm(box_scene, box_cam, cfg, cfg.seed, checkpoint_dir=str(ckpt),
+                                       checkpoint_every=1, pass_log=log_resumed)
+    sppm_s = sync(dev) - t0
+    sppm_launches = kernel_launches(ch, ah)
+    sppm_equal = bool(np.array_equal(img_resumed, img_whole))
+    log(f"render_sppm checkpoint: {CKPT['side']}x{CKPT['side']}, {CKPT['photons']} photons, 1 pass "
+        f"then resumed to 2 (passes run: {[p['it'] for p in log_resumed]}; grid "
+        f"{log_whole[0]['grid']}): equal to the uninterrupted render bit for bit: {sppm_equal}, "
+        f"largest difference {float(np.abs(img_resumed - img_whole).max()):.3e}, image mean "
+        f"{img_whole.mean():.6f} ({sppm_s:.1f}s, launches {sppm_launches}); card: {card}")
+    check([p["it"] for p in log_resumed] == [1], "the resumed render_sppm did not run pass 2 alone")
+    check(log_whole[0]["grid"] and sppm_launches["anyhit"] > 0,
+          "the checkpointed render_sppm did not take the grid gathers on anyhit")
+    check(sppm_equal, "the resumed render_sppm differs from the uninterrupted one")
+    return dict(optimize_launches=opt_launches, sppm_launches=sppm_launches, optimize_s=opt_s,
+                sppm_s=sppm_s, optimize_equal=opt_equal, sppm_equal=sppm_equal)
+
+
+def cli_on_card(dev, card: str) -> dict:
+    """Phase 21.5: `python3 -m gpu_pathtracer_tpu_torch.cli master out.ppm`
+    as a child process without `--device`, on phase 6's Cornell and phase
+    9's SPPM box at 64x64: it must exit 0 on CUDA, write every file that the
+    same command writes with `--device cpu`, and its image must be an
+    in-process `render_from_config`'s to the PPM's 8 bits.  Returns the
+    sub-phase's record."""
+    import os
+
+    from gpu_pathtracer_tpu_torch import renderer
+    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.utils import config, testscenes
+    from gpu_pathtracer_tpu_torch.utils.image import load_ppm, save_ppm
+
+    side = CLI_SIDE
+    cornell = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    testscenes.make_cornell_box(cornell, spheres=True, sphere_subdiv=2)
+    box = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_cli_box_"))
+    configs = {
+        1: (cornell, path_tracing_master(cornell, "box.obj", config, image_width=side,
+                                         image_height=side)),
+        2: (box, sppm_box_master(box, False, config, testscenes, image_width=side,
+                                 image_height=side, ppm_num_pass=1)),
+    }
+    # a user's one-process run: without the job's variables that phase 18's
+    # process group leaves in this process's environment
+    one_process = {k: v for k, v in os.environ.items() if not k.startswith("GPT_TPU_")}
+    rec = {"launches_in_process": {}}
+    for mode, (folder, cfg) in configs.items():
+        check(cfg.render_mode == mode, f"render_mode {cfg.render_mode}, expected {mode}")
+        master = folder / f"cli_master_{mode}.txt"
+        config.write_master_file(cfg, master)
+        # the files the command writes on the CPU, from a tiny copy of the config
+        small = folder / f"cli_small_{mode}.txt"
+        config.write_master_file(dataclasses.replace(
+            cfg, image_width=8, image_height=8, pathtracing_sample_size=1,
+            ppm_num_photon_per_pass=64), small)
+        cpu_dir = folder / "cpu"
+        cpu_dir.mkdir()
+        check(renderer.main([str(small), str(cpu_dir / "out.ppm"), "--device", "cpu"]) == 0,
+              f"the CLI on the CPU failed (render_mode {mode})")
+        cpu_files = sorted(p.name for p in cpu_dir.iterdir())
+
+        card_dir = folder / "card"
+        card_dir.mkdir()
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "gpu_pathtracer_tpu_torch.cli", str(master),
+             str(card_dir / "out.ppm")], cwd=HERE, capture_output=True, text=True,
+            timeout=CLI_TIMEOUT, env=one_process)
+        child_s = time.perf_counter() - t0
+        (card_dir / "cli.log").write_text(child.stdout + child.stderr)
+        card_files = sorted(p.name for p in card_dir.iterdir() if p.suffix == ".ppm")
+        on_cuda = " on cuda" in child.stdout  # the renderer's banner names its device
+        log(f"CLI, render_mode {mode}, {side}x{side}: exit code {child.returncode} in "
+            f"{child_s:.1f}s, ran on CUDA: {on_cuda}; files {card_files} (with --device cpu: "
+            f"{cpu_files}); its log's last lines: {child.stdout.strip().splitlines()[-2:]}")
+        check(child.returncode == 0, f"the CLI exited with {child.returncode} (render_mode {mode}): "
+              f"{child.stderr[-2000:]}")
+        check(on_cuda, f"the CLI's log does not show a CUDA render (render_mode {mode})")
+        check(card_files == cpu_files, f"the CLI wrote {card_files} on the card, {cpu_files} on "
+              "the CPU")
+
+        reset_launches(ch)
+        inproc = dataclasses.replace(cfg, image_output_path=str(folder / "inproc" / "out.ppm"))
+        pathlib.Path(inproc.image_output_path).parent.mkdir()
+        img = renderer.render_from_config(inproc, device=dev)
+        rec["launches_in_process"][mode] = kernel_launches(ch, ah)
+        save_ppm(img, folder / "inproc.ppm")
+        mine, theirs = load_ppm(folder / "inproc.ppm"), load_ppm(card_dir / "out.ppm")
+        differ = int((mine != theirs).any(axis=-1).sum())
+        log(f"CLI, render_mode {mode}: {differ} of {side * side} pixels differ in 8 bits from an "
+            f"in-process render_from_config (launches {rec['launches_in_process'][mode]}); image "
+            f"mean {img.mean():.6f}")
+        check(differ == 0 and mine.shape == (side, side, 3) and int(mine.max()) > 0,
+              f"the CLI's image differs from the in-process render on {differ} pixels "
+              f"(render_mode {mode})")
+        rec[f"mode_{mode}"] = dict(seconds=child_s, files=card_files)
+    return rec
+
+
+def card_paths(dev, card: str) -> dict:
+    """Phase 21: the paths that no earlier phase runs on the card, each held
+    to the port's CPU run; logs each sub-phase's seconds and launches."""
+    rec = {}
+    for name, part in (("kd_ks_gradient", grad_kd_ks), ("fog_diff_sppm", fog_diff_sppm),
+                       ("mis_overflow", mis_overflow), ("checkpoint_resume", checkpoint_resume),
+                       ("cli", cli_on_card)):
+        t0 = time.perf_counter()
+        rec[name] = part(dev, card)
+        rec[name]["seconds"] = time.perf_counter() - t0
+        log(f"phase 21, {name}: {rec[name]['seconds']:.1f}s; card: {card}")
     return rec
 
 
@@ -2625,6 +3300,19 @@ def main() -> int:
     glass = glass_dof(dev, card, stats)
     log(f"phase 20 record: {json.dumps(glass)}")
 
+    phases.start(21)
+    # ---- 21. the paths no earlier phase runs on the card ----------------------------------
+    paths = card_paths(dev, card)
+    log(f"phase 21 record: {json.dumps(paths)}")
+    paths_launches = {k: {"kd_ks_gradient": paths["kd_ks_gradient"]["launches"][k],
+                          "fog_diff_sppm": paths["fog_diff_sppm"]["launches"][k],
+                          "mis_overflow": paths["mis_overflow"]["launches"][k],
+                          "checkpoint_resume": paths["checkpoint_resume"]["optimize_launches"][k]
+                          + paths["checkpoint_resume"]["sppm_launches"][k],
+                          "cli_in_process": sum(m[k] for m in
+                                                paths["cli"]["launches_in_process"].values())}
+                      for k in paths["kd_ks_gradient"]["launches"]}
+
     phases.report()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     record = {"kernels": [
@@ -2632,6 +3320,7 @@ def main() -> int:
             "name": "closest_hit",
             "route": "cuda",
             "scale_out_launches": scale_launches["closest_hit"],
+            "card_paths_launches": paths_launches["closest_hit"],
             "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:519",
             "launches": launches,
@@ -2654,6 +3343,7 @@ def main() -> int:
             "name": "closest_hit_pipe",
             "route": "cuda",
             "scale_out_launches": scale_launches["closest_hit_pipe"],
+            "card_paths_launches": paths_launches["closest_hit_pipe"],
             "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit_pipe.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:609",
             "launches": pipe_launches,
@@ -2682,6 +3372,7 @@ def main() -> int:
             "name": "anyhit",
             "route": "cuda",
             "scale_out_launches": scale_launches["anyhit"],
+            "card_paths_launches": paths_launches["anyhit"],
             "source": "gpu_pathtracer_tpu_torch/csrc/anyhit.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:788",
             "launches": b3_launches,
@@ -2704,6 +3395,7 @@ def main() -> int:
             "name": "anyhit_pipe",
             "route": "cuda",
             "scale_out_launches": scale_launches["anyhit_pipe"],
+            "card_paths_launches": paths_launches["anyhit_pipe"],
             "source": "gpu_pathtracer_tpu_torch/csrc/anyhit_pipe.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:827",
             "launches": b4_launches,
@@ -2727,6 +3419,7 @@ def main() -> int:
             "name": "closest_hit_mxu",
             "route": "cuda",
             "scale_out_launches": scale_launches["closest_hit_mxu"],
+            "card_paths_launches": paths_launches["closest_hit_mxu"],
             "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit_mxu.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:692",
             "launches": mxu_launches,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the card and the CPU part on the same uniforms (`chip_smoke.py`
-phase 5).
+phases 5 and 17).
 
     python3 scripts/split_card_cpu.py [--level 8] [--uniforms FILE.npy] [--out FILE.json]
+    python3 scripts/split_card_cpu.py --diff-sppm [--out FILE.json]
 
 Runs phase 5's query -- the Cornell box with spheres (972 triangles), 32x32
 camera rays through the pixel centres, `trace_paths` at level 8 with
@@ -16,14 +17,28 @@ with a kernel, the CPU with the plain version).  Then it reports:
 - the rays that split (not allclose at rtol 1e-4, atol 1e-5: phase 5's
   test);
 - the first operation whose output differs at all, and the first whose rows
-  of split rays differ: its name, bounce, how many elements differ, whether
-  its tensor inputs were equal on both sides, and each side's largest error
-  in float32 ulps against the same operation replayed in float64 on the CPU;
+  of split rays differ: its name, bounce, shapes and non-tensor arguments,
+  how many elements differ, whether its tensor inputs were equal on both
+  sides, and each side's largest error in float32 ulps against the same
+  operation replayed in float64 on the CPU;
 - the operations that differ with equal inputs, by name, with their largest
   ulp error on each side;
 - per bounce for each split ray, on both sides: the closest hit (slot, t),
   the BSDF lobe (diffuse 1, reflected 2, refracted 4, false hit 8) and the
   light-tree leaf the NEE picked.
+
+`--diff-sppm` records phase 17's same-uniforms render instead: the SPPM box
+(72 triangles), `render_sppm_differentiable` at 32x32 with 1,024 photons, 2
+passes, 8 photon and 8 eye bounces and the grid gathers, from the uniforms
+that phase 17 draws on the CPU (`chip_smoke.diff_sppm_uniforms` seed 17),
+with the emission table `ke` a leaf of autograd.  The forward is recorded,
+with each closest-hit query (`trace.closest_hit`) and each any-hit query
+(`trace.occluded_window`) as one operation; it reports the pixels that split
+(not allclose at rtol 1e-4, atol 1e-6: phase 17's test), the first
+operation that differs, its inputs, the ulp errors and the operations that
+differ with equal inputs as above, and the gradient d mean / d ke on both
+sides.  Its "split rays" are pixels; an operation's rows count as pixels
+where its first dimension is 1,024, which the photon arrays share.
 
 Writes the record to --out (JSON) and prints a summary.  Needs a CUDA card;
 prints the card's name and power limit first.
@@ -44,13 +59,14 @@ import torch  # noqa: E402
 from torch.overrides import TorchFunctionMode  # noqa: E402
 
 import chip_smoke  # noqa: E402
+from gpu_pathtracer_tpu_torch import optim  # noqa: E402
 from gpu_pathtracer_tpu_torch.device import require_cuda  # noqa: E402
 from gpu_pathtracer_tpu_torch.models import convert  # noqa: E402
 from gpu_pathtracer_tpu_torch.models.camera import Camera  # noqa: E402
 from gpu_pathtracer_tpu_torch.models.scene import build_scene  # noqa: E402
 from gpu_pathtracer_tpu_torch.ops import lights, materials, trace  # noqa: E402
-from gpu_pathtracer_tpu_torch.render import integrator  # noqa: E402
-from gpu_pathtracer_tpu_torch.utils import obj_io, testscenes  # noqa: E402
+from gpu_pathtracer_tpu_torch.render import integrator, sppm  # noqa: E402
+from gpu_pathtracer_tpu_torch.utils import config, obj_io, testscenes  # noqa: E402
 
 SIDE, WEIGHT = 32, 0.5
 
@@ -142,11 +158,49 @@ def run(scene, o, d, uni, level):
     return col.cpu(), rec
 
 
+def run_diff_sppm(scene, cam, kw, uniforms):
+    """render_sppm_differentiable under a Recorder, `ke` a leaf of autograd;
+    returns (image, d mean / d ke, recorder)."""
+    rec = Recorder()
+    orig = (trace.closest_hit, trace.occluded_window)
+
+    def closest_hit(*args, **kwargs):
+        rec.bounce += 1
+        return rec.opaque("closest_hit", orig[0], *args, **kwargs)
+
+    def occluded_window(*args, **kwargs):
+        return rec.opaque("occluded_window", orig[1], *args, **kwargs)
+
+    ke = scene.materials.ke.detach().clone().requires_grad_(True)
+    trace.closest_hit, trace.occluded_window = closest_hit, occluded_window
+    try:
+        with rec:
+            img = sppm.render_sppm_differentiable(optim._substitute(scene, {"ke": ke}), cam, **kw,
+                                                  gather_grid=True, uniforms=uniforms)
+    finally:
+        trace.closest_hit, trace.occluded_window = orig
+    (grad,) = torch.autograd.grad(img.mean(), ke)
+    return img.detach().cpu(), grad.cpu(), rec
+
+
 def differs(a, b):
     """Elements of two equal-shaped tensors that differ (NaN equals NaN)."""
     if a.is_floating_point():
         return ~((a == b) | (torch.isnan(a) & torch.isnan(b)))
     return a != b
+
+
+def scene_differences(scene_gpu, scene_cpu) -> dict:
+    """{scene tensor: elements that differ} card against CPU (-1: the shapes
+    differ)."""
+    flat_g, flat_c = convert.scene_to_numpy(scene_gpu), convert.scene_to_numpy(scene_cpu)
+    out = {}
+    for k, c in flat_c.items():
+        n = (int(differs(torch.from_numpy(flat_g[k]), torch.from_numpy(c)).sum())
+             if flat_g[k].shape == c.shape else -1)
+        if n:
+            out[k] = n
+    return out
 
 
 def same_inputs(a, b):
@@ -206,7 +260,10 @@ def compare(gpu, cpu, split_rows, r):
         equal_in = same_inputs(args_g, args_c) and same_inputs(tuple(kw_g.values()),
                                                                tuple(kw_c.values()))
         entry = dict(index=i, name=name, bounce=bounce, elements_differ=n_diff,
-                     inputs_equal=equal_in)
+                     inputs_equal=equal_in, output_shapes=[list(t.shape) for t in tg],
+                     input_shapes=[list(t.shape) for t in tensors(args_c)],
+                     arguments=[a for a in args_c if not isinstance(a, torch.Tensor)]
+                     + list(kw_c.items()))
         if equal_in:
             entry["ulps_card_cpu"] = (ulp_errors(func, args_c, kw_c, (out_g, out_c))
                                       if func is not None else None)
@@ -225,27 +282,72 @@ def compare(gpu, cpu, split_rows, r):
                 differ_with_equal_inputs=by_name)
 
 
+def diff_sppm_split(dev, card: str, out_path: pathlib.Path) -> int:
+    """The `--diff-sppm` mode (see the module docstring)."""
+    folder = pathlib.Path(tempfile.mkdtemp(prefix="split_card_cpu_sppm_"))
+    chip_smoke.sppm_box_master(folder, False, config, testscenes)
+    host = obj_io.load_scene(folder, "box.obj")
+    scenes = {"card": build_scene(host, dev), "cpu": build_scene(host, "cpu")}
+    scene_diff = scene_differences(scenes["card"], scenes["cpu"])
+    side, photons = chip_smoke.DIFF_SAME["side"], chip_smoke.DIFF_SAME["photons"]
+    kw = dict(width=side, height=side, n_photons=photons, num_pass=chip_smoke.DIFF_SPPM["passes"],
+              max_bounce=chip_smoke.DIFF_SPPM["max_bounce"],
+              eye_bounce=chip_smoke.DIFF_SPPM["eye_bounce"])
+    uniforms = chip_smoke.diff_sppm_uniforms(17, kw)
+    res = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        cam = Camera.create(**chip_smoke.CORNELL_CAM, width=side, height=side, device=d)
+        res[name] = run_diff_sppm(scenes[name], cam, kw, uniforms)
+    (img_g, grad_g, rec_g), (img_c, grad_c, rec_c) = res["card"], res["cpu"]
+    r = side * side
+    match = torch.isclose(img_g, img_c, rtol=1e-4, atol=1e-6).all(dim=-1).reshape(-1)
+    split_rows = torch.nonzero(~match)[:, 0]
+    report = compare(rec_g, rec_c, split_rows, r)
+    grad_rel = float((grad_g - grad_c).norm() / grad_c.norm())
+    out = dict(card=card, torch=torch.__version__, mode="diff_sppm", size=side, photons=photons,
+               uniforms="chip_smoke.diff_sppm_uniforms seed 17", pixels=r,
+               match_share=float(match.float().mean()), split_pixels=split_rows.tolist(),
+               split_pixel_values={p: {"card": img_g.reshape(r, 3)[p].tolist(),
+                                       "cpu": img_c.reshape(r, 3)[p].tolist()}
+                                   for p in split_rows.tolist()},
+               grad_card=grad_g.tolist(), grad_cpu=grad_c.tolist(), grad_rel=grad_rel,
+               closest_hit_queries=rec_g.bounce + 1, scene_tensors_differ=scene_diff, **report)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(out, indent=1, default=str))
+    print(f"{r} pixels, {photons} photons: {out['match_share']:.4f} match card vs CPU; split "
+          f"pixels {split_rows.tolist()}; |grad card - grad CPU| / |grad CPU| {grad_rel:.2e}",
+          flush=True)
+    print(f"scene tensors that differ: {scene_diff or 'none'}", flush=True)
+    for key in ("op_sequences_part", "first_difference", "first_difference_on_split_rays"):
+        print(f"{key}: {report[key]}", flush=True)
+    print(f"operations {report['ops_card']} (card) / {report['ops_cpu']} (CPU); differing with "
+          f"equal inputs: {json.dumps(report['differ_with_equal_inputs'])}", flush=True)
+    print(f"record: {out_path}", flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--level", type=int, default=8)
     ap.add_argument("--uniforms", type=pathlib.Path, default=None)
+    ap.add_argument("--diff-sppm", action="store_true",
+                    help="record phase 17's same-uniforms differentiable SPPM render instead")
     ap.add_argument("--out", type=pathlib.Path, default=pathlib.Path("chiprun_out/split_card_cpu.json"))
     args = ap.parse_args()
     dev = require_cuda()
     card = chip_smoke.nvidia_smi()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
+    if args.diff_sppm:
+        out = args.out
+        if out == ap.get_default("out"):
+            out = out.with_name(f"{out.stem}_diff_sppm.json")
+        return diff_sppm_split(dev, card, out)
 
     folder = pathlib.Path(tempfile.mkdtemp(prefix="split_card_cpu_"))
     testscenes.make_cornell_box(folder, spheres=True, sphere_subdiv=2)
     host = obj_io.load_scene(folder, "box.obj")
     scene_gpu, scene_cpu = build_scene(host, dev), build_scene(host, "cpu")
-    flat_g, flat_c = convert.scene_to_numpy(scene_gpu), convert.scene_to_numpy(scene_cpu)
-    scene_diff = {}
-    for k, c in flat_c.items():
-        n = (int(differs(torch.from_numpy(flat_g[k]), torch.from_numpy(c)).sum())
-             if flat_g[k].shape == c.shape else -1)  # -1: the shapes differ
-        if n:
-            scene_diff[k] = n
+    scene_diff = scene_differences(scene_gpu, scene_cpu)
 
     cam = Camera.create(**chip_smoke.CORNELL_CAM, width=SIDE, height=SIDE)
     ii, jj = torch.meshgrid(torch.arange(float(SIDE)), torch.arange(float(SIDE)), indexing="ij")

@@ -165,6 +165,32 @@ def test_mis_cap_overflow_counted_and_parity_at_capacity():
     assert (capped.numpy() <= dense * (1 + 1e-4)).all() and (capped.numpy() < 0.9 * dense).all()
 
 
+def test_overflow_count_at_a_leaf_plane_turns_on_the_origins_last_ulp():
+    """A ray that starts on a flat emitter's plane (a hit on that emitter)
+    does not stab the emitter's leaf box; one float32 ulp before the plane it
+    does, so its drop count is one higher.  JAX counts alike.  A hit point
+    rounded differently (the card's and the CPU's sums part by an ulp) thus
+    moves the overflow count of such rays (`chip_smoke.py` phase 21.3)."""
+    e, k = 96, 10
+    xs = np.linspace(0.5, 5.0, e, dtype=np.float32)
+    tri = np.zeros((e, 3, 3), np.float32)
+    tri[:, :, 0] = xs[:, None]
+    tri[:, 0, 1:] = (-0.1, -0.1)
+    tri[:, 1, 1:] = (0.2, -0.1)
+    tri[:, 2, 1:] = (-0.1, 0.2)
+    tri_n = np.tile(np.array([-1.0, 0.0, 0.0], np.float32), (e, 3, 1))
+    jlt = jlights.build_light_tree(jnp.asarray(tri), jnp.asarray(tri_n), jnp.zeros((e, 3, 2)),
+                                   jnp.ones((e, 3)), jnp.arange(e, dtype=jnp.int32))
+    lt = _port_tree(jlt)
+    x = np.array([xs[k], np.nextafter(xs[k], np.float32(-np.inf))], np.float32)
+    origin = np.stack([x, np.zeros(2, np.float32), np.zeros(2, np.float32)], -1)
+    direction = np.tile(np.array([[1.0, 0.0, 0.0]], np.float32), (2, 1))
+    _, _, dropped = lights.collect_hit_leaves(lt, _t(origin), _t(direction))
+    _, _, jdropped = jlights.collect_hit_leaves(jlt, origin, direction, max_k=32)
+    np.testing.assert_array_equal(dropped.numpy(), [e - k - 1 - 32, e - k - 32])
+    np.testing.assert_array_equal(dropped.numpy(), np.asarray(jdropped))
+
+
 def _descent_uniforms(key, steps: int, r: int) -> np.ndarray:
     """(steps, R): `pick_light` folds its key by the step."""
     return np.stack([np.asarray(jax.random.uniform(jax.random.fold_in(key, s), (r,)))

@@ -178,7 +178,16 @@ Phases (any failure exits non-zero; nothing is caught):
      uninterrupted run, the checkpoint loaded onto the card; (5) the CLI as a
      child process without `--device` on phase 6's Cornell and phase 9's
      box at 64x64: exit 0, a CUDA render in its log, the files that the CPU
-     run writes, the image an in-process render's to 8 bits.
+     run writes, the image an in-process render's to 8 bits;
+ 22. the bench: `python3 bench_torch.py` as a child process on the card at a
+     small size (64x64, spp 2, level 4; 16,384 photons; the SPPM legs at
+     64x64 with 8,192 photons, the differentiable one at 32x32 with 1,024; one
+     timed call a leg): exit 0, a line for each of its eight legs, each leg's
+     launches those of its path (forward, backward and glass + DoF on
+     `closest_hit` alone and the mesh on `closest_hit_pipe` alone, each by
+     its count; the SPPM legs and the differentiable step on `closest_hit`
+     and `anyhit`), the final line `bench.py`'s with its `detail` keys,
+     `backend` cuda, the card's name and power limit.
 To keep the run short some references run at a smaller depth than the main
 paths: the Cornell SPPM render makes 2 of the bench's passes and its CPU
 reference is 48x48, the render forced onto `closest_hit` and the mesh's CPU
@@ -251,6 +260,21 @@ BOUNDARY_TOL = 1e-5  # a ray meets a leaf box's boundary: ~100 float32 ulps at 0
 CKPT = dict(side=64, photons=8192)  # the checkpointed SPPM render: 64^2 x 8,192 > GRID_MIN_PAIRS
 CLI_SIDE = 64
 CLI_TIMEOUT = 300  # seconds that one CLI child may take
+# phase 22: `bench_torch.py` as a child process, every leg at a small size
+BENCH_SMALL = dict(BENCH_SIZE=64, BENCH_SPP=2, BENCH_LEVEL=4, BENCH_PHOTONS=16384,
+                   BENCH_SPPM_SIZE=64, BENCH_SPPM_PHOTONS=8192, BENCH_DIFF_SPPM_SIZE=32,
+                   BENCH_DIFF_SPPM_PHOTONS=1024, BENCH_REPEATS=1)
+BENCH_LEGS = ("forward", "backward", "photon_pass", "glass_dof", "mesh", "sppm_cornell",
+              "sppm_fog", "diff_sppm")
+# the final line's `detail`: bench.py's keys, the card's name and power limit
+BENCH_DETAIL_KEYS = frozenset((
+    "size", "spp", "level", "scene", "num_tris", "seconds_fwd", "backend", "grad_rays_per_sec",
+    "seconds_bwd", "sppm_photons_per_sec", "seconds_photon_pass", "rays_per_sec_fwd_glass_dof",
+    "seconds_fwd_glass_dof", "rays_per_sec_fwd_mesh", "seconds_fwd_mesh", "mesh_num_tris",
+    "sppm_pass_seconds_cornell", "sppm_pixels_per_sec_cornell", "sppm_pass_seconds_fog",
+    "sppm_pixels_per_sec_fog", "sppm_pass_size", "sppm_pass_photons", "sppm_diff_step_seconds",
+    "sppm_diff_pixels_per_sec", "sppm_diff_size", "sppm_diff_photons", "device", "power_limit"))
+BENCH_TIMEOUT = 300  # seconds that the bench's child may take
 FLOPS_PER_PAIR = 42  # fp32 operations of one (ray, triangle) Woop test, t included
 PEAK_FP32 = 67e12  # H100 SXM, FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM bytes/s
@@ -2439,6 +2463,76 @@ def card_paths(dev, card: str) -> dict:
     return rec
 
 
+def bench_on_card(card: str) -> dict:
+    """Phase 22: `python3 bench_torch.py` as a child process at `BENCH_SMALL`'s
+    sizes, on the card (no `--device`) and without the job variables of
+    phase 18: it must exit 0 and print one line per leg of `BENCH_LEGS` and
+    `bench.py`'s final line with `BENCH_DETAIL_KEYS`; each leg's launches in
+    its timed calls must be those of its path.  Returns the child's seconds
+    and each leg's median, peak memory and launches summed over its timed
+    calls."""
+    import math
+    import os
+
+    import torch
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("GPT_TPU_", "BENCH_"))}
+    env.update({k: str(v) for k, v in BENCH_SMALL.items()})
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(HERE / "bench_torch.py")], cwd=HERE,
+                           capture_output=True, text=True, timeout=BENCH_TIMEOUT, env=env)
+    seconds = time.perf_counter() - t0
+    out = child.stdout.strip().splitlines()
+    log(f"bench_torch.py at {BENCH_SMALL}: exit code {child.returncode} in {seconds:.1f}s; "
+        f"its output:")
+    for line in out:
+        log(f"  {line}")
+    check(child.returncode == 0, f"bench_torch.py exited with {child.returncode}: "
+          f"{child.stderr[-2000:]}")
+    lines = [json.loads(line) for line in out]
+    legs, final = lines[:-1], lines[-1]
+    check([leg.get("leg") for leg in legs] == list(BENCH_LEGS),
+          f"bench_torch.py printed the legs {[leg.get('leg') for leg in legs]}")
+    launches = {leg["leg"]: {k: sum(n) for k, n in leg["launches"].items()} for leg in legs}
+
+    small, reps = BENCH_SMALL, BENCH_SMALL["BENCH_REPEATS"]
+    chunks = -(-small["BENCH_SIZE"] ** 2 // WAVE_RAYS)
+    per_sample = chunks * small["BENCH_LEVEL"] * reps
+    only = {  # the launches of each leg that depend on no data: the one kernel, a count
+        "forward": ("closest_hit", per_sample * small["BENCH_SPP"]),
+        "backward": ("closest_hit", 2 * per_sample * max(1, small["BENCH_SPP"] // 4)),
+        "glass_dof": ("closest_hit", per_sample * max(1, small["BENCH_SPP"] // 2) * 2),
+        "mesh": ("closest_hit_pipe", per_sample * small["BENCH_SPP"]),
+    }
+    for leg, (kernel, n) in only.items():
+        want = {k: n if k == kernel else 0 for k in launches[leg]}
+        check(launches[leg] == want, f"bench leg {leg}: launches {launches[leg]}, expected {want}")
+    box_kernels = ("closest_hit", "anyhit")  # the SPPM box: below PALLAS_MAX
+    for leg in ("sppm_cornell", "sppm_fog", "diff_sppm"):
+        check(all(launches[leg][k] > 0 for k in box_kernels)
+              and all(n == 0 for k, n in launches[leg].items() if k not in box_kernels),
+              f"bench leg {leg}: launches {launches[leg]}")
+    check(launches["photon_pass"]["closest_hit"] > 0 and sum(launches["photon_pass"].values())
+          == launches["photon_pass"]["closest_hit"],
+          f"bench leg photon_pass: launches {launches['photon_pass']}")
+
+    detail = final.get("detail", {})
+    check(final.get("metric") == "rays_per_sec_fwd_512" and final.get("unit") == "rays/s"
+          and final.get("vs_baseline", 0) is None and math.isfinite(final.get("value", math.nan))
+          and final["value"] > 0, f"bench_torch.py's final line: {final}")
+    check(set(detail) == BENCH_DETAIL_KEYS,
+          f"the final line's detail keys differ from bench.py's: "
+          f"{sorted(set(detail) ^ BENCH_DETAIL_KEYS)}")
+    check(detail["backend"] == "cuda" and detail["device"] == torch.cuda.get_device_name(0)
+          and detail["power_limit"] == card, f"bench_torch.py ran on {detail['backend']}, "
+          f"{detail['device']}, {detail['power_limit']}")
+    log(f"phase 22: bench_torch.py's {len(legs)} legs on the card in {seconds:.1f}s, "
+        f"launches {launches}; card: {card}")
+    return dict(seconds=seconds, launches=launches,
+                legs={leg["leg"]: dict(median_s=leg["median_s"], peak_gb=leg["peak_gb"])
+                      for leg in legs})
+
+
 def wavefronts(scene, camera, n_rays: int, bounces: int, seed: int):
     """(origin, direction, live) of each closest-hit call of `trace_paths`
     for camera rays of the given view, bounce by bounce."""
@@ -3313,6 +3407,13 @@ def main() -> int:
                                                 paths["cli"]["launches_in_process"].values())}
                       for k in paths["kd_ks_gradient"]["launches"]}
 
+    phases.start(22)
+    # ---- 22. the bench on the card ---------------------------------------------------------
+    bench = bench_on_card(card)
+    log(f"phase 22 record: {json.dumps(bench)}")
+    bench_launches = {k: {leg: n[k] for leg, n in bench["launches"].items()}
+                      for k in paths_launches}
+
     phases.report()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     record = {"kernels": [
@@ -3321,6 +3422,7 @@ def main() -> int:
             "route": "cuda",
             "scale_out_launches": scale_launches["closest_hit"],
             "card_paths_launches": paths_launches["closest_hit"],
+            "bench_launches": bench_launches["closest_hit"],
             "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:519",
             "launches": launches,
@@ -3344,6 +3446,7 @@ def main() -> int:
             "route": "cuda",
             "scale_out_launches": scale_launches["closest_hit_pipe"],
             "card_paths_launches": paths_launches["closest_hit_pipe"],
+            "bench_launches": bench_launches["closest_hit_pipe"],
             "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit_pipe.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:609",
             "launches": pipe_launches,
@@ -3373,6 +3476,7 @@ def main() -> int:
             "route": "cuda",
             "scale_out_launches": scale_launches["anyhit"],
             "card_paths_launches": paths_launches["anyhit"],
+            "bench_launches": bench_launches["anyhit"],
             "source": "gpu_pathtracer_tpu_torch/csrc/anyhit.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:788",
             "launches": b3_launches,
@@ -3396,6 +3500,7 @@ def main() -> int:
             "route": "cuda",
             "scale_out_launches": scale_launches["anyhit_pipe"],
             "card_paths_launches": paths_launches["anyhit_pipe"],
+            "bench_launches": bench_launches["anyhit_pipe"],
             "source": "gpu_pathtracer_tpu_torch/csrc/anyhit_pipe.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:827",
             "launches": b4_launches,
@@ -3420,6 +3525,7 @@ def main() -> int:
             "route": "cuda",
             "scale_out_launches": scale_launches["closest_hit_mxu"],
             "card_paths_launches": paths_launches["closest_hit_mxu"],
+            "bench_launches": bench_launches["closest_hit_mxu"],
             "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit_mxu.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:692",
             "launches": mxu_launches,

@@ -56,7 +56,6 @@ import json
 import math
 import os
 import pathlib
-import subprocess
 import sys
 import tempfile
 import time
@@ -64,7 +63,7 @@ import time
 import torch
 
 from gpu_pathtracer_tpu_torch import optim
-from gpu_pathtracer_tpu_torch.device import resolve_device
+from gpu_pathtracer_tpu_torch.device import nvidia_smi, resolve_device
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
 from gpu_pathtracer_tpu_torch.ops import anyhit, closest_hit
@@ -87,15 +86,6 @@ KERNELS = {
 
 def _env(name: str, default: str) -> int:
     return int(os.environ.get(name, default))
-
-
-def nvidia_smi() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def _sync(dev: torch.device) -> None:

@@ -187,7 +187,16 @@ Phases (any failure exits non-zero; nothing is caught):
      `closest_hit` alone and the mesh on `closest_hit_pipe` alone, each by
      its count; the SPPM legs and the differentiable step on `closest_hit`
      and `anyhit`), the final line `bench.py`'s with its `detail` keys,
-     `backend` cuda, the card's name and power limit.
+     `backend` cuda, the card's name and power limit;
+ 23. the scaling harness: `python3 bench_scaling_torch.py` as a child process at
+     its defaults (256x256, spp 4, level 4) twice, (a) one rank a GPU over NCCL
+     and (b) `--virtual 4`, 1, 2 and 4 gloo ranks sharing the card: exit 0,
+     `bench_scaling.py`'s line with the port's keys, the sweep's sizes, every
+     image the one-rank image bit for bit, `backend` cuda and the collective
+     backend of each, the card's name and power limit, and each member's
+     launches in the timed call 16 `closest_hit` and no other kernel.  A
+     virtual sweep on one card measures the sharding machinery and the host,
+     not scaling across GPUs.
 To keep the run short some references run at a smaller depth than the main
 paths: the Cornell SPPM render makes 2 of the bench's passes and its CPU
 reference is 48x48, the render forced onto `closest_hit` and the mesh's CPU
@@ -220,6 +229,7 @@ GATHER_CHUNK = 16384  # pixels per chunk of the grid gather: one any-hit query i
 CORNELL_CAM = dict(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0), fovy_deg=40.0)
 MESH_CAM = dict(eye=(0.5, 0.8, 2.2), center=(0.5, 0.45, 0.5), up=(0, 1, 0), fovy_deg=45.0)
 WAVE_RAYS = 65536  # one wavefront of the main paths
+KERNEL_NAMES = ("closest_hit", "closest_hit_pipe", "anyhit", "anyhit_pipe", "closest_hit_mxu")
 MESH_SUBDIV, MESH_TRIS = 7, 327684  # the large-mesh configuration
 MESH_CPU_SUBDIV = 5  # the mesh that the CPU plain path renders as the reference
 TOL_RTOL = 1e-6  # t where slots agree: same float32 ops, no FMA on either side
@@ -275,6 +285,20 @@ BENCH_DETAIL_KEYS = frozenset((
     "sppm_pixels_per_sec_fog", "sppm_pass_size", "sppm_pass_photons", "sppm_diff_step_seconds",
     "sppm_diff_pixels_per_sec", "sppm_diff_size", "sppm_diff_photons", "device", "power_limit"))
 BENCH_TIMEOUT = 300  # seconds that the bench's child may take
+# phase 23: `bench_scaling_torch.py` as a child process at its defaults (BENCH_SIZE 256,
+# BENCH_SPP 4, BENCH_LEVEL 4), over NCCL and with `--virtual SCALING_VIRTUAL`
+SCALING = dict(size=256, spp=4, level=4)
+SCALING_VIRTUAL = 4
+SCALING_SIZES = (1, 2, 4, 8, 16, 32)
+# its final line: bench_scaling.py's keys and the port's additions
+SCALING_KEYS = frozenset(("metric", "value", "unit", "vs_baseline", "detail"))
+SCALING_DETAIL_KEYS = frozenset((
+    "sweep", "size", "spp", "level", "backend", "virtual_mesh", "collective_backend", "device",
+    "power_limit"))
+SCALING_SWEEP_KEYS = frozenset((
+    "n", "seconds", "rays_per_sec", "efficiency", "bit_for_bit", "member_seconds",
+    "member_launches", "member_collectives", "member_peak_gb"))
+SCALING_TIMEOUT = 600  # seconds that one child of the harness may take
 FLOPS_PER_PAIR = 42  # fp32 operations of one (ray, triangle) Woop test, t included
 PEAK_FP32 = 67e12  # H100 SXM, FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM bytes/s
@@ -310,11 +334,11 @@ def check(ok: bool, what: str) -> None:
 
 
 def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
+    """`device.nvidia_smi`: the card's name and power limit (the scripts call
+    it by this name)."""
+    from gpu_pathtracer_tpu_torch.device import nvidia_smi as query
+
+    return query()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1151,40 +1175,18 @@ def diff_sppm(dev, card: str, stats: dict, anyhit_err: dict) -> dict:
 
 
 def rendezvous(rank: int, world: int, port_file, timeout: float):
-    """Set the `GPT_TPU_*` variables of a process group of `world` processes
-    on this host, with no race for its port: rank 0 binds the group's store
-    on a port that the OS picks (`init_distributed`'s own store on that port
-    then shares this server: `multi_tenant`) and writes the port to
-    `port_file`, which the other ranks wait for.  Returns rank 0's store,
-    which must outlive the group (None on the other ranks)."""
-    import datetime
-    import os
+    """`parallel.launch.rendezvous` (the two-rank tests' ranks call it by this
+    name)."""
+    from gpu_pathtracer_tpu_torch.parallel import launch
 
-    import torch.distributed as dist
-
-    port_file = pathlib.Path(port_file)
-    store = None
-    if rank == 0:
-        store = dist.TCPStore("127.0.0.1", 0, world, True, multi_tenant=True,
-                              wait_for_workers=False, timeout=datetime.timedelta(seconds=timeout))
-        port_file.with_suffix(".tmp").write_text(str(store.port))
-        os.replace(port_file.with_suffix(".tmp"), port_file)
-    else:
-        deadline = time.monotonic() + timeout
-        while not port_file.exists():
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"rank 0 wrote no port to {port_file} in {timeout} s")
-            time.sleep(0.05)
-    os.environ.update(GPT_TPU_COORDINATOR=f"127.0.0.1:{port_file.read_text()}",
-                      GPT_TPU_NUM_PROCESSES=str(world), GPT_TPU_PROCESS_ID=str(rank))
-    return store
+    return launch.rendezvous(rank, world, port_file, timeout)
 
 
 def exit_reason(rc: int) -> str:
-    """A child's exit code in words: the signal that ended it, if one did."""
-    import signal
+    """`parallel.launch.exit_reason`: a child's exit code in words."""
+    from gpu_pathtracer_tpu_torch.parallel import launch
 
-    return f"killed by {signal.Signals(-rc).name}" if rc < 0 else f"exited with code {rc}"
+    return launch.exit_reason(rc)
 
 
 def kernel_launches(ch, ah) -> dict:
@@ -1196,14 +1198,13 @@ def kernel_launches(ch, ah) -> dict:
 
 
 def scale_out_rank(rank: int, out_dir: str, cornell_dir: str, box_dir: str) -> int:
-    """One of phase 18(b)'s two ranks (`chip_smoke.py --scale-out-rank R OUT
-    CORNELL BOX`): a gloo group of 2 on `cuda:0` (rank 0 binds its port and
-    hands it on through OUT/port); the sharded render, the sharded photon
-    pass, the sharded differentiable SPPM step and one
-    `train_step_distributed`.  Rank 0 writes the results; each rank writes
-    its seconds and launches."""
+    """One of phase 18(b)'s two ranks (`chip_smoke.py --scale-out-rank OUT
+    CORNELL BOX --rank R`, started by `parallel.launch.run_ranks`): a gloo
+    group of 2 on `cuda:0` (rank 0 binds its port and hands it on through
+    OUT/port); the sharded render, the sharded photon pass, the sharded
+    differentiable SPPM step and one `train_step_distributed`.  Rank 0
+    writes the results; each rank writes its seconds and launches."""
     import functools
-    import os
 
     import numpy as np
     import torch
@@ -1294,7 +1295,6 @@ def scale_out(dev, card: str, folder, master, img, sppm_folder, scfg) -> dict:
     gloo sharing the card (`scale_out_rank`), each result against the same
     computation in this process.  Returns the phase's record."""
     import functools
-    import os
 
     import numpy as np
     import torch
@@ -1304,7 +1304,7 @@ def scale_out(dev, card: str, folder, master, img, sppm_folder, scfg) -> dict:
     from gpu_pathtracer_tpu_torch.ops import anyhit as ah
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
     from gpu_pathtracer_tpu_torch.parallel import dist as pdist
-    from gpu_pathtracer_tpu_torch.parallel import shard, sppm_shard
+    from gpu_pathtracer_tpu_torch.parallel import launch, shard, sppm_shard
     from gpu_pathtracer_tpu_torch.render import sppm
     from gpu_pathtracer_tpu_torch.render.integrator import render_image_value_and_grad
     from gpu_pathtracer_tpu_torch.utils import config
@@ -1368,37 +1368,15 @@ def scale_out(dev, card: str, folder, master, img, sppm_folder, scfg) -> dict:
                                                        for p in slog],
                        launches=slaunches, collectives=scolls)
 
-    # ---- (b) two ranks on gloo sharing the card; each writes its output to a
-    # file (no pipe to fill), gloo on the loopback interface, one time limit
-    # from their start
-    procs, logs = [], [out_dir / f"rank{r}.log" for r in range(2)]
-    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", PYTHONUNBUFFERED="1")
-    t0 = time.perf_counter()
+    # ---- (b) two ranks on gloo sharing the card (`parallel.launch.run_ranks`:
+    # each writes its output to a file, gloo on the loopback interface, one
+    # time limit from their start)
+    ranks_s = max(launch.run_ranks(
+        [sys.executable, HERE / "chip_smoke.py", "--scale-out-rank", out_dir, folder,
+         sppm_folder], 2, out_dir, RANK_TIMEOUT))
     for r in range(2):
-        with open(logs[r], "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, str(HERE / "chip_smoke.py"), "--scale-out-rank", str(r),
-                 str(out_dir), str(folder), str(sppm_folder)],
-                stdout=f, stderr=subprocess.STDOUT, env=env))
-    timed_out = False
-    try:
-        for p in procs:
-            p.wait(timeout=max(0.0, t0 + RANK_TIMEOUT - time.perf_counter()))
-    except subprocess.TimeoutExpired:
-        timed_out = True
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    ranks_s = time.perf_counter() - t0
-    for r, p in enumerate(procs):
-        text = logs[r].read_text()
-        for line in text.strip().splitlines()[-6:]:
+        for line in (out_dir / f"rank{r}.log").read_text().strip().splitlines()[-6:]:
             log(f"rank {r}: {line}")
-        check(p.returncode == 0, f"phase 18: rank {r} {exit_reason(p.returncode)} after "
-              f"{ranks_s:.1f}s{f' (the limit of {RANK_TIMEOUT} s)' if timed_out else ''}:\n"
-              f"{text[-3000:]}")
     got = dict(np.load(out_dir / "results.npz"))
     ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
     for rk in ranks:
@@ -2533,6 +2511,68 @@ def bench_on_card(card: str) -> dict:
                       for leg in legs})
 
 
+def scaling_on_card(card: str) -> dict:
+    """Phase 23: `python3 bench_scaling_torch.py` as a child process at its
+    defaults, without the job variables and `BENCH_*` knobs of this process:
+    (a) without `--virtual` (one rank a GPU over NCCL), (b) with `--virtual
+    SCALING_VIRTUAL` (gloo ranks sharing `cuda:0`).  Each must exit 0 and
+    print `bench_scaling.py`'s line with the port's keys, sweep N over the
+    sizes of its rank count with every image the one-rank image bit for bit,
+    and each member must launch `closest_hit` the path's count in the timed
+    call and no other kernel.  Returns each child's seconds, line and
+    launches."""
+    import os
+
+    import torch
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("GPT_TPU_", "BENCH_"))}
+    per_member = -(-SCALING["size"] ** 2 // WAVE_RAYS) * SCALING["spp"] * SCALING["level"]
+    rec = {}
+    for part, flags, backend, world in (
+            ("nccl", [], "nccl", torch.cuda.device_count()),
+            ("virtual", ["--virtual", str(SCALING_VIRTUAL)], "gloo", SCALING_VIRTUAL)):
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, str(HERE / "bench_scaling_torch.py"), *flags],
+                               cwd=HERE, capture_output=True, text=True, timeout=SCALING_TIMEOUT,
+                               env=env)
+        seconds = time.perf_counter() - t0
+        log(f"bench_scaling_torch.py {' '.join(flags)}: exit code {child.returncode} in "
+            f"{seconds:.1f}s")
+        check(child.returncode == 0, f"bench_scaling_torch.py {' '.join(flags)} exited with "
+              f"{child.returncode}:\n{child.stdout[-2000:]}\n{child.stderr[-4000:]}")
+        final = json.loads(child.stdout.strip().splitlines()[-1])
+        detail = final.get("detail", {})
+        sweep = detail.get("sweep", [])
+        for e in sweep:
+            log(f"  ({part}) N={e['n']}: {e['seconds']} s, {e['rays_per_sec']} rays/s, efficiency "
+                f"{e['efficiency']}, bit for bit {e['bit_for_bit']}; members' seconds "
+                f"{[round(t, 4) for t in e['member_seconds']]}, peak GB {e['member_peak_gb']}, "
+                f"collectives {e['member_collectives']}; card: {card}")
+        check(set(final) == SCALING_KEYS and set(detail) == SCALING_DETAIL_KEYS
+              and all(set(e) == SCALING_SWEEP_KEYS for e in sweep),
+              f"bench_scaling_torch.py's line has the keys {sorted(final)}, detail "
+              f"{sorted(detail)}, sweep {[sorted(e) for e in sweep]}")
+        check([e["n"] for e in sweep] == [n for n in SCALING_SIZES if n <= world],
+              f"bench_scaling_torch.py ({part}) swept {[e['n'] for e in sweep]} on {world} ranks")
+        check(all(e["bit_for_bit"] for e in sweep),
+              f"bench_scaling_torch.py ({part}): an image is not the one-rank image bit for bit")
+        check(detail["backend"] == "cuda" and detail["collective_backend"] == backend
+              and detail["virtual_mesh"] == bool(flags)
+              and (detail["size"], detail["spp"], detail["level"]) == tuple(SCALING.values()),
+              f"bench_scaling_torch.py ({part}): {detail['backend']}, "
+              f"{detail['collective_backend']}, virtual {detail['virtual_mesh']}")
+        check(detail["device"] == torch.cuda.get_device_name(0) and detail["power_limit"] == card,
+              f"bench_scaling_torch.py ran on {detail['device']}, {detail['power_limit']}")
+        want = {k: per_member if k == "closest_hit" else 0 for k in KERNEL_NAMES}
+        for e in sweep:
+            check(len(e["member_launches"]) == e["n"]
+                  and all(m == want for m in e["member_launches"]),
+                  f"bench_scaling_torch.py ({part}) N={e['n']}: members' launches "
+                  f"{e['member_launches']}, expected {want} each")
+        rec[part] = dict(seconds=seconds, value=final["value"], unit=final["unit"], sweep=sweep)
+    return rec
+
+
 def wavefronts(scene, camera, n_rays: int, bounces: int, seed: int):
     """(origin, direction, live) of each closest-hit call of `trace_paths`
     for camera rays of the given view, bounce by bounce."""
@@ -2712,7 +2752,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(HERE))
     if sys.argv[1:2] == ["--scale-out-rank"]:
-        rank, out_dir, cornell_dir, box_dir = sys.argv[2:6]
+        out_dir, cornell_dir, box_dir, flag, rank = sys.argv[2:7]
+        check(flag == "--rank", "usage: chip_smoke.py --scale-out-rank OUT CORNELL BOX --rank R")
         return scale_out_rank(int(rank), out_dir, cornell_dir, box_dir)
     import numpy as np
     import torch
@@ -2749,12 +2790,11 @@ def main() -> int:
 
     phases.start(2)
     # ---- 2. build -----------------------------------------------------------
-    kernels = ("closest_hit", "closest_hit_pipe", "anyhit", "anyhit_pipe", "closest_hit_mxu")
     t0 = time.perf_counter()
-    libs = _build.build_many(kernels)
+    libs = _build.build_many(KERNEL_NAMES)
     log(f"built {', '.join(str(p.relative_to(HERE)) for p in libs)} in "
         f"{time.perf_counter() - t0:.2f}s (all compilers started together)")
-    for name, lib_path in zip(kernels, libs):
+    for name, lib_path in zip(KERNEL_NAMES, libs):
         _build.load(name)
         for line in (lib_path.parent / "nvcc.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -3414,6 +3454,14 @@ def main() -> int:
     bench_launches = {k: {leg: n[k] for leg, n in bench["launches"].items()}
                       for k in paths_launches}
 
+    phases.start(23)
+    # ---- 23. the scaling harness on the card -----------------------------------------------
+    scaling = scaling_on_card(card)
+    log(f"phase 23 record: {json.dumps(scaling)}")
+    scaling_launches = {k: {part: [[m[k] for m in e["member_launches"]] for e in r["sweep"]]
+                            for part, r in scaling.items()}
+                        for k in KERNEL_NAMES}
+
     phases.report()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     record = {"kernels": [
@@ -3423,6 +3471,7 @@ def main() -> int:
             "scale_out_launches": scale_launches["closest_hit"],
             "card_paths_launches": paths_launches["closest_hit"],
             "bench_launches": bench_launches["closest_hit"],
+            "scaling_launches": scaling_launches["closest_hit"],
             "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:519",
             "launches": launches,
@@ -3447,6 +3496,7 @@ def main() -> int:
             "scale_out_launches": scale_launches["closest_hit_pipe"],
             "card_paths_launches": paths_launches["closest_hit_pipe"],
             "bench_launches": bench_launches["closest_hit_pipe"],
+            "scaling_launches": scaling_launches["closest_hit_pipe"],
             "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit_pipe.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:609",
             "launches": pipe_launches,
@@ -3477,6 +3527,7 @@ def main() -> int:
             "scale_out_launches": scale_launches["anyhit"],
             "card_paths_launches": paths_launches["anyhit"],
             "bench_launches": bench_launches["anyhit"],
+            "scaling_launches": scaling_launches["anyhit"],
             "source": "gpu_pathtracer_tpu_torch/csrc/anyhit.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:788",
             "launches": b3_launches,
@@ -3501,6 +3552,7 @@ def main() -> int:
             "scale_out_launches": scale_launches["anyhit_pipe"],
             "card_paths_launches": paths_launches["anyhit_pipe"],
             "bench_launches": bench_launches["anyhit_pipe"],
+            "scaling_launches": scaling_launches["anyhit_pipe"],
             "source": "gpu_pathtracer_tpu_torch/csrc/anyhit_pipe.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:827",
             "launches": b4_launches,
@@ -3526,6 +3578,7 @@ def main() -> int:
             "scale_out_launches": scale_launches["closest_hit_mxu"],
             "card_paths_launches": paths_launches["closest_hit_mxu"],
             "bench_launches": bench_launches["closest_hit_mxu"],
+            "scaling_launches": scaling_launches["closest_hit_mxu"],
             "source": "gpu_pathtracer_tpu_torch/csrc/closest_hit_mxu.cu",
             "replaces": "gpu_pathtracer_tpu/ops/pallas_trace.py:692",
             "launches": mxu_launches,

@@ -7,6 +7,8 @@ back to it on its own.
 
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 import torch
 
@@ -42,3 +44,13 @@ def resolve_device(name: str | torch.device | None) -> torch.device:
     if dev.type == "cuda":
         require_cuda()
     return dev
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader` prints them (its first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]

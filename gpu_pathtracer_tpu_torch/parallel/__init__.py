@@ -21,7 +21,9 @@ own columns, every rank computes the loss of the all-gathered image, and the
 gradients are summed over the ranks.  `sppm_shard` shards the SPPM photon
 pass and pixels (`render_sppm_distributed`) and the differentiable SPPM
 render through `render_sppm_differentiable(photon_pass_fn=...,
-pixel_sharding=...)`.
+pixel_sharding=...)`.  `launch` starts a job of one process per rank on this
+host (`run_ranks`, with `rendezvous` in each rank), as `bench_scaling_torch.py`
+does.
 """
 
 from gpu_pathtracer_tpu_torch.parallel.dist import (  # noqa: F401

@@ -153,13 +153,18 @@ def make_mesh(group=None, device=None) -> Mesh:
     """The mesh of `group`, or of the default process group when
     torch.distributed is initialized; else this process alone (size 1, no
     collectives), which is what `shard_rays` means on one device.  `device`
-    is the device this process renders on (None: its CUDA device)."""
+    is the device this process renders on (None: its CUDA device).  Raises
+    ValueError when this process is not a member of `group`."""
     dev = resolve_device(device)
     if group is None and dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
     if group is None:
         return Mesh(None, 0, 1, dev)
-    return Mesh(group, dist.get_rank(group), dist.get_world_size(group), dev)
+    rank = dist.get_rank(group)
+    if rank < 0:
+        raise ValueError(f"this process (rank {dist.get_rank()} of the job) is not a member of "
+                         "the group: only its members may build its mesh")
+    return Mesh(group, rank, dist.get_world_size(group), dev)
 
 
 def _pad_to(x: torch.Tensor, multiple: int):

@@ -11,8 +11,9 @@ the gradient with the material table gathered as the port gathers it (its
 backward sums in float64) and with a plain float32 gather swapped in, three
 steps each in turns (forward and backward seconds, whether repeated steps
 give the same bits), and the same step on two gloo ranks sharing the card
-(`chip_smoke.py --scale-out-rank`).  Prints each gradient, their largest
-differences and the card's name and power limit; writes
+(`chip_smoke.py --scale-out-rank`, started by `parallel.launch.run_ranks`).
+Prints each gradient, their largest differences and the card's name and
+power limit; writes
 `chiprun_out/sppm_shard_grad.json`.
 """
 
@@ -21,7 +22,6 @@ from __future__ import annotations
 import functools
 import json
 import pathlib
-import subprocess
 import sys
 import tempfile
 import time
@@ -40,7 +40,7 @@ def main() -> int:
     from gpu_pathtracer_tpu_torch.models.camera import Camera
     from gpu_pathtracer_tpu_torch.models.scene import build_scene
     from gpu_pathtracer_tpu_torch.ops import _build, materials
-    from gpu_pathtracer_tpu_torch.parallel import sppm_shard
+    from gpu_pathtracer_tpu_torch.parallel import launch, sppm_shard
     from gpu_pathtracer_tpu_torch.render import sppm
     from gpu_pathtracer_tpu_torch.utils import config, obj_io, testscenes
 
@@ -85,22 +85,8 @@ def main() -> int:
     cornell_dir = pathlib.Path(tempfile.mkdtemp(prefix="sppm_shard_grad_cornell_"))
     testscenes.make_cornell_box(cornell_dir, spheres=True, sphere_subdiv=2)
     out_dir = pathlib.Path(tempfile.mkdtemp(prefix="sppm_shard_grad_ranks_"))
-    port = cs.free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--scale-out-rank", str(r), str(port),
-         str(out_dir), str(cornell_dir), str(box_dir)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
-    try:
-        outs = [p.communicate(timeout=cs.RANK_TIMEOUT) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            print(f"rank {r} exited {p.returncode}:\n{err[-3000:]}", file=sys.stderr)
-            return 1
+    launch.run_ranks([sys.executable, ROOT / "chip_smoke.py", "--scale-out-rank", out_dir,
+                      cornell_dir, box_dir], 2, out_dir, cs.RANK_TIMEOUT)
     sharded = np.load(out_dir / "results.npz")["diff_grad"]
     rank_seconds = [json.loads((out_dir / f"rank{r}.json").read_text())["seconds"]
                     ["diff_sppm_step"] for r in range(2)]

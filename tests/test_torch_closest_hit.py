@@ -61,19 +61,25 @@ def _assert_agree(t, slot, jt, jslot):
 
 
 def test_package_imports_no_jax():
-    """No file of gpu_pathtracer_tpu_torch, nor chip_smoke.py or bench_torch.py,
-    imports jax or anything of the reference package `gpu_pathtracer_tpu`,
-    and none of them imports chip_smoke (AST scan: jax is already loaded in
-    this process, so sys.modules cannot tell here; tests/test_torch_host.py
-    asks a fresh interpreter)."""
+    """No file of gpu_pathtracer_tpu_torch, nor chip_smoke.py, bench_torch.py or
+    bench_scaling_torch.py, imports jax or anything of the reference package
+    `gpu_pathtracer_tpu`, none of them imports chip_smoke, and
+    bench_scaling_torch.py does not import bench_torch (AST scan: jax is
+    already loaded in this process, so sys.modules cannot tell here;
+    tests/test_torch_host.py asks a fresh interpreter)."""
     repo = pathlib.Path(__file__).resolve().parents[1]
     files = sorted((repo / "gpu_pathtracer_tpu_torch").rglob("*.py")) + [
-        repo / "chip_smoke.py", repo / "bench_torch.py"]
+        repo / "chip_smoke.py", repo / "bench_torch.py", repo / "bench_scaling_torch.py"]
     assert len(files) >= 30
     assert {"sppm.py", "splat.py", "anyhit.py", "hashgrid.py", "bounding_sphere.py", "dist.py",
-            "shard.py", "sppm_shard.py"} <= {f.name for f in files}
+            "shard.py", "sppm_shard.py", "launch.py", "bench_scaling_torch.py"} <= {
+        f.name for f in files}
     offenders = []
+    refused_everywhere = ("jax", "jaxlib", "flax", "optax", "orbax", "gpu_pathtracer_tpu",
+                          "chip_smoke")
     for f in files:
+        refused = refused_everywhere + (
+            ("bench_torch",) if f.name == "bench_scaling_torch.py" else ())
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -82,8 +88,7 @@ def test_package_imports_no_jax():
             else:
                 continue
             for n in names:
-                if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                       "gpu_pathtracer_tpu", "chip_smoke"):
+                if n.split(".")[0] in refused:
                     offenders.append(f"{f.relative_to(repo)}: {n}")
     assert not offenders, offenders
 

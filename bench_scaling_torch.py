@@ -57,7 +57,8 @@ import torch.distributed as dist
 from gpu_pathtracer_tpu_torch.device import nvidia_smi, resolve_device
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
-from gpu_pathtracer_tpu_torch.ops import _build, anyhit, closest_hit
+from gpu_pathtracer_tpu_torch import tracing
+from gpu_pathtracer_tpu_torch.ops import _build
 from gpu_pathtracer_tpu_torch.parallel import dist as pdist
 from gpu_pathtracer_tpu_torch.parallel import launch, shard
 from gpu_pathtracer_tpu_torch.utils import testscenes
@@ -65,13 +66,6 @@ from gpu_pathtracer_tpu_torch.utils.obj_io import load_scene
 
 SIZES = (1, 2, 4, 8, 16, 32)
 CAM = dict(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0), fovy_deg=40.0)
-KERNELS = {
-    "closest_hit": closest_hit.launch_closest_hit,
-    "closest_hit_pipe": closest_hit.launch_closest_hit_pipe,
-    "closest_hit_mxu": closest_hit.launch_closest_hit_mxu,
-    "anyhit": anyhit.launch_anyhit,
-    "anyhit_pipe": anyhit.launch_anyhit_pipe,
-}
 RANK_TIMEOUT = 600  # seconds from the ranks' start to their exit; also any one collective's limit
 
 
@@ -138,8 +132,8 @@ def _rank(args) -> int:
             mesh = shard.make_mesh(group, dev)
             render(mesh, 0)
         dist.barrier(group=barrier)
-        before = {k: w.launches for k, w in KERNELS.items()}
-        shard.collectives.clear()
+        before = tracing.launches()
+        tracing.reset("collective.")
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -151,8 +145,8 @@ def _rank(args) -> int:
         if not member:
             continue
         rec = {"n": n, "seconds": own, "wall": wall,
-               "launches": {k: w.launches - before[k] for k, w in KERNELS.items()},
-               "collectives": dict(shard.collectives),
+               "launches": {k: c - before[k] for k, c in tracing.launches().items()},
+               "collectives": tracing.counts("collective."),
                "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9
                if dev.type == "cuda" else None}
         if args.rank == 0:
@@ -177,7 +171,7 @@ def main(argv=None) -> int:
         (out / "scene").mkdir()
         testscenes.make_cornell_box(out / "scene", spheres=True, sphere_subdiv=2)
         if dev.type == "cuda":
-            _build.build_many(list(KERNELS))  # once, before V ranks would build them at once
+            _build.build_many(list(tracing.KERNELS))  # once, before V ranks would build them at once
         env = dict(os.environ, OMP_NUM_THREADS="1") if dev.type == "cpu" else None
         rank_argv = [sys.executable, pathlib.Path(__file__).resolve(), "--out", out]
         if args.device:
@@ -192,7 +186,7 @@ def main(argv=None) -> int:
     results = []
     for n, lead in ranks[0].items():
         members = [recs[n] for recs in ranks[:n]]
-        dt = lead["wall"]
+        dt = max(m["wall"] for m in members)  # each rank starts its clock as it leaves the barrier
         results.append({"n": n, "seconds": round(dt, 4),
                         "rays_per_sec": round(rays / dt, 1), "bit_for_bit": lead["bit_for_bit"],
                         **{f"member_{k}": [m[k] for m in members]

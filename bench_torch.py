@@ -62,11 +62,10 @@ import time
 
 import torch
 
-from gpu_pathtracer_tpu_torch import optim
+from gpu_pathtracer_tpu_torch import optim, tracing
 from gpu_pathtracer_tpu_torch.device import nvidia_smi, resolve_device
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
-from gpu_pathtracer_tpu_torch.ops import anyhit, closest_hit
 from gpu_pathtracer_tpu_torch.render import sppm
 from gpu_pathtracer_tpu_torch.render.integrator import render_image, render_image_value_and_grad
 from gpu_pathtracer_tpu_torch.utils import testscenes
@@ -75,13 +74,6 @@ from gpu_pathtracer_tpu_torch.utils.obj_io import load_scene
 MESH_SUBDIV = 7  # 327,684 triangles
 CORNELL_CAM = dict(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0), fovy_deg=40.0)
 MESH_CAM = dict(eye=(0.5, 0.8, 2.2), center=(0.5, 0.45, 0.5), up=(0, 1, 0), fovy_deg=45.0)
-KERNELS = {
-    "closest_hit": closest_hit.launch_closest_hit,
-    "closest_hit_pipe": closest_hit.launch_closest_hit_pipe,
-    "closest_hit_mxu": closest_hit.launch_closest_hit_mxu,
-    "anyhit": anyhit.launch_anyhit,
-    "anyhit_pipe": anyhit.launch_anyhit_pipe,
-}
 
 
 def _env(name: str, default: str) -> int:
@@ -106,15 +98,15 @@ def _time_leg(name: str, call, dev: torch.device, repeats: int):
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    seconds, launches = [], {k: [] for k in KERNELS}
+    seconds, launches = [], {k: [] for k in tracing.KERNELS}
     for i in range(1, max(1, repeats) + 1):
-        before = {k: w.launches for k, w in KERNELS.items()}
+        before = tracing.launches()
         t0 = time.perf_counter()
         call(i)
         _sync(dev)
         seconds.append(time.perf_counter() - t0)
-        for k, w in KERNELS.items():
-            launches[k].append(w.launches - before[k])
+        for k, n in tracing.launches().items():
+            launches[k].append(n - before[k])
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
     record = {"leg": name, "seconds": seconds, "median_s": sorted(seconds)[len(seconds) // 2],
               "peak_gb": peak, "launches": launches}

@@ -229,7 +229,6 @@ GATHER_CHUNK = 16384  # pixels per chunk of the grid gather: one any-hit query i
 CORNELL_CAM = dict(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0), fovy_deg=40.0)
 MESH_CAM = dict(eye=(0.5, 0.8, 2.2), center=(0.5, 0.45, 0.5), up=(0, 1, 0), fovy_deg=45.0)
 WAVE_RAYS = 65536  # one wavefront of the main paths
-KERNEL_NAMES = ("closest_hit", "closest_hit_pipe", "anyhit", "anyhit_pipe", "closest_hit_mxu")
 MESH_SUBDIV, MESH_TRIS = 7, 327684  # the large-mesh configuration
 MESH_CPU_SUBDIV = 5  # the mesh that the CPU plain path renders as the reference
 TOL_RTOL = 1e-6  # t where slots agree: same float32 ops, no FMA on either side
@@ -1006,8 +1005,7 @@ def diff_sppm(dev, card: str, stats: dict, anyhit_err: dict) -> dict:
     from gpu_pathtracer_tpu_torch import optim
     from gpu_pathtracer_tpu_torch.models.camera import Camera
     from gpu_pathtracer_tpu_torch.models.scene import build_scene
-    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
-    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch import tracing
     from gpu_pathtracer_tpu_torch.ops import trace
     from gpu_pathtracer_tpu_torch.render import sppm
     from gpu_pathtracer_tpu_torch.utils import config, obj_io, testscenes
@@ -1025,8 +1023,8 @@ def diff_sppm(dev, card: str, stats: dict, anyhit_err: dict) -> dict:
 
     # the main path: one step with the counts set to 0 just before it; its
     # queries are recorded for the kernels' comparisons below
-    reset_launches(ch)
-    sppm.host_syncs = 0
+    tracing.reset("launch.")
+    tracing.reset("loop_exit")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # the scene and what earlier phases keep
@@ -1034,8 +1032,8 @@ def diff_sppm(dev, card: str, stats: dict, anyhit_err: dict) -> dict:
         img, grad, fwd0, bwd0 = diff_sppm_step(scene, cam, kw, ke0, seed=seed)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_peak_gb = peak_gb - held / 1e9
-    launches = kernel_launches(ch, ah)
-    syncs = sppm.host_syncs
+    launches = tracing.launches()
+    syncs = tracing.totals["loop_exit"]
     gathers = passes * -(-side * side // GATHER_CHUNK)  # one any-hit launch a grid-gather chunk
     light = ke0.amax(dim=-1) > 0
     log(f"differentiable SPPM: {side}x{side}, {DIFF_SPPM['photons']} photons x {passes} passes, "
@@ -1189,14 +1187,6 @@ def exit_reason(rc: int) -> str:
     return launch.exit_reason(rc)
 
 
-def kernel_launches(ch, ah) -> dict:
-    """Every kernel's launch count, by name."""
-    return {"closest_hit": ch.launch_closest_hit.launches,
-            "closest_hit_pipe": ch.launch_closest_hit_pipe.launches,
-            "closest_hit_mxu": ch.launch_closest_hit_mxu.launches,
-            "anyhit": ah.launch_anyhit.launches, "anyhit_pipe": ah.launch_anyhit_pipe.launches}
-
-
 def scale_out_rank(rank: int, out_dir: str, cornell_dir: str, box_dir: str) -> int:
     """One of phase 18(b)'s two ranks (`chip_smoke.py --scale-out-rank OUT
     CORNELL BOX --rank R`, started by `parallel.launch.run_ranks`): a gloo
@@ -1212,8 +1202,7 @@ def scale_out_rank(rank: int, out_dir: str, cornell_dir: str, box_dir: str) -> i
     from gpu_pathtracer_tpu_torch import optim
     from gpu_pathtracer_tpu_torch.models.camera import Camera
     from gpu_pathtracer_tpu_torch.models.scene import build_scene
-    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
-    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch import tracing
     from gpu_pathtracer_tpu_torch.parallel import dist as pdist
     from gpu_pathtracer_tpu_torch.parallel import shard, sppm_shard
     from gpu_pathtracer_tpu_torch.render import sppm
@@ -1231,13 +1220,13 @@ def scale_out_rank(rank: int, out_dir: str, cornell_dir: str, box_dir: str) -> i
     out, record = {}, {"rank": rank, "seconds": {}, "launches": {}}
 
     def timed(name, fn):
-        reset_launches(ch)
+        tracing.reset("launch.")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         record["seconds"][name] = time.perf_counter() - t0
-        record["launches"][name] = kernel_launches(ch, ah)
+        record["launches"][name] = tracing.launches()
         return res
 
     with torch.no_grad():
@@ -1271,7 +1260,7 @@ def scale_out_rank(rank: int, out_dir: str, cornell_dir: str, box_dir: str) -> i
         torch.Generator(device=dev).manual_seed(11), mesh, width=tside, height=tside,
         sample_size=so["spp"], level=so["level"], hittable_pdf_weight=MAIN["weight"]))
     out["train_loss"], out["train_ke"] = loss.cpu().numpy(), new["ke"].cpu().numpy()
-    record["collectives"] = dict(shard.collectives)
+    record["collectives"] = tracing.counts("collective.")
     if rank == 0:
         np.savez(pathlib.Path(out_dir) / "results.npz", **out)
     (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(record))
@@ -1301,8 +1290,7 @@ def scale_out(dev, card: str, folder, master, img, sppm_folder, scfg) -> dict:
     import torch.distributed as dist
     from gpu_pathtracer_tpu_torch import optim, renderer
     from gpu_pathtracer_tpu_torch.models.camera import Camera
-    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
-    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch import tracing
     from gpu_pathtracer_tpu_torch.parallel import dist as pdist
     from gpu_pathtracer_tpu_torch.parallel import launch, shard, sppm_shard
     from gpu_pathtracer_tpu_torch.render import sppm
@@ -1319,14 +1307,14 @@ def scale_out(dev, card: str, folder, master, img, sppm_folder, scfg) -> dict:
           f"phase 18: mesh {mesh}, backend {dist.get_backend()}")
     cfg = config.parse_master_file(master)
     cfg.shard_rays = True
-    reset_launches(ch)
-    shard.collectives.clear()
+    tracing.reset("launch.")
+    tracing.reset("collective.")
     t0 = time.perf_counter()
     img_s = renderer.render_from_config(cfg)
     seconds = time.perf_counter() - t0
     rays = MAIN["width"] * MAIN["height"] * MAIN["spp"] * MAIN["level"]
-    launches = kernel_launches(ch, ah)
-    colls = dict(shard.collectives)
+    launches = tracing.launches()
+    colls = tracing.counts("collective.")
     same = bool(np.array_equal(img_s, img))
     log(f"scale-out (a), NCCL world of 1: shard_rays 1 on the Cornell main path "
         f"({MAIN['width']}x{MAIN['height']} spp {MAIN['spp']} level {MAIN['level']}): "
@@ -1341,14 +1329,14 @@ def scale_out(dev, card: str, folder, master, img, sppm_folder, scfg) -> dict:
     scfg_s = config.RenderConfig(**dataclasses.asdict(scfg))
     scfg_s.shard_rays = True
     scfg_s.image_output_path = str(pathlib.Path(sppm_folder) / "sppm_sharded.ppm")
-    reset_launches(ch)
-    shard.collectives.clear()
+    tracing.reset("launch.")
+    tracing.reset("collective.")
     slog = []
     t0 = time.perf_counter()
     simg_s = renderer.render_from_config(scfg_s, pass_log=slog)
     sseconds = time.perf_counter() - t0
-    slaunches = kernel_launches(ch, ah)
-    scolls = dict(shard.collectives)
+    slaunches = tracing.launches()
+    scolls = tracing.counts("collective.")
     log_passes("scale-out (a) SPPM", slog, SPPM["photons"])
     scene, camera = renderer.load_scene_from_config(scfg, dev)
     with torch.no_grad():
@@ -1480,8 +1468,7 @@ def textured_mesh(dev, card: str, stats: dict, pipe_err: dict) -> dict:
     from gpu_pathtracer_tpu_torch import optim
     from gpu_pathtracer_tpu_torch.models.camera import Camera
     from gpu_pathtracer_tpu_torch.models.scene import build_scene
-    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
-    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch import tracing
     from gpu_pathtracer_tpu_torch.ops import texture
     from gpu_pathtracer_tpu_torch.render.integrator import (
         N_UNIFORMS,
@@ -1512,14 +1499,14 @@ def textured_mesh(dev, card: str, stats: dict, pipe_err: dict) -> dict:
     rays = w * h * spp * level
 
     def render(scn, **changes):
-        reset_launches(ch)
+        tracing.reset("launch.")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
             out = render_image(scn, mcam, generator=torch.Generator(device=dev).manual_seed(12),
                                **dict(kw, **changes))
         torch.cuda.synchronize()
-        return out.cpu().numpy(), time.perf_counter() - t0, kernel_launches(ch, ah)
+        return out.cpu().numpy(), time.perf_counter() - t0, tracing.launches()
 
     img, seconds, launches = render(scene)
     log(f"textured mesh main path: {w}x{h} spp {spp} level {level}, map_Kd + map_Bump + sky: "
@@ -1623,7 +1610,7 @@ def textured_mesh(dev, card: str, stats: dict, pipe_err: dict) -> dict:
             generator=torch.Generator(device=dev).manual_seed(seed))
         return float(loss), grad
 
-    reset_launches(ch)
+    tracing.reset("launch.")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1631,7 +1618,7 @@ def textured_mesh(dev, card: str, stats: dict, pipe_err: dict) -> dict:
     torch.cuda.synchronize()
     grad_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    glaunches = kernel_launches(ch, ah)
+    glaunches = tracing.launches()
     grad_rays = w * h * TEX_GRAD_SPP * level
     touched = int((grad[1:].abs().sum(dim=-1) > 0).sum())
     log(f"textured mesh gradient: {w}x{h} spp {TEX_GRAD_SPP} level {level}, L2 loss {loss:.6e} to "
@@ -1731,8 +1718,7 @@ def glass_dof(dev, card: str, stats: dict) -> dict:
     import numpy as np
     import torch
     from gpu_pathtracer_tpu_torch import renderer
-    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
-    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch import tracing
     from gpu_pathtracer_tpu_torch.utils import config, testscenes
 
     folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_glass_"))
@@ -1742,11 +1728,11 @@ def glass_dof(dev, card: str, stats: dict) -> dict:
                               dof_sample_size=GLASS["dof"], **lens)
     w, h, level = MAIN["width"], MAIN["height"], MAIN["level"]
     check(cfg.dof_sample_size == GLASS["dof"], f"dof_sample_size {cfg.dof_sample_size}")
-    reset_launches(ch)
+    tracing.reset("launch.")
     t0 = time.perf_counter()
     img = renderer.render_from_config(cfg)
     seconds = time.perf_counter() - t0
-    launches = kernel_launches(ch, ah)
+    launches = tracing.launches()
     expected = -(-w * h // WAVE_RAYS) * GLASS["spp"] * GLASS["dof"] * level
     rays = w * h * GLASS["spp"] * GLASS["dof"] * level
     log(f"glass + DoF main path: {w}x{h}, sample_size {GLASS['spp']} x dof_sample_size "
@@ -1833,8 +1819,7 @@ def grad_kd_ks(dev, card: str) -> dict:
     from gpu_pathtracer_tpu_torch import optim
     from gpu_pathtracer_tpu_torch.models.camera import Camera
     from gpu_pathtracer_tpu_torch.models.scene import build_scene
-    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
-    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch import tracing
     from gpu_pathtracer_tpu_torch.ops import linalg
     from gpu_pathtracer_tpu_torch.render.integrator import (
         N_UNIFORMS,
@@ -1860,14 +1845,14 @@ def grad_kd_ks(dev, card: str) -> dict:
     ks = (mats.ks * cg["start"]).requires_grad_(True)
 
     # autograd by path replay: the main path of the sub-phase
-    reset_launches(ch)
+    tracing.reset("launch.")
     t0 = sync(dev)
     loss, _, (g_kd, g_ks) = render_image_value_and_grad(
         optim._substitute(scene, {"kd": kd, "ks": ks}), cam, side, side,
         lambda img: torch.mean((img - target) ** 2), [kd, ks],
         generator=torch.Generator(device=dev).manual_seed(cg["seed"]), **kw)
     grad_s = sync(dev) - t0
-    launches = kernel_launches(ch, ah)
+    launches = tracing.launches()
     expected = 2 * spp * level  # one chunk a sample, rendered twice (path replay)
     log(f"gradient to kd, ks: Cornell {side}x{side} spp {spp} level {level} from {cg['start']} "
         f"kd, ks: L2 loss {float(loss):.6e} in {grad_s:.3f}s, launches {launches} (expected "
@@ -1945,7 +1930,7 @@ def grad_kd_ks(dev, card: str) -> dict:
         fixed_target = render_image(scene, cam, side, side, generator=torch.Generator(device=dev).manual_seed(7), **kw)
     start = optim._substitute(scene, {"kd": mats.kd * cg["start"], "ks": mats.ks * cg["start"]})
     inner = optim.render_loss_fn(start, cam, fixed_target, side, side, **kw)
-    reset_launches(ch)
+    tracing.reset("launch.")
     t0 = sync(dev)
     params, losses = optim.optimize(
         start, cam, fixed_target, param_names=("kd", "ks"), steps=cg["steps"], lr=cg["lr"],
@@ -1953,7 +1938,7 @@ def grad_kd_ks(dev, card: str) -> dict:
     opt_s = sync(dev) - t0
     at_zero = int(sum(int((params[n] == 0).sum()) for n in params))
     log(f"optimize kd, ks on fixed paths, {cg['steps']} steps at {side}x{side} from {cg['start']} "
-        f"kd, ks, lr {cg['lr']}: losses {losses} ({opt_s:.1f}s, launches {kernel_launches(ch, ah)}); "
+        f"kd, ks, lr {cg['lr']}: losses {losses} ({opt_s:.1f}s, launches {tracing.launches()}); "
         f"{at_zero} components at the clamp; kd {params['kd'].flatten().tolist()} (true "
         f"{mats.kd.flatten().tolist()})")
     check(len(losses) == cg["steps"] and bool(np.isfinite(losses).all())
@@ -1973,8 +1958,7 @@ def fog_diff_sppm(dev, card: str) -> dict:
     from gpu_pathtracer_tpu_torch import optim
     from gpu_pathtracer_tpu_torch.models.camera import Camera
     from gpu_pathtracer_tpu_torch.models.scene import build_scene
-    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
-    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch import tracing
     from gpu_pathtracer_tpu_torch.render import sppm
     from gpu_pathtracer_tpu_torch.utils import config, obj_io, testscenes
 
@@ -1991,9 +1975,9 @@ def fog_diff_sppm(dev, card: str) -> dict:
     ke0, seed = scene.materials.ke, DIFF_SPPM["seed"]
     light = ke0.amax(dim=-1) > 0
 
-    reset_launches(ch)
+    tracing.reset("launch.")
     img, grad, fwd_s, bwd_s = diff_sppm_step(scene, cam, kw, ke0, seed=seed)
-    launches = kernel_launches(ch, ah)
+    launches = tracing.launches()
     with torch.no_grad():
         no_vol = sppm.render_sppm_differentiable(scene, cam, **dict(kw, gather_volume=False),
                                                  seed=seed)
@@ -2121,8 +2105,7 @@ def mis_overflow(dev, card: str) -> dict:
     import torch
     from gpu_pathtracer_tpu_torch.constants import MAX_POTENTIAL_TARGETS
     from gpu_pathtracer_tpu_torch.models.scene import build_scene
-    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
-    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch import tracing
     from gpu_pathtracer_tpu_torch.ops import lights as lights_mod
     from gpu_pathtracer_tpu_torch.ops import trace
     from gpu_pathtracer_tpu_torch.render.integrator import N_UNIFORMS, trace_paths
@@ -2179,8 +2162,8 @@ def mis_overflow(dev, card: str) -> dict:
 
         lights_mod.hittable_pdf_sum_sparse = recording
         trace.closest_hit = recording_hit
-        reset_launches(ch)
-        lights_mod.host_syncs = 0
+        tracing.reset("launch.")
+        tracing.reset("loop_exit")
         try:
             t0 = sync(dv)
             with torch.no_grad():
@@ -2191,8 +2174,8 @@ def mis_overflow(dev, card: str) -> dict:
             seconds = sync(dv) - t0
         finally:
             lights_mod.hittable_pdf_sum_sparse, trace.closest_hit = inner, inner_hit
-        return (col.cpu(), int(stats["mis_targets_dropped"]), seconds, kernel_launches(ch, ah),
-                lights_mod.host_syncs, calls)
+        return (col.cpu(), int(stats["mis_targets_dropped"]), seconds, tracing.launches(),
+                tracing.totals["loop_exit"], calls)
 
     def agree(a, b):
         return float(torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=-1).float().mean())
@@ -2270,8 +2253,7 @@ def checkpoint_resume(dev, card: str) -> dict:
     from gpu_pathtracer_tpu_torch import optim, renderer
     from gpu_pathtracer_tpu_torch.models.camera import Camera
     from gpu_pathtracer_tpu_torch.models.scene import build_scene
-    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
-    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch import tracing
     from gpu_pathtracer_tpu_torch.render import sppm
     from gpu_pathtracer_tpu_torch.render.integrator import render_image
     from gpu_pathtracer_tpu_torch.utils import config, obj_io, testscenes
@@ -2288,7 +2270,7 @@ def checkpoint_resume(dev, card: str) -> dict:
     start = optim._substitute(scene, {"kd": scene.materials.kd * cg["start"],
                                       "ks": scene.materials.ks * cg["start"]})
     okw = dict(param_names=("kd", "ks"), lr=cg["lr"], seed=3, **kw)
-    reset_launches(ch)
+    tracing.reset("launch.")
     t0 = sync(dev)
     whole, whole_losses = optim.optimize(start, cam, target, steps=4, **okw)
     ckpt = folder / "optimize"
@@ -2299,7 +2281,7 @@ def checkpoint_resume(dev, card: str) -> dict:
         v for s in state["opt_state"]["state"].values() for v in s.values() if v.dim()]
     resumed, rest = optim.optimize(start, cam, target, steps=4, checkpoint_dir=str(ckpt), **okw)
     opt_s = sync(dev) - t0
-    opt_launches = kernel_launches(ch, ah)
+    opt_launches = tracing.launches()
     opt_equal = (first + rest == whole_losses
                  and all(torch.equal(resumed[k], whole[k]) for k in whole))
     diffs = {k: float((resumed[k] - whole[k]).abs().max()) for k in whole}
@@ -2320,7 +2302,7 @@ def checkpoint_resume(dev, card: str) -> dict:
     box_scene, box_cam = renderer.load_scene_from_config(cfg, dev)
     one = dataclasses.replace(cfg, ppm_num_pass=1)
     ckpt = box / "sppm"
-    reset_launches(ch)
+    tracing.reset("launch.")
     log_whole, log_resumed = [], []
     t0 = sync(dev)
     with torch.no_grad():
@@ -2330,7 +2312,7 @@ def checkpoint_resume(dev, card: str) -> dict:
         img_resumed = sppm.render_sppm(box_scene, box_cam, cfg, cfg.seed, checkpoint_dir=str(ckpt),
                                        checkpoint_every=1, pass_log=log_resumed)
     sppm_s = sync(dev) - t0
-    sppm_launches = kernel_launches(ch, ah)
+    sppm_launches = tracing.launches()
     sppm_equal = bool(np.array_equal(img_resumed, img_whole))
     log(f"render_sppm checkpoint: {CKPT['side']}x{CKPT['side']}, {CKPT['photons']} photons, 1 pass "
         f"then resumed to 2 (passes run: {[p['it'] for p in log_resumed]}; grid "
@@ -2355,8 +2337,7 @@ def cli_on_card(dev, card: str) -> dict:
     import os
 
     from gpu_pathtracer_tpu_torch import renderer
-    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
-    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch import tracing
     from gpu_pathtracer_tpu_torch.utils import config, testscenes
     from gpu_pathtracer_tpu_torch.utils.image import load_ppm, save_ppm
 
@@ -2409,11 +2390,11 @@ def cli_on_card(dev, card: str) -> dict:
         check(card_files == cpu_files, f"the CLI wrote {card_files} on the card, {cpu_files} on "
               "the CPU")
 
-        reset_launches(ch)
+        tracing.reset("launch.")
         inproc = dataclasses.replace(cfg, image_output_path=str(folder / "inproc" / "out.ppm"))
         pathlib.Path(inproc.image_output_path).parent.mkdir()
         img = renderer.render_from_config(inproc, device=dev)
-        rec["launches_in_process"][mode] = kernel_launches(ch, ah)
+        rec["launches_in_process"][mode] = tracing.launches()
         save_ppm(img, folder / "inproc.ppm")
         mine, theirs = load_ppm(folder / "inproc.ppm"), load_ppm(card_dir / "out.ppm")
         differ = int((mine != theirs).any(axis=-1).sum())
@@ -2521,6 +2502,7 @@ def scaling_on_card(card: str) -> dict:
     and each member must launch `closest_hit` the path's count in the timed
     call and no other kernel.  Returns each child's seconds, line and
     launches."""
+    from gpu_pathtracer_tpu_torch import tracing
     import os
 
     import torch
@@ -2563,7 +2545,7 @@ def scaling_on_card(card: str) -> dict:
               f"{detail['collective_backend']}, virtual {detail['virtual_mesh']}")
         check(detail["device"] == torch.cuda.get_device_name(0) and detail["power_limit"] == card,
               f"bench_scaling_torch.py ran on {detail['device']}, {detail['power_limit']}")
-        want = {k: per_member if k == "closest_hit" else 0 for k in KERNEL_NAMES}
+        want = {k: per_member if k == "closest_hit" else 0 for k in tracing.KERNELS}
         for e in sweep:
             check(len(e["member_launches"]) == e["n"]
                   and all(m == want for m in e["member_launches"]),
@@ -2619,17 +2601,6 @@ def sorted_rays(g, wave, drop_tail: int = 0):
     if drop_tail:
         perm = perm[:-drop_tail]
     return ch.prepare_rays(g.tile_aabb, wo[perm], wd[perm], tm[perm])
-
-
-def reset_launches(ch) -> None:
-    """Every kernel's launch count to 0."""
-    from gpu_pathtracer_tpu_torch.ops import anyhit as ah
-
-    ch.launch_closest_hit.launches = 0
-    ch.launch_closest_hit_pipe.launches = 0
-    ch.launch_closest_hit_mxu.launches = 0
-    ah.launch_anyhit.launches = 0
-    ah.launch_anyhit_pipe.launches = 0
 
 
 def path_tracing_master(folder, obj_filename, config, **overrides):
@@ -2763,6 +2734,7 @@ def main() -> int:
     from gpu_pathtracer_tpu_torch.models.camera import Camera
     from gpu_pathtracer_tpu_torch.models.scene import build_scene
     from gpu_pathtracer_tpu_torch.ops import _build, intersect, trace
+    from gpu_pathtracer_tpu_torch import tracing
     from gpu_pathtracer_tpu_torch.ops import anyhit as ah
     from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
     from gpu_pathtracer_tpu_torch.ops import lights as lights_mod
@@ -2791,10 +2763,10 @@ def main() -> int:
     phases.start(2)
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build_many(KERNEL_NAMES)
+    libs = _build.build_many(tracing.KERNELS)
     log(f"built {', '.join(str(p.relative_to(HERE)) for p in libs)} in "
         f"{time.perf_counter() - t0:.2f}s (all compilers started together)")
-    for name, lib_path in zip(KERNEL_NAMES, libs):
+    for name, lib_path in zip(tracing.KERNELS, libs):
         _build.load(name)
         for line in (lib_path.parent / "nvcc.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -2860,9 +2832,10 @@ def main() -> int:
     check(mg.num_tris == MESH_TRIS, f"the mesh has {mg.num_tris} triangles, not {MESH_TRIS}")
     check(trace.pallas_big(mg), "the mesh is not above PALLAS_MAX")
     mcam = Camera.create(**MESH_CAM, width=MAIN["width"], height=MAIN["height"], device=dev)
-    reset_launches(ch)
+    tracing.reset("launch.")
     mwaves = wavefronts(mesh, mcam, WAVE_RAYS, 3, seed=2)
-    check(ch.launch_closest_hit_pipe.launches == 3 and ch.launch_closest_hit.launches == 0,
+    check(tracing.totals["launch.closest_hit_pipe"] == 3
+          and tracing.totals["launch.closest_hit"] == 0,
           "the mesh wavefronts did not run on closest_hit_pipe alone")
     b2s = {0: {}, 2: {}}
     for bounce, b2 in b2s.items():
@@ -2909,19 +2882,19 @@ def main() -> int:
     master = folder / "master.txt"
     config.write_master_file(cfg, master)
     cfg = config.parse_master_file(master)
-    reset_launches(ch)
+    tracing.reset("launch.")
     t0 = time.perf_counter()
     img = renderer.render_from_config(cfg)
     seconds = time.perf_counter() - t0
-    launches = ch.launch_closest_hit.launches
+    launches = tracing.totals["launch.closest_hit"]
     rays = MAIN["width"] * MAIN["height"] * MAIN["spp"] * MAIN["level"]
     chunks = -(-MAIN["width"] * MAIN["height"] // WAVE_RAYS)
     expected = chunks * MAIN["spp"] * MAIN["level"]
     log(f"main path: {MAIN['width']}x{MAIN['height']} spp {MAIN['spp']} level {MAIN['level']} "
         f"Cornell (972 tris): {launches} closest_hit launches (expected {expected}), "
-        f"{ch.launch_closest_hit_pipe.launches} closest_hit_pipe launches")
+        f"{tracing.totals['launch.closest_hit_pipe']} closest_hit_pipe launches")
     check(launches == expected, f"main path: {launches} kernel launches, expected {expected}")
-    check(ch.launch_closest_hit_pipe.launches == 0, "Cornell ran on closest_hit_pipe")
+    check(tracing.totals["launch.closest_hit_pipe"] == 0, "Cornell ran on closest_hit_pipe")
     check(img.shape == (MAIN["height"], MAIN["width"], 3), f"image shape {img.shape}")
     check(bool(np.isfinite(img).all()) and img.mean() > 0, "image not finite or all zero")
 
@@ -2952,7 +2925,7 @@ def main() -> int:
               level=MAIN["level"], hittable_pdf_weight=MAIN["weight"])
 
     def render_mesh(scn=mesh, **changes):
-        reset_launches(ch)
+        tracing.reset("launch.")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -2962,8 +2935,8 @@ def main() -> int:
         return out.cpu().numpy(), time.perf_counter() - t0
 
     mimg, mesh_s = render_mesh()
-    pipe_launches, plain_load_launches = (ch.launch_closest_hit_pipe.launches,
-                                          ch.launch_closest_hit.launches)
+    pipe_launches, plain_load_launches = (tracing.totals["launch.closest_hit_pipe"],
+                                          tracing.totals["launch.closest_hit"])
     log(f"mesh main path: {MAIN['width']}x{MAIN['height']} spp {MAIN['spp']} level {MAIN['level']}, {mg.num_tris} triangles: {pipe_launches} "
         f"closest_hit_pipe launches (expected {expected}), {plain_load_launches} closest_hit "
         f"launches; render {mesh_s:.3f}s, {rays / mesh_s:.0f} rays/s; card: {card}")
@@ -2981,8 +2954,8 @@ def main() -> int:
         mimg_b1, mesh_b1_s = render_mesh(sample_size=b1_spp)
     finally:
         trace.PALLAS_MAX = pallas_max
-    check(ch.launch_closest_hit.launches == expected * b1_spp // MAIN["spp"]
-          and ch.launch_closest_hit_pipe.launches == 0,
+    check(tracing.totals["launch.closest_hit"] == expected * b1_spp // MAIN["spp"]
+          and tracing.totals["launch.closest_hit_pipe"] == 0,
           "the forced render did not run on closest_hit alone")
     rel_b1 = abs(float(mimg.mean()) - float(mimg_b1.mean())) / float(mimg_b1.mean())
     log(f"mesh through closest_hit (forced, spp {b1_spp}): render {mesh_b1_s:.3f}s, "
@@ -3021,7 +2994,7 @@ def main() -> int:
     ke = (scene.materials.ke * 1.01).requires_grad_(True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(ch)
+    tracing.reset("launch.")
     t0 = time.perf_counter()
     loss, _, (grad,) = ke_loss_and_grad(scene, camera, target, MAIN["width"], ke, 2)
     torch.cuda.synchronize()
@@ -3031,13 +3004,13 @@ def main() -> int:
     light = scene.materials.ke.amax(dim=-1) > 0
     log(f"gradient: Cornell 512x512 spp {bw_spp} level {MAIN['level']}, L2 loss {float(loss):.6e} "
         f"to ke by path replay: {grad_s:.3f}s, {grad_rays / grad_s:.0f} grad-rays/s, peak memory "
-        f"{peak_gb:.3f} GB, {ch.launch_closest_hit.launches} closest_hit launches; d loss / d ke "
-        f"on the light's row {grad[light].flatten().tolist()}; card: {card}")
+        f"{peak_gb:.3f} GB, {tracing.totals['launch.closest_hit']} closest_hit launches; "
+        f"d loss / d ke on the light's row {grad[light].flatten().tolist()}; card: {card}")
     check(bool(torch.isfinite(grad).all()), "the gradient is not finite")
     check(int(light.sum()) == 1 and bool((grad[light] != 0).all()),
           "the gradient is zero on the light's row")
-    check(ch.launch_closest_hit.launches == 2 * chunks * bw_spp * MAIN["level"],
-          f"gradient: {ch.launch_closest_hit.launches} closest_hit launches")
+    check(tracing.totals["launch.closest_hit"] == 2 * chunks * bw_spp * MAIN["level"],
+          f"gradient: {tracing.totals['launch.closest_hit']} closest_hit launches")
 
     # 64x64: against a central finite difference on one component of ke.  The
     # paths are fixed by the seed and the image is linear in ke, so the loss is
@@ -3073,27 +3046,27 @@ def main() -> int:
     # ---- 9. SPPM main path ----------------------------------------------------------
     sppm_folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sppm_"))
     scfg = sppm_box_master(sppm_folder, False, config, testscenes)
-    reset_launches(ch)
-    sppm.host_syncs = 0
+    tracing.reset("launch.")
+    tracing.reset("loop_exit")
     sppm_log = []
     with RecordedGather(trace) as box_gather:
         t0 = time.perf_counter()
         simg = renderer.render_from_config(scfg, pass_log=sppm_log)
         sppm_s = time.perf_counter() - t0
-    b3_launches, b4_on_box = ah.launch_anyhit.launches, ah.launch_anyhit_pipe.launches
+    b3_launches, b4_on_box = tracing.totals["launch.anyhit"], tracing.totals["launch.anyhit_pipe"]
     total_photons = SPPM["photons"] * SPPM["passes"]
     log(f"SPPM main path: {SPPM['width']}x{SPPM['height']}, {SPPM['photons']} photons x "
         f"{SPPM['passes']} passes, ppm_max_bounce {SPPM['max_bounce']}, 72-triangle box: {sppm_s:.3f}s "
         f"end to end (scene load, build and init pass included), {total_photons / sppm_s:.0f} "
         f"photons/s end to end; {b3_launches} anyhit launches in {box_gather.calls} queries, "
-        f"{b4_on_box} anyhit_pipe launches, {ch.launch_closest_hit.launches} closest_hit launches, "
-        f"{sppm.host_syncs} host syncs; card: {card}")
+        f"{b4_on_box} anyhit_pipe launches, {tracing.totals['launch.closest_hit']} closest_hit "
+        f"launches, {tracing.totals['loop_exit']} host syncs; card: {card}")
     log_passes("SPPM main path", sppm_log, SPPM["photons"])
     check(len(sppm_log) == SPPM["passes"], f"{len(sppm_log)} passes logged")
     check(b3_launches > 0 and b3_launches == box_gather.calls
           and b3_launches == sum(p["anyhit_launches"] for p in sppm_log),
           f"SPPM main path: {b3_launches} anyhit launches for {box_gather.calls} queries")
-    check(b4_on_box == 0 and ch.launch_closest_hit_pipe.launches == 0,
+    check(b4_on_box == 0 and tracing.totals["launch.closest_hit_pipe"] == 0,
           "the SPPM box ran on a ring-buffered kernel")
     check(all(p["grid"] for p in sppm_log), "the SPPM main path did not take the grid gathers")
     check(simg.shape == (SPPM["height"], SPPM["width"], 3), f"SPPM image shape {simg.shape}")
@@ -3163,20 +3136,20 @@ def main() -> int:
     # ---- 11. the fog configuration -----------------------------------------------------
     fog_folder = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_fog_"))
     fcfg = sppm_box_master(fog_folder, True, config, testscenes, ppm_num_pass=1)
-    reset_launches(ch)
+    tracing.reset("launch.")
     fog_log = []
     t0 = time.perf_counter()
     fimg = renderer.render_from_config(fcfg, pass_log=fog_log)
     fog_s = time.perf_counter() - t0
     log(f"fog configuration: init pass + 1 pass in {fog_s:.3f}s end to end, "
-        f"{ah.launch_anyhit.launches} anyhit launches; tmp_lm sum {fog_log[0]['tmp_lm_sum']:.4f}; "
-        f"image mean {fimg.mean():.6f}; card: {card}")
+        f"{tracing.totals['launch.anyhit']} anyhit launches; "
+        f"tmp_lm sum {fog_log[0]['tmp_lm_sum']:.4f}; image mean {fimg.mean():.6f}; card: {card}")
     log_passes("fog", fog_log, SPPM["photons"])
     check(fog_log[0]["volume_photons"] > 0, "the fog pass deposited no volume photons")
     check(fog_log[0]["grid"], "the fog pass did not take the grid gathers")
     check(fog_log[0]["tmp_lm_finite"] and fog_log[0]["tmp_lm_sum"] > 0,
           "the fog's beam gather is not finite or is zero")
-    check(ah.launch_anyhit.launches > 0 and ah.launch_anyhit_pipe.launches == 0,
+    check(tracing.totals["launch.anyhit"] > 0 and tracing.totals["launch.anyhit_pipe"] == 0,
           "the fog pass's gathers did not run on anyhit alone")
     check(bool(np.isfinite(fimg).all()) and fimg.mean() > 0, "fog image not finite or black")
 
@@ -3185,22 +3158,25 @@ def main() -> int:
     mcfg = config.RenderConfig(image_width=SPPM["width"], image_height=SPPM["height"],
                                ppm_num_photon_per_pass=SPPM["photons"], ppm_num_pass=1,
                                ppm_max_bounce=SPPM["max_bounce"])
-    reset_launches(ch)
+    tracing.reset("launch.")
     mesh_log = []
     with RecordedGather(trace) as mesh_gather, torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         msimg = sppm.render_sppm(mesh, mcam, mcfg, 12, pass_log=mesh_log)
         mesh_sppm_s = time.perf_counter() - t0
-    b4_launches = ah.launch_anyhit_pipe.launches
+    b4_launches = tracing.totals["launch.anyhit_pipe"]
     log(f"mesh configuration: SPPM on {mg.num_tris} triangles, init pass + 1 pass in "
         f"{mesh_sppm_s:.3f}s; {b4_launches} anyhit_pipe launches in {mesh_gather.calls} queries, "
-        f"{ah.launch_anyhit.launches} anyhit launches, {ch.launch_closest_hit_pipe.launches} "
-        f"closest_hit_pipe launches; image mean {msimg.mean():.6f}; card: {card}")
+        f"{tracing.totals['launch.anyhit']} anyhit launches, "
+        f"{tracing.totals['launch.closest_hit_pipe']} closest_hit_pipe launches; "
+        f"image mean {msimg.mean():.6f}; card: {card}")
     log_passes("mesh", mesh_log, SPPM["photons"])
-    check(b4_launches > 0 and b4_launches == mesh_gather.calls and ah.launch_anyhit.launches == 0,
-          f"mesh SPPM: {b4_launches} anyhit_pipe / {ah.launch_anyhit.launches} anyhit launches")
-    check(ch.launch_closest_hit.launches == 0, "the mesh SPPM pass launched closest_hit")
+    check(b4_launches > 0 and b4_launches == mesh_gather.calls
+          and tracing.totals["launch.anyhit"] == 0,
+          f"mesh SPPM: {b4_launches} anyhit_pipe / {tracing.totals['launch.anyhit']} anyhit "
+          "launches")
+    check(tracing.totals["launch.closest_hit"] == 0, "the mesh SPPM pass launched closest_hit")
     check(mesh_log[0]["grid"], "the mesh pass did not take the grid gathers")
     check(msimg.shape == (SPPM["height"], SPPM["width"], 3) and bool(np.isfinite(msimg).all())
           and msimg.mean() > 0, "mesh SPPM image not finite or black")
@@ -3244,15 +3220,15 @@ def main() -> int:
     phases.start(14)
     # ---- 14. mesh main path with the prefilter ------------------------------------------
     mimg_pf, mesh_pf_s = render_mesh(mesh_pf)
-    mxu_launches = ch.launch_closest_hit_mxu.launches
+    mxu_launches = tracing.totals["launch.closest_hit_mxu"]
     log(f"mesh main path with the prefilter: {mxu_launches} closest_hit_mxu launches (expected "
-        f"{expected}), {ch.launch_closest_hit_pipe.launches} closest_hit_pipe, "
-        f"{ch.launch_closest_hit.launches} closest_hit; render {mesh_pf_s:.3f}s, "
+        f"{expected}), {tracing.totals['launch.closest_hit_pipe']} closest_hit_pipe, "
+        f"{tracing.totals['launch.closest_hit']} closest_hit; render {mesh_pf_s:.3f}s, "
         f"{rays / mesh_pf_s:.0f} rays/s (closest_hit_pipe render: {mesh_s:.3f}s); image equal to "
         f"the closest_hit_pipe render's bit for bit: {bool(np.array_equal(mimg, mimg_pf))}; "
         f"card: {card}")
-    check(mxu_launches == expected and ch.launch_closest_hit_pipe.launches == 0
-          and ch.launch_closest_hit.launches == 0,
+    check(mxu_launches == expected and tracing.totals["launch.closest_hit_pipe"] == 0
+          and tracing.totals["launch.closest_hit"] == 0,
           f"prefilter main path: {mxu_launches} closest_hit_mxu launches, expected {expected}")
     check(bool(np.array_equal(mimg, mimg_pf)), "the prefilter render's image differs")
 
@@ -3269,23 +3245,23 @@ def main() -> int:
         return inner_pick(*args, **kwargs)
 
     lights_mod.pick_light = counting_pick
-    reset_launches(ch)
-    lights_mod.host_syncs = 0
+    tracing.reset("launch.")
+    tracing.reset("loop_exit")
     try:
         t0 = time.perf_counter()
         pimg = renderer.render_from_config(pcfg)
         panel_s = time.perf_counter() - t0
     finally:
         lights_mod.pick_light = inner_pick
-    panel_syncs = lights_mod.host_syncs
+    panel_syncs = tracing.totals["loop_exit"]
     log(f"many-lights main path: {MAIN['width']}x{MAIN['height']} spp {MAIN['spp']} level "
         f"{MAIN['level']}, {PANEL['emitters']} emitters: {panel_s:.3f}s end to end, "
         f"{rays / panel_s:.0f} rays/s end to end; {len(picks)} descents (one per wavefront step), "
-        f"{ch.launch_closest_hit.launches} closest_hit launches, {panel_syncs} host syncs = "
+        f"{tracing.totals['launch.closest_hit']} closest_hit launches, {panel_syncs} host syncs = "
         f"{panel_syncs / expected:.1f} per wavefront step; image mean {pimg.mean():.6f}; card: {card}")
     check(len(picks) == expected, f"many lights: {len(picks)} descents, expected {expected}: the "
           "sparse regime was not taken")
-    check(ch.launch_closest_hit.launches == expected, "many lights: closest_hit launch count")
+    check(tracing.totals["launch.closest_hit"] == expected, "many lights: closest_hit launch count")
     check(pimg.shape == (MAIN["height"], MAIN["width"], 3) and bool(np.isfinite(pimg).all())
           and pimg.mean() > 0, "many-lights image not finite or black")
 
@@ -3295,7 +3271,7 @@ def main() -> int:
     check(panel_scene.num_lights == PANEL["emitters"] and not plt.dense,
           f"the panel has {panel_scene.num_lights} emitters, dense {plt.dense}")
     pwave = wavefronts(panel_scene, panel_cam, WAVE_RAYS, 1, seed=4)[0]
-    lights_mod.host_syncs = 0
+    tracing.reset("loop_exit")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -3307,7 +3283,7 @@ def main() -> int:
     log(f"many lights, one wavefront of {WAVE_RAYS} rays, level {MAIN['level']}: {wave_s:.3f}s = "
         f"{wave_s / MAIN['level'] * 1e3:.1f} ms a step; mis_targets_dropped {dropped} "
         f"({dropped / (WAVE_RAYS * MAIN['level']):.6f} per ray and bounce); tree depth {plt.depth}, "
-        f"{lights_mod.host_syncs / MAIN['level']:.1f} host syncs a step")
+        f"{tracing.totals['loop_exit'] / MAIN['level']:.1f} host syncs a step")
     dense_tree = lights_mod.build_light_tree(
         plt.tri_p, plt.tri_n, plt.tri_uv, plt.node_energy[panel_scene.num_lights - 1:],
         plt.geom_slot, dense_tables=True)
@@ -3363,8 +3339,8 @@ def main() -> int:
         return inner_grid(*args, **kwargs)
 
     sss_mod.gather_sss_grid = counting_grid
-    reset_launches(ch)
-    sss_mod.host_syncs = 0
+    tracing.reset("launch.")
+    tracing.reset("loop_exit")
     stages = {}
     inner_exit = renderer._Stage.__exit__
 
@@ -3385,12 +3361,13 @@ def main() -> int:
     log(f"SSS main path: {MAIN['width']}x{MAIN['height']} spp {MAIN['spp']} level {MAIN['level']}, "
         f"{SSS_POINTS} points on one object: {sss_s:.3f}s end to end; first pass {first_s:.3f}s, "
         f"render {render_s:.3f}s = {rays / render_s:.0f} rays/s; {len(grid_calls)} grid gathers for "
-        f"{sum(grid_calls)} rays, {sss_mod.host_syncs} host syncs of the gather, "
-        f"{ch.launch_closest_hit.launches} closest_hit launches (expected "
+        f"{sum(grid_calls)} rays, {tracing.totals['loop_exit']} host syncs of the gather, "
+        f"{tracing.totals['launch.closest_hit']} closest_hit launches (expected "
         f"{expected + first_launches}); image mean {sss_img.mean():.6f}; card: {card}")
-    check(ch.launch_closest_hit.launches == expected + first_launches, "SSS: closest_hit launch count")
-    check(len(grid_calls) > 0 and sss_mod.host_syncs == expected,
-          f"SSS: {len(grid_calls)} grid gathers, {sss_mod.host_syncs} gather calls")
+    check(tracing.totals["launch.closest_hit"] == expected + first_launches,
+          "SSS: closest_hit launch count")
+    check(len(grid_calls) > 0 and tracing.totals["loop_exit"] == expected,
+          f"SSS: {len(grid_calls)} grid gathers, {tracing.totals['loop_exit']} gather calls")
     check((sss_folder / "out_pts.ppm").stat().st_size > 0, "the SSS splat out_pts.ppm is missing")
     check(sss_img.shape == (MAIN["height"], MAIN["width"], 3) and bool(np.isfinite(sss_img).all()),
           "SSS image not finite")
@@ -3460,7 +3437,7 @@ def main() -> int:
     log(f"phase 23 record: {json.dumps(scaling)}")
     scaling_launches = {k: {part: [[m[k] for m in e["member_launches"]] for e in r["sweep"]]
                             for part, r in scaling.items()}
-                        for k in KERNEL_NAMES}
+                        for k in tracing.KERNELS}
 
     phases.report()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")

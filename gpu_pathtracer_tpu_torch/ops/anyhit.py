@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.ops.closest_hit import (
     _INF,
     GROUP_RAYS,
@@ -94,9 +95,7 @@ def launch_anyhit(rays, tiles, tile_aabb, order, counts: bool = False, cycles: b
     and with `cycles` the (R_pad / GROUP_RAYS, 2) int64 per group [clock64
     cycles of the walk, of its staging and scanning].  Raises on any input
     the kernel does not take and on a refused launch."""
-    out = _launch_window("anyhit", 1024, rays, tiles, tile_aabb, order, counts, cycles)
-    launch_anyhit.launches += 1
-    return out
+    return _launch_window("anyhit", 1024, rays, tiles, tile_aabb, order, counts, cycles)
 
 
 def launch_anyhit_pipe(rays, tiles, tile_aabb, order, counts: bool = False,
@@ -107,14 +106,7 @@ def launch_anyhit_pipe(rays, tiles, tile_aabb, order, counts: bool = False,
     tile width that is not a multiple of 4 and tiles that are not 16-byte
     aligned."""
     check_async_tiles(tiles)
-    out = _launch_window("anyhit_pipe", 512, rays, tiles, tile_aabb, order, counts, cycles)
-    launch_anyhit_pipe.launches += 1
-    return out
-
-
-# kernel launches; set to 0 by callers that count
-launch_anyhit.launches = 0
-launch_anyhit_pipe.launches = 0
+    return _launch_window("anyhit_pipe", 512, rays, tiles, tile_aabb, order, counts, cycles)
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +148,8 @@ def occluded_window_tiles(tiles, tile_aabb, origin, direction, t_near, t_far=flo
             near, far = launch(rays, tiles, tile_aabb, order)
         elif rays.device.type == "cpu":
             reference = anyhit_pipe_reference if big else anyhit_reference
-            near, far, _ = reference(rays, tiles, tile_aabb, order)
+            with tracing.span("kernel.anyhit"):  # the kernels' plain version
+                near, far, _ = reference(rays, tiles, tile_aabb, order)
         else:
             raise ValueError(f"occluded_window_tiles runs on cuda or cpu, got {rays.device}")
     return near[:r], far[:r]

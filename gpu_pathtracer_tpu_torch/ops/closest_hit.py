@@ -38,6 +38,8 @@ import ctypes
 
 import torch
 
+from gpu_pathtracer_tpu_torch import tracing
+
 TILE = 128  # triangles per tile (kernel maximum: 1024)
 RAY_BLOCK = 128  # rays per row of the tile order
 # The tile kernels' group walk (csrc/closest_hit_common.cuh; the kernels'
@@ -194,7 +196,10 @@ def launch_group_walk(kernel: str, max_tile: int, out_dtypes, rays, tiles, tile_
     GROUP_RAYS, 2) int64 cycles per group.  Every tile kernel, closest-hit
     or any-hit, walks in groups (`csrc/closest_hit_common.cuh`) and has this
     one C signature; `extra` are further input tensors (checked by the
-    caller) whose pointers follow `order`'s."""
+    caller) whose pointers follow `order`'s.  The launch alone is the
+    tracer's span `kernel.anyhit` for the any-hit kernels and
+    `kernel.closest_hit` for the others, and a launch the card took counts
+    as `launch.<kernel>`."""
     from gpu_pathtracer_tpu_torch.ops import _build
 
     dev = rays.device
@@ -223,10 +228,13 @@ def launch_group_walk(kernel: str, max_tile: int, out_dtypes, rays, tiles, tile_
     out_cycles = torch.empty((groups, 2), dtype=torch.int64, device=dev) if cycles else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(rays.data_ptr(), tiles.data_ptr(), tile_aabb.data_ptr(), order.data_ptr(),
-                 *(x.data_ptr() for x in extra), out_a.data_ptr(), out_b.data_ptr(),
-                 out_counts.data_ptr() if counts else None,
-                 out_cycles.data_ptr() if cycles else None, n_rays, n_tiles, tile, stream)
+        with tracing.span("kernel.anyhit" if kernel.startswith("anyhit") else "kernel.closest_hit"):
+            err = fn(rays.data_ptr(), tiles.data_ptr(), tile_aabb.data_ptr(), order.data_ptr(),
+                     *(x.data_ptr() for x in extra), out_a.data_ptr(), out_b.data_ptr(),
+                     out_counts.data_ptr() if counts else None,
+                     out_cycles.data_ptr() if cycles else None, n_rays, n_tiles, tile, stream)
+            if err == 0:
+                tracing.count(f"launch.{kernel}")
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
     return (out_a, out_b) + ((out_counts,) if counts else ()) + ((out_cycles,) if cycles else ())
@@ -265,10 +273,8 @@ def launch_closest_hit(rays, tiles, tile_aabb, order, counts: bool = False, cycl
     `cycles` the (R_pad / GROUP_RAYS, 2) int64 per group [clock64 cycles of
     the walk, of its staging and scanning].  Raises on any input the kernel
     does not take and on a refused launch."""
-    out = launch_group_walk("closest_hit", 1024, _CLOSEST_OUT, rays, tiles, tile_aabb, order,
-                            counts, cycles)
-    launch_closest_hit.launches += 1
-    return out
+    return launch_group_walk("closest_hit", 1024, _CLOSEST_OUT, rays, tiles, tile_aabb, order,
+                             counts, cycles)
 
 
 def launch_closest_hit_pipe(rays, tiles, tile_aabb, order, counts: bool = False,
@@ -280,10 +286,8 @@ def launch_closest_hit_pipe(rays, tiles, tile_aabb, order, counts: bool = False,
     tiles that are not 16-byte aligned (its bulk copies move whole 16-byte
     chunks)."""
     check_async_tiles(tiles)
-    out = launch_group_walk("closest_hit_pipe", 512, _CLOSEST_OUT, rays, tiles, tile_aabb, order,
-                            counts, cycles)
-    launch_closest_hit_pipe.launches += 1
-    return out
+    return launch_group_walk("closest_hit_pipe", 512, _CLOSEST_OUT, rays, tiles, tile_aabb,
+                             order, counts, cycles)
 
 
 def launch_closest_hit_mxu(rays, tiles, edge_tiles, wsum, tile_aabb, order, counts: bool = False,
@@ -305,16 +309,8 @@ def launch_closest_hit_mxu(rays, tiles, edge_tiles, wsum, tile_aabb, order, coun
     _check("wsum", wsum, torch.float32, (n_tiles, 3, tile), rays.device)
     if edge_tiles.data_ptr() % 16 or wsum.data_ptr() % 16:
         raise ValueError("the 16-byte copies need 16-byte-aligned edge tiles and wsum")
-    out = launch_group_walk("closest_hit_mxu", TILE, _CLOSEST_OUT, rays, tiles, tile_aabb, order,
-                            counts, cycles, extra=(edge_tiles, wsum), n_counts=5)
-    launch_closest_hit_mxu.launches += 1
-    return out
-
-
-# kernel launches; set to 0 by callers that count
-launch_closest_hit.launches = 0
-launch_closest_hit_pipe.launches = 0
-launch_closest_hit_mxu.launches = 0
+    return launch_group_walk("closest_hit_mxu", TILE, _CLOSEST_OUT, rays, tiles, tile_aabb,
+                             order, counts, cycles, extra=(edge_tiles, wsum), n_counts=5)
 
 
 # ---------------------------------------------------------------------------
@@ -696,7 +692,8 @@ def closest_hit_tiles(tiles, tile_aabb, origin, direction, t_max=float("inf"), b
             else:
                 t, slot = launch_closest_hit(rays, tiles, tile_aabb, order)
         elif rays.device.type == "cpu":
-            t, slot = _reference(rays, tiles, tile_aabb, big, edge)
+            with tracing.span("kernel.closest_hit"):  # the kernel's plain version
+                t, slot = _reference(rays, tiles, tile_aabb, big, edge)
         else:
             raise ValueError(f"closest_hit_tiles runs on cuda or cpu, got {rays.device}")
     return _finish(t, slot, r)

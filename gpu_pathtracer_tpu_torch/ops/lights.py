@@ -16,8 +16,8 @@ pdfs from bounded leaf-to-root walks (`node_pdf_walk`).
 The descent runs its `depth - 1` steps without asking the device anything.
 The collect walk is data-dependent (a ray is done when it leaves the tree):
 it asks the device every COLLECT_SYNC_STEPS steps whether any ray is still
-walking, bounded by 4 E steps as in the reference package; `host_syncs`
-counts those questions.
+walking, bounded by 4 E steps as in the reference package; each question
+is a `loop_exit` of the port's tracer (`tracing`).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.constants import (
     LIGHT_TREE_DENSE_MAX,
     MAX_POTENTIAL_TARGETS,
@@ -39,8 +40,6 @@ from gpu_pathtracer_tpu_torch.ops import intersect, linalg
 
 # steps of the collect walk between two `.any()` questions to the device
 COLLECT_SYNC_STEPS = 8
-# host synchronizations made by the sparse regime; set to 0 by callers that count
-host_syncs = 0
 
 
 @dataclasses.dataclass
@@ -402,7 +401,6 @@ def collect_hit_leaves(lt: LightTree, origin, direction, max_k: int = MAX_POTENT
     the (R,) int32 count of stabbed leaves dropped past the cap (a mixture pdf
     summed over a capped collection is biased low for that ray).  The
     collection is a superset of the emitters the ray hits."""
-    global host_syncs
     e = lt.num_lights
     r = origin.shape[0]
     dev = origin.device
@@ -424,7 +422,7 @@ def collect_hit_leaves(lt: LightTree, origin, direction, max_k: int = MAX_POTENT
     drop = torch.zeros((r,), dtype=torch.int32, device=dev)
     for step in range(4 * e):
         if step % COLLECT_SYNC_STEPS == 0:
-            host_syncs += 1
+            tracing.count("loop_exit")
             if not bool(torch.any(cur >= 0)):
                 break
         live = cur >= 0

@@ -10,18 +10,20 @@ carries the prefilter's edge tiles (`build_scene(edge_prefilter=True)`),
 wavefronts are first sorted for coherence so that the kernels' per-block
 tile cull and early exit fire.  Hits are reported in sorted-SoA slots (rows
 of `GeometrySet.p`), with barycentrics recomputed differentiably for the
-winner.
+winner.  A query is the span `dispatch.closest_hit` of the port's tracer
+(`tracing`), the kernel's launch inside it `kernel.closest_hit`.
 
 The windowed any-hit query (`occluded_window`, the photon gathers'
 visibility re-check) goes through `ops/anyhit.py` by the same rules:
 `csrc/anyhit_pipe.cu` above `PALLAS_MAX`, `csrc/anyhit.cu` below, the plain
-versions on the CPU.
+versions on the CPU; its spans are `dispatch.anyhit` and `kernel.anyhit`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.ops import intersect, morton
 from gpu_pathtracer_tpu_torch.ops.anyhit import occluded_window_tiles
 from gpu_pathtracer_tpu_torch.ops.closest_hit import closest_hit_tiles
@@ -138,8 +140,9 @@ def winner_bary(p, tol, origin, direction, slot, hit, attr=None) -> torch.Tensor
 
 def closest_hit(g, origin, direction, t_max=float("inf"), live=None):
     """Closest hit against a GeometrySet: (t, slot, bary, hit)."""
-    t, slot, hit = closest_hit_sorted(g, origin, direction, t_max, live)
-    bary = winner_bary(g.p, g.tol, origin, direction, slot, hit, attr=g.attr)
+    with tracing.span("dispatch.closest_hit"):
+        t, slot, hit = closest_hit_sorted(g, origin, direction, t_max, live)
+        bary = winner_bary(g.p, g.tol, origin, direction, slot, hit, attr=g.attr)
     return t, slot, bary, hit
 
 
@@ -176,4 +179,5 @@ def occluded_window(g, origin, direction, t_near, t_far=float("inf"), live=None)
     and t_far = inf.  On a CUDA device this is one launch of an any-hit
     kernel, on the CPU the kernel's plain version; the bits equal those
     derived from the closest hit (hit & t < t_near, hit & t <= t_far)."""
-    return occluded_window_sorted(g, origin, direction, t_near, t_far, live)
+    with tracing.span("dispatch.anyhit"):
+        return occluded_window_sorted(g, origin, direction, t_near, t_far, live)

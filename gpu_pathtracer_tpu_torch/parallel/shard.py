@@ -3,8 +3,8 @@
 
 One process drives one device, and a process group stands in for the JAX
 package's device mesh: `make_mesh` wraps the group in a `Mesh`, whose
-collectives are the only ones the port calls (each counted in
-`collectives`).  Everything here takes any mesh size, one included.
+collectives are the only ones the port calls (each counted as
+`collective.<op>` by the port's tracer, `tracing`).  Everything here takes any mesh size, one included.
 
 * `render_image_distributed` is the GSPMD counterpart: every rank walks the
   same pixel chunks and draws every chunk's numbers at the chunk's full width
@@ -22,12 +22,12 @@ collectives are the only ones the port calls (each counted in
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 
 import torch
 import torch.distributed as dist
 
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.constants import MATERIAL_STACK_SIZE
 from gpu_pathtracer_tpu_torch.device import resolve_device
 from gpu_pathtracer_tpu_torch.render.integrator import (
@@ -37,9 +37,6 @@ from gpu_pathtracer_tpu_torch.render.integrator import (
 )
 
 AXIS = "rays"
-
-# collectives issued through a Mesh, by name; set to 0 by callers that count
-collectives = collections.Counter()
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -85,7 +82,7 @@ class Mesh:
         new tensor (`t` itself without a group)."""
         if self.group is None:
             return t
-        collectives[f"all_reduce_{op}"] += 1
+        tracing.count(f"collective.all_reduce_{op}")
         x = t.clone()
         dist.all_reduce(x, op=_REDUCE_OPS[op], group=self.group)
         return x
@@ -96,7 +93,7 @@ class Mesh:
         rank's by default)."""
         if self.group is None:
             return t
-        collectives["all_gather"] += 1
+        tracing.count("collective.all_gather")
         n = t.shape[0]
         sizes = [n] * self.size if sizes is None else sizes
         width = max(sizes)

@@ -15,6 +15,11 @@ SSS point cloud (`render.sss`), when the scene carries one.
 Shading stays in differentiable torch ops (only the closest-hit query is
 not differentiable); callers that only render wrap the call in
 `torch.no_grad()`.
+
+A `render_image` call is a frame of the port's tracer (`tracing`): spans
+`integrator.sample` for each chunk-sample and `integrator.step` for each
+bounce, tiled by `dispatch.closest_hit`, `shading.surface`, `shading.nee`
+and `shading.accumulate`.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import math
 
 import torch
 
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.constants import MATERIAL_STACK_SIZE, SMALL_EPS
 from gpu_pathtracer_tpu_torch.models.scene import Scene
 from gpu_pathtracer_tpu_torch.ops import lights as lights_mod
@@ -162,76 +168,80 @@ def trace_paths(
     cap_mis = torch.zeros((), dtype=torch.int64, device=dev)
 
     for i in range(level):
-        if uniforms is not None:
-            u = uniforms[i].to(dev)
-        else:
-            u = torch.rand((N_UNIFORMS, r), generator=generator, device=dev)
-        u_descent = None
-        if descent:
-            if pick_uniforms is not None:
-                u_descent = pick_uniforms[i].to(dev)
+        with tracing.span("integrator.step", bounce=i):
+            if uniforms is not None:
+                u = uniforms[i].to(dev)
             else:
-                u_descent = torch.rand((descent, r), generator=generator, device=dev)
-        _, slot, bary, hit = trace.closest_hit(g, o, d, live=live)
-        hit = hit & live
+                u = torch.rand((N_UNIFORMS, r), generator=generator, device=dev)
+            u_descent = None
+            if descent:
+                if pick_uniforms is not None:
+                    u_descent = pick_uniforms[i].to(dev)
+                else:
+                    u_descent = torch.rand((descent, r), generator=generator, device=dev)
+            _, slot, bary, hit = trace.closest_hit(g, o, d, live=live)
 
-        point, uv, normal, mat_id = interpolate_hit(g, scene.materials, slot, bary)
-        ref = materials.sample_bsdf(
-            scene.materials, mat_id, point, d, normal, uv, stack_ids, stack_len, u[U_BSDF]
-        )
+            with tracing.span("shading.surface"):
+                hit = hit & live
+                point, uv, normal, mat_id = interpolate_hit(g, scene.materials, slot, bary)
+                ref = materials.sample_bsdf(
+                    scene.materials, mat_id, point, d, normal, uv, stack_ids, stack_len, u[U_BSDF]
+                )
 
-        if lt is not None:
-            do_nee = hit & ~ref.false_hit
-            if not sss_first_pass:
-                do_nee = do_nee & ~ref.sss
-            new_dir, new_filter, nee_factor, mis_dropped = _nee_mis(
-                scene, ref, normal, d, hittable_pdf_weight, u[U_ACCEPT:], u_descent
-            )
-            next_dir = torch.where(do_nee[..., None], new_dir, ref.dir)
-            filt = torch.where(do_nee[..., None], new_filter, ref.filter)
-            factor = torch.where(do_nee, nee_factor, 1.0)
-            cap_mis = cap_mis + torch.sum(torch.where(do_nee, mis_dropped, 0))
-        else:
-            next_dir, filt = ref.dir, ref.filter
-            factor = torch.ones((r,), dtype=torch.float32, device=dev)
+            with tracing.span("shading.nee"):
+                if lt is not None:
+                    do_nee = hit & ~ref.false_hit
+                    if not sss_first_pass:
+                        do_nee = do_nee & ~ref.sss
+                    new_dir, new_filter, nee_factor, mis_dropped = _nee_mis(
+                        scene, ref, normal, d, hittable_pdf_weight, u[U_ACCEPT:], u_descent
+                    )
+                    next_dir = torch.where(do_nee[..., None], new_dir, ref.dir)
+                    filt = torch.where(do_nee[..., None], new_filter, ref.filter)
+                    factor = torch.where(do_nee, nee_factor, 1.0)
+                    cap_mis = cap_mis + torch.sum(torch.where(do_nee, mis_dropped, 0))
+                else:
+                    next_dir, filt = ref.dir, ref.filter
+                    factor = torch.ones((r,), dtype=torch.float32, device=dev)
 
-        # emission accumulation + throughput update
-        emit = scene.materials.emission_color(mat_id, uv)
-        real_hit = hit & ~ref.false_hit
-        acc = acc + torch.where(real_hit[..., None], linalg.de_nan(mask * emit), 0.0)
-        cont = factor > 0
-        new_mask = torch.where(
-            (real_hit & cont)[..., None],
-            mask * filt * torch.clamp(factor, 0.0, 0.9999)[..., None],
-            mask,
-        )
+            with tracing.span("shading.accumulate"):
+                # emission accumulation + throughput update
+                emit = scene.materials.emission_color(mat_id, uv)
+                real_hit = hit & ~ref.false_hit
+                acc = acc + torch.where(real_hit[..., None], linalg.de_nan(mask * emit), 0.0)
+                cont = factor > 0
+                new_mask = torch.where(
+                    (real_hit & cont)[..., None],
+                    mask * filt * torch.clamp(factor, 0.0, 0.9999)[..., None],
+                    mask,
+                )
 
-        # miss -> sky
-        sky = _sky_color(scene, d)
-        acc = acc + torch.where((live & ~hit)[..., None], linalg.de_nan(mask * sky), 0.0)
-        mask = new_mask
-        live = live & hit & (ref.false_hit | cont)
+                # miss -> sky
+                sky = _sky_color(scene, d)
+                acc = acc + torch.where((live & ~hit)[..., None], linalg.de_nan(mask * sky), 0.0)
+                mask = new_mask
+                live = live & hit & (ref.false_hit | cont)
 
-        # SSS diffuse hit: the path's radiance is the point-cloud gather,
-        # whatever it accumulated before
-        if gather_sss:
-            from gpu_pathtracer_tpu_torch.render import sss as sss_mod
+                # SSS diffuse hit: the path's radiance is the point-cloud gather,
+                # whatever it accumulated before
+                if gather_sss:
+                    from gpu_pathtracer_tpu_torch.render import sss as sss_mod
 
-            sss_now = hit & ref.sss & ~sss_done
-            gathered = sss_mod.gather_sss_auto(
-                scene.sss, point, g.obj_id[torch.clamp(slot, min=0).long()],
-                scene.materials.path_length[torch.clamp(mat_id, min=0).long()],
-                scene.materials.diffuse_color(mat_id, uv), sss_now,
-            )
-            sss_color = torch.where(sss_now[..., None], gathered, sss_color)
-            sss_done = sss_done | sss_now
-            live = live & ~sss_now
+                    sss_now = hit & ref.sss & ~sss_done
+                    gathered = sss_mod.gather_sss_auto(
+                        scene.sss, point, g.obj_id[torch.clamp(slot, min=0).long()],
+                        scene.materials.path_length[torch.clamp(mat_id, min=0).long()],
+                        scene.materials.diffuse_color(mat_id, uv), sss_now,
+                    )
+                    sss_color = torch.where(sss_now[..., None], gathered, sss_color)
+                    sss_done = sss_done | sss_now
+                    live = live & ~sss_now
 
-        stack_ids, stack_len = materials.stack_rearrange(
-            stack_ids, stack_len, mat_id, ref.false_hit, ref.entering, ref.refracted, hit
-        )
-        o = torch.where(hit[..., None], ref.origin, o)
-        d = torch.where(hit[..., None], next_dir, d)
+                stack_ids, stack_len = materials.stack_rearrange(
+                    stack_ids, stack_len, mat_id, ref.false_hit, ref.entering, ref.refracted, hit
+                )
+                o = torch.where(hit[..., None], ref.origin, o)
+                d = torch.where(hit[..., None], next_dir, d)
 
     out = linalg.de_nan(torch.where(sss_done[..., None], sss_color, acc))
     if return_stats:
@@ -280,23 +290,24 @@ def _chunk_sample(scene, camera, pix_i, pix_j, level, hittable_pdf_weight, stack
     paths.  (chunk, 3) radiance.  `cols` traces only those columns of the
     chunk, from the numbers that the whole chunk draws (a rank's share of a
     sharded render): (columns, 3)."""
-    n = pix_i.shape[0]
-    u = torch.rand((2, n), generator=generator, device=pix_i.device)
-    if cols is None:
-        o, d = camera.generate_rays(pix_i, pix_j, u[0], u[1])
+    with tracing.span("integrator.sample"):
+        n = pix_i.shape[0]
+        u = torch.rand((2, n), generator=generator, device=pix_i.device)
+        if cols is None:
+            o, d = camera.generate_rays(pix_i, pix_j, u[0], u[1])
+            col = trace_paths(
+                scene, o, d, level=level, hittable_pdf_weight=hittable_pdf_weight,
+                stack_size=stack_size, generator=generator,
+            )
+            return linalg.de_nan(col)
+        uniforms, picks = path_uniforms(scene, level, n, generator, pix_i.device)
+        o, d = camera.generate_rays(pix_i[cols], pix_j[cols], u[0, cols], u[1, cols])
         col = trace_paths(
             scene, o, d, level=level, hittable_pdf_weight=hittable_pdf_weight,
-            stack_size=stack_size, generator=generator,
+            stack_size=stack_size, uniforms=uniforms[..., cols],
+            pick_uniforms=None if picks is None else picks[..., cols],
         )
         return linalg.de_nan(col)
-    uniforms, picks = path_uniforms(scene, level, n, generator, pix_i.device)
-    o, d = camera.generate_rays(pix_i[cols], pix_j[cols], u[0, cols], u[1, cols])
-    col = trace_paths(
-        scene, o, d, level=level, hittable_pdf_weight=hittable_pdf_weight,
-        stack_size=stack_size, uniforms=uniforms[..., cols],
-        pick_uniforms=None if picks is None else picks[..., cols],
-    )
-    return linalg.de_nan(col)
 
 
 def _assemble(mesh, totals, chunk: int):
@@ -335,22 +346,23 @@ def render_image(
     sample); `render_image_value_and_grad` is the form whose memory does not
     grow with the frame."""
     dev = scene.geom.p.device
-    pix_i, pix_j, n_pix = _pixel_chunks(width, height, ray_chunk, dev)
-    n_chunks, chunk = pix_i.shape
-    cols = None if mesh is None else mesh.columns(chunk)
-    n_samples = sample_size * dof_sample_size
-    totals = [0.0] * n_chunks
-    for _ in range(n_samples):
-        for c in range(n_chunks):
-            totals[c] = totals[c] + _chunk_sample(
-                scene, camera, pix_i[c], pix_j[c], level, hittable_pdf_weight, stack_size,
-                generator, cols)
-    if mesh is None:
-        img = torch.cat(totals)
-    else:
-        img = _assemble(mesh, torch.stack(totals), chunk).reshape(-1, 3)
-    img = img[:n_pix] / n_samples
-    return img.reshape(height, width, 3)
+    with tracing.frame("render.frame", dev):
+        pix_i, pix_j, n_pix = _pixel_chunks(width, height, ray_chunk, dev)
+        n_chunks, chunk = pix_i.shape
+        cols = None if mesh is None else mesh.columns(chunk)
+        n_samples = sample_size * dof_sample_size
+        totals = [0.0] * n_chunks
+        for _ in range(n_samples):
+            for c in range(n_chunks):
+                totals[c] = totals[c] + _chunk_sample(
+                    scene, camera, pix_i[c], pix_j[c], level, hittable_pdf_weight, stack_size,
+                    generator, cols)
+        if mesh is None:
+            img = torch.cat(totals)
+        else:
+            img = _assemble(mesh, torch.stack(totals), chunk).reshape(-1, 3)
+        img = img[:n_pix] / n_samples
+        return img.reshape(height, width, 3)
 
 
 def render_image_value_and_grad(

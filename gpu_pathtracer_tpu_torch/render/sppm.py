@@ -35,7 +35,7 @@ Randomness.  Every stochastic function takes either a `torch.Generator` or
 explicit uniforms in [0, 1) (a dict of tensors whose layout the function's
 docstring gives), so a test can feed the reference package's numbers.  Loops
 run while any ray is alive, which costs one host synchronization per step;
-`host_syncs` counts them.
+each is a `loop_exit` of the port's tracer (`tracing`).
 
 Scale-out.  Both renders take `pixel_sharding`, a `parallel.shard.Mesh`
 whose ranks split the pixels (`Columns`): each rank draws the whole batch's
@@ -56,9 +56,10 @@ import time
 import numpy as np
 import torch
 
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.constants import MATERIAL_STACK_SIZE, SMALL_EPS
 from gpu_pathtracer_tpu_torch.models.scene import Scene
-from gpu_pathtracer_tpu_torch.ops import anyhit, bounding_sphere, hashgrid
+from gpu_pathtracer_tpu_torch.ops import bounding_sphere, hashgrid
 from gpu_pathtracer_tpu_torch.ops import lights as lights_mod
 from gpu_pathtracer_tpu_torch.ops import linalg, materials, sampling, trace
 from gpu_pathtracer_tpu_torch.render.integrator import interpolate_hit
@@ -77,19 +78,13 @@ STACK_PROBE_STEPS = 8  # steps of `init_material_stack`
 DIRECT_CHAIN_STEPS = 8  # steps of the direct-radiance shadow chain
 PHOTON_STEP_UNIFORMS = 10  # per photon-pass step: see `photon_pass`
 
-# host synchronizations spent on data-dependent loop exits (`.any()`, counts)
-host_syncs = 0
-
-
 def _host_any(mask: torch.Tensor) -> bool:
-    global host_syncs
-    host_syncs += 1
+    tracing.count("loop_exit")
     return bool(mask.any())
 
 
 def _host_int(x: torch.Tensor) -> int:
-    global host_syncs
-    host_syncs += 1
+    tracing.count("loop_exit")
     return int(x)
 
 
@@ -148,8 +143,7 @@ class Columns:
     def count(self, x: torch.Tensor) -> int:
         """The sum of `x` over the batch as a Python int (a host
         synchronization)."""
-        global host_syncs
-        host_syncs += 1
+        tracing.count("loop_exit")
         return int(self.sum(x.sum().reshape(1)))
 
     def any(self, mask: torch.Tensor) -> bool:
@@ -1216,9 +1210,10 @@ def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None 
     and at the last, and the render resumes from the newest checkpoint.  A
     pass whose gather drops more than 1% of its in-radius candidates gathers
     again with doubled caps (up to `AUTO_CAPS_MAX`).  `pass_log`, a list,
-    receives one dict per pass (seconds of its parts, host synchronizations,
-    any-hit kernel launches, caps, photon counts, the mean of the direct
-    image so far).
+    receives one dict per pass (seconds of its parts, each ended by a device
+    synchronization made for the log alone; the tracer's loop exits as
+    `host_syncs` and any-hit kernel launches; caps, photon counts, the mean
+    of the direct image so far).
 
     Scale-out hooks (`parallel.sppm_shard`): `photon_pass_fn` replaces
     `photon_pass` (called as `photon_pass(scene, n_photons, max_bounce=,
@@ -1318,14 +1313,22 @@ def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None 
     cap_totals = {"gather_candidates_dropped": 0, "segments_dropped": 0, "beam_steps_dropped": 0}
 
     def clock():
+        """The host clock after the device has caught up; only for `pass_log`
+        (a render without one makes no synchronisation for it)."""
+        if pass_log is None:
+            return None
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return time.perf_counter()
 
+    def counted():
+        """(loop exits, any-hit launches) so far."""
+        n = tracing.totals
+        return n["loop_exit"], n["launch.anyhit"] + n["launch.anyhit_pipe"]
+
     for it in range(start_pass, num_pass):
         gen = pass_generator(seed, 1000 + it, dev)
-        syncs0 = host_syncs
-        launches0 = anyhit.launch_anyhit.launches + anyhit.launch_anyhit_pipe.launches
+        syncs0, launches0 = counted()
         t0 = clock()
         photons = photon_pass_fn(scene, n_phot, max_bounce=max_bounce, stack_size=cfg.max_stack,
                                  generator=gen)
@@ -1358,11 +1361,10 @@ def render_sppm(scene: Scene, camera, cfg, seed: int, output_prefix: str | None 
         cap_totals["segments_dropped"] += es["segments_dropped"]
         cap_totals["beam_steps_dropped"] += es["beam_steps_dropped"]
         if pass_log is not None:
+            syncs, launches = counted()
             pass_log.append(dict(
                 it=it, photon_s=t1 - t0, eye_s=t2 - t1, gather_s=t3 - t2,
-                host_syncs=host_syncs - syncs0,
-                anyhit_launches=(anyhit.launch_anyhit.launches
-                                 + anyhit.launch_anyhit_pipe.launches - launches0),
+                host_syncs=syncs - syncs0, anyhit_launches=launches - launches0,
                 k_nearest=k_nearest_cur,
                 k_per_cell=k_per_cell_cur, dropped=dropped,
                 surface_photons=int((photons.valid & photons.on_surface).sum()),

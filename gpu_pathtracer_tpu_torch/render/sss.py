@@ -13,7 +13,8 @@
 The gather is a masked all-pairs reduction over the flat point array up to
 SSS_DENSE_MAX points and goes through the spatial hash grid above.  Only the
 rays that gather are gathered for: they are compacted first (one host
-synchronization a call, counted in `host_syncs`), which changes no value.
+synchronization a call, a `loop_exit` of the port's tracer), which changes
+no value.
 
 Randomness comes from an explicit `torch.Generator` or from uniforms passed
 in, laid out as the reference package folds its key (see each function).
@@ -25,6 +26,7 @@ import dataclasses
 
 import torch
 
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.constants import SMALL_EPS
 from gpu_pathtracer_tpu_torch.models.scene import Scene, SSSPoints
 from gpu_pathtracer_tpu_torch.ops import bounding_sphere, hashgrid, intersect, linalg, sampling
@@ -32,8 +34,6 @@ from gpu_pathtracer_tpu_torch.ops import bounding_sphere, hashgrid, intersect, l
 # dense all-pairs gather up to this point count, the hash grid above
 SSS_DENSE_MAX = 2048
 _W_MAX = 9999.99  # cap of the 1/d weight
-# host synchronizations made by the gathers; set to 0 by callers that count
-host_syncs = 0
 
 
 def sss_object_ids(scene: Scene) -> list[int]:
@@ -184,8 +184,7 @@ def gather_sss_grid(points: SSSPoints, hit_pt, hit_obj, radius, kd, enable,
 def gather_sss_auto(points: SSSPoints, hit_pt, hit_obj, radius, kd, enable) -> torch.Tensor:
     """The SSS gather for a wavefront: dense up to SSS_DENSE_MAX points, the
     hash grid above.  Only the enabled rays are gathered for."""
-    global host_syncs
-    host_syncs += 1
+    tracing.count("loop_exit")
     idx = torch.nonzero(enable)[:, 0]
     out = torch.zeros_like(kd)
     if idx.shape[0] == 0:

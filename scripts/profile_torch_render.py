@@ -13,9 +13,11 @@ wavefront steps of 65,536 rays), and prints:
 
 * the wall time of one such render without the profiler (after a warm-up);
 * from `torch.profiler` over one more: the device's busy time and its share
-  of the unprofiled wall, the number of kernel launches, the host
-  synchronizations that the sparse light regime and the SSS gather count,
-  the closest-hit kernel's time, and the twelve largest kernels;
+  of the unprofiled wall, the number of kernel launches, the loop exits
+  of the sparse light regime and the SSS gather (the tracer's `loop_exit`)
+  and, for the forward render, every synchronising call torch reported
+  (`host_sync`), the closest-hit kernel's time, and the twelve largest
+  kernels;
 * CUDA-event times of the pieces of one closest-hit query on a captured
   bounce-2 wavefront: coherence sort, `prepare_rays`, `block_tile_order`,
   the kernel.
@@ -37,12 +39,12 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from gpu_pathtracer_tpu_torch import optim  # noqa: E402
+from gpu_pathtracer_tpu_torch import optim, tracing  # noqa: E402
 from gpu_pathtracer_tpu_torch.device import require_cuda  # noqa: E402
 from gpu_pathtracer_tpu_torch.models.camera import Camera  # noqa: E402
 from gpu_pathtracer_tpu_torch.models.scene import build_scene  # noqa: E402
 from gpu_pathtracer_tpu_torch.ops import closest_hit as ch  # noqa: E402
-from gpu_pathtracer_tpu_torch.ops import lights, trace  # noqa: E402
+from gpu_pathtracer_tpu_torch.ops import trace  # noqa: E402
 from gpu_pathtracer_tpu_torch.render import sss  # noqa: E402
 from gpu_pathtracer_tpu_torch.render.integrator import (  # noqa: E402
     render_image,
@@ -115,7 +117,8 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    lights.host_syncs = sss.host_syncs = 0
+    tracing.reset("loop_exit")
+    tracing.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(3)
@@ -123,8 +126,10 @@ def main() -> int:
         profiled_wall = time.perf_counter() - t0
     averages = prof.key_averages()
     launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel")
-    # kernels only: an operator's entry repeats the time of the kernels it launched
-    events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+    # kernels only: an operator's entry repeats the time of the kernels it launched, and a
+    # tracer span's mark on the device's timeline is no work
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in tracing.SPANS]
 
     def device_us(e):
         return e.self_device_time_total
@@ -132,9 +137,10 @@ def main() -> int:
     total_us = sum(device_us(e) for e in events)
     print(f"profiled wall {profiled_wall * 1e3:.1f} ms; device busy {total_us / 1e3:.1f} ms = "
           f"{total_us / 1e6 / wall:.3f} of the unprofiled wall; {launches} cudaLaunchKernel calls, "
-          f"{launches / steps:.0f} per wavefront step; host syncs counted by the sparse light "
-          f"regime {lights.host_syncs / steps:.1f} and by the SSS gather "
-          f"{sss.host_syncs / steps:.1f} per step")
+          f"{launches / steps:.0f} per wavefront step; loop exits (the sparse light regime's "
+          f"collect walk, the SSS gather) {tracing.totals['loop_exit'] / steps:.1f} per step")
+    for f in tracing.frames():  # the forward render's frame (the gradient makes none)
+        print(f"synchronising calls torch reported: {f.counter('host_sync') / steps:.1f} per step")
     for e in events:
         if "closest_hit" in e.key:
             print(f"kernel {e.key}: {device_us(e) / 1e3:.2f} ms in {e.count} launches")

@@ -35,7 +35,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from gpu_pathtracer_tpu_torch import optim  # noqa: E402
+from gpu_pathtracer_tpu_torch import optim, tracing  # noqa: E402
 from gpu_pathtracer_tpu_torch.device import require_cuda  # noqa: E402
 from gpu_pathtracer_tpu_torch.models.camera import Camera  # noqa: E402
 from gpu_pathtracer_tpu_torch.models.scene import build_scene  # noqa: E402
@@ -103,7 +103,8 @@ def main() -> int:
 
     def report(what, prof, wall):
         averages = prof.key_averages()
-        events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = [e for e in averages  # a tracer span's mark on the device is no work
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in tracing.SPANS]
         busy = sum(e.self_device_time_total for e in events) / 1e3
         launches = sum(e.count for e in events)
         print(f"{what}: device busy {busy:.1f} ms = {busy / 1e3 / wall:.3f} of its unprofiled "
@@ -116,7 +117,7 @@ def main() -> int:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:7d} calls  {e.key[:70]}")
 
     ke = ke0.detach().clone().requires_grad_(True)
-    sppm.host_syncs = 0
+    tracing.reset("loop_exit")
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities) as prof_f:
         img = sppm.render_sppm_differentiable(optim._substitute(scene, {"ke": ke}), cam, **kw)
@@ -127,7 +128,7 @@ def main() -> int:
         torch.cuda.synchronize()
     report("forward", prof_f, fwd)
     report("backward", prof_b, bwd)
-    print(f"host syncs of the step: {sppm.host_syncs}")
+    print(f"host syncs of the step: {tracing.totals['loop_exit']}")
     return 0
 
 

@@ -23,6 +23,7 @@ import torch_parity
 from gpu_pathtracer_tpu.ops import intersect as jintersect
 from gpu_pathtracer_tpu.ops import pallas_trace
 from gpu_pathtracer_tpu.ops import trace as jtrace
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.ops import anyhit, closest_hit, intersect, trace
 
 torch.set_num_threads(1)
@@ -177,11 +178,12 @@ def test_wrappers_refuse_cpu_tensors_and_other_devices():
     rays = anyhit.prepare_rays_window(aabb, torch.from_numpy(o), torch.from_numpy(d),
                                       torch.from_numpy(t_near))
     order = closest_hit.block_tile_order(rays, aabb, 1)
-    for launch in (anyhit.launch_anyhit, anyhit.launch_anyhit_pipe):
-        before = launch.launches
+    for name, launch in (("anyhit", anyhit.launch_anyhit),
+                         ("anyhit_pipe", anyhit.launch_anyhit_pipe)):
+        before = tracing.totals[f"launch.{name}"]
         with pytest.raises(ValueError, match="CUDA"):
             launch(rays, tiles, aabb, order)
-        assert launch.launches == before
+        assert tracing.totals[f"launch.{name}"] == before
     meta = [x.to("meta") for x in (tiles, aabb, torch.from_numpy(o), torch.from_numpy(d),
                                    torch.from_numpy(t_near))]
     with pytest.raises((ValueError, NotImplementedError, RuntimeError)):

@@ -32,6 +32,7 @@ from gpu_pathtracer_tpu.models.camera import Camera as JCamera
 from gpu_pathtracer_tpu.models.scene import build_scene as jbuild_scene
 from gpu_pathtracer_tpu.ops import pallas_trace
 from gpu_pathtracer_tpu.render import integrator as jint
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
 from gpu_pathtracer_tpu_torch.ops import closest_hit, intersect, trace
@@ -69,7 +70,7 @@ def test_pipe_plain_matches_pallas_big_kernel(mesh):
     jt, jslot, jhit = pallas_trace.closest_hit_pallas(
         jg.tri_cols, jg.tile_aabb, o, d, interpret=True, big=True)
     t, slot, hit = closest_hit.closest_hit_tiles(g.tiles, g.tile_aabb, _t(o), _t(d), big=True)
-    assert closest_hit.launch_closest_hit_pipe.launches == 0  # CPU: plain version only
+    assert tracing.totals["launch.closest_hit_pipe"] == 0  # CPU: plain version only
     jt, jslot, jhit = np.asarray(jt), np.asarray(jslot), np.asarray(jhit)
     np.testing.assert_array_equal(hit.numpy(), jhit)
     assert 0.3 < jhit.mean() < 1.0

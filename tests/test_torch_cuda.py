@@ -27,9 +27,11 @@ import pytest
 import torch
 
 import torch_parity
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
 from gpu_pathtracer_tpu_torch.ops import anyhit, closest_hit, intersect, trace
+from gpu_pathtracer_tpu_torch.render.integrator import render_image
 from gpu_pathtracer_tpu_torch.utils import obj_io, testscenes
 
 pytestmark = pytest.mark.cuda
@@ -60,10 +62,10 @@ def test_kernel_matches_plain_on_cuda(cuda):
     valid[3] = False
     tiles, taabb = closest_hit.pack_tiles(tris, intersect.triangle_tolerance(tris), valid)
     t_max = torch.where(torch.arange(5000, device=cuda) % 7 == 0, -1.0, float("inf"))
-    before = closest_hit.launch_closest_hit.launches
+    before = tracing.totals["launch.closest_hit"]
     t, slot, _ = closest_hit.closest_hit_tiles(tiles, taabb, o, d, t_max)
     torch.cuda.synchronize()
-    assert closest_hit.launch_closest_hit.launches == before + 1
+    assert tracing.totals["launch.closest_hit"] == before + 1
     rt, rslot, _ = closest_hit.closest_hit_tiles_reference(tiles, taabb, o, d, t_max)
     _assert_agree(t, slot, rt, rslot)
     slot = slot.cpu().numpy()
@@ -106,12 +108,12 @@ def _mesh_query(cuda, n_rays):
 
 def test_pipe_kernel_matches_plain_and_plain_load_kernel(cuda):
     g, o, d, t_max = _mesh_query(cuda, 3000)
-    before = (closest_hit.launch_closest_hit_pipe.launches, closest_hit.launch_closest_hit.launches)
+    before = (tracing.totals["launch.closest_hit_pipe"], tracing.totals["launch.closest_hit"])
     t, slot, hit = closest_hit.closest_hit_tiles(g.tiles, g.tile_aabb, o, d, t_max, big=True)
     t1, slot1, _ = closest_hit.closest_hit_tiles(g.tiles, g.tile_aabb, o, d, t_max)
     torch.cuda.synchronize()
-    assert closest_hit.launch_closest_hit_pipe.launches == before[0] + 1
-    assert closest_hit.launch_closest_hit.launches == before[1] + 1
+    assert tracing.totals["launch.closest_hit_pipe"] == before[0] + 1
+    assert tracing.totals["launch.closest_hit"] == before[1] + 1
     assert torch.equal(t, t1) and torch.equal(slot, slot1)
     rt, rslot, _ = closest_hit.closest_hit_tiles_reference(g.tiles, g.tile_aabb, o, d, t_max,
                                                            big=True)
@@ -183,7 +185,7 @@ def test_mxu_kernel_bit_equal_to_pipe_kernel_and_counts_near_plain(cuda):
     edge_tiles, wsum = closest_hit.pack_edge_tiles(g.p, g.valid)
     rays = closest_hit.prepare_rays(g.tile_aabb, o, d, t_max)
     order = closest_hit.block_tile_order(rays, g.tile_aabb, rays.shape[0] // 128)
-    before = closest_hit.launch_closest_hit_mxu.launches
+    before = tracing.totals["launch.closest_hit_mxu"]
     t, slot, counts = closest_hit.launch_closest_hit_mxu(rays, g.tiles, edge_tiles, wsum,
                                                          g.tile_aabb, order, counts=True)
     t2, slot2, counts2 = closest_hit.launch_closest_hit_pipe(rays, g.tiles, g.tile_aabb, order,
@@ -191,7 +193,7 @@ def test_mxu_kernel_bit_equal_to_pipe_kernel_and_counts_near_plain(cuda):
     t4, slot4, counts4, cycles = closest_hit.launch_closest_hit_mxu(
         rays, g.tiles, edge_tiles, wsum, g.tile_aabb, order, counts=True, cycles=True)
     torch.cuda.synchronize()
-    assert closest_hit.launch_closest_hit_mxu.launches == before + 2
+    assert tracing.totals["launch.closest_hit_mxu"] == before + 2
     assert torch.equal(t, t2) and torch.equal(slot, slot2)
     assert torch.equal(t4, t) and torch.equal(slot4, slot) and torch.equal(counts4, counts)
     assert counts.shape == (rays.shape[0] // closest_hit.GROUP_RAYS, 5)
@@ -261,16 +263,54 @@ def test_closest_hit_on_cuda_matches_cpu(cuda, tmp_path):
     out = {}
     for dev in ("cpu", cuda):
         g = build_scene(hs, dev).geom
-        before = closest_hit.launch_closest_hit.launches
+        before = tracing.totals["launch.closest_hit"]
         out[str(dev)] = [x.cpu() for x in trace.closest_hit(g, o.to(dev), d.to(dev),
                                                            live=live.to(dev))]
-        launched = closest_hit.launch_closest_hit.launches - before
+        launched = tracing.totals["launch.closest_hit"] - before
         assert launched == (1 if dev == cuda else 0), launched
     (t, slot, bary, hit), (rt, rslot, rbary, rhit) = out[str(cuda)], out["cpu"]
     _assert_agree(t, slot, rt, rslot)
     assert not hit[~live].any() and hit[live].float().mean() > 0.9
     same = (slot == rslot) & hit
     np.testing.assert_allclose(bary[same].numpy(), rbary[same].numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_traced_frame_on_cuda(cuda, tmp_path):
+    """A captured `render_image` frame on the card: the image bit for bit the
+    untraced one's, the step tree with device times that tile the frame, one
+    `launch.closest_hit` inside each `kernel.closest_hit`, the synchronising
+    calls counted, and the sync debug mode restored."""
+    testscenes.make_cornell_box(tmp_path, spheres=True, sphere_subdiv=2)
+    scene = build_scene(obj_io.load_scene(tmp_path, "box.obj"), cuda)
+    cam = Camera.create(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0),
+                        fovy_deg=40.0, width=128, height=128, device=cuda)
+
+    def render():
+        with torch.no_grad():
+            return render_image(scene, cam, 128, 128, sample_size=2, level=4,
+                                hittable_pdf_weight=0.5, ray_chunk=128 * 128,
+                                generator=torch.Generator(device=cuda).manual_seed(3))
+
+    off = render()
+    tracing.clear()
+    mode = torch.cuda.get_sync_debug_mode()
+    with tracing.capture():
+        on = render()
+    torch.cuda.synchronize()
+    assert torch.equal(on, off) and torch.cuda.get_sync_debug_mode() == mode
+    (frame,) = tracing.frames()
+    steps = frame.named("integrator.step")
+    assert len(steps) == 2 * 4 and frame.sync_hook
+    assert sum(s.device_ms for s in steps) <= frame.root.device_ms
+    for s in steps:
+        kids = frame.children(s)
+        assert [k.name for k in kids] == ["dispatch.closest_hit", "shading.surface",
+                                          "shading.nee", "shading.accumulate"]
+        assert 0 < sum(k.device_ms for k in kids) <= s.device_ms
+    kernels = frame.named("kernel.closest_hit")
+    assert len(kernels) == 8 and all(k.counters == {"launch.closest_hit": 1} for k in kernels)
+    assert all(k.parent.name == "dispatch.closest_hit" and k.device_ms > 0 for k in kernels)
+    assert frame.counter("host_sync") >= 8  # park_dead's constant, a step at least
 
 
 def _window(rng, n_rays, cuda):
@@ -301,10 +341,14 @@ def test_anyhit_kernels_match_plain_and_closest_hit(cuda, big):
     order = closest_hit.block_tile_order(rays, aabb, rays.shape[0] // closest_hit.RAY_BLOCK)
     launch = anyhit.launch_anyhit_pipe if big else anyhit.launch_anyhit
     reference = anyhit.anyhit_pipe_reference if big else anyhit.anyhit_reference
-    before = launch.launches
-    near, far, counts = launch(rays, tiles, aabb, order, counts=True)
+    counter = "launch.anyhit_pipe" if big else "launch.anyhit"
+    before = tracing.totals[counter]
+    with tracing.capture(), tracing.frame("render.frame", cuda):
+        near, far, counts = launch(rays, tiles, aabb, order, counts=True)
     torch.cuda.synchronize()
-    assert launch.launches == before + 1
+    assert tracing.totals[counter] == before + 1
+    (span,) = tracing.frames()[-1].named("kernel.anyhit")  # the launch's span, by its kernel
+    assert span.counters == {counter: 1} and span.device_ms > 0
     rnear, rfar, rcounts = reference(rays, tiles, aabb, order)
     assert torch.equal(near, rnear) and torch.equal(far, rfar)
     assert counts.shape == (rays.shape[0] // closest_hit.GROUP_RAYS, 3)
@@ -353,10 +397,10 @@ def test_occluded_window_on_cuda_matches_cpu(cuda, tmp_path):
     out = {}
     for dev in ("cpu", cuda):
         g = build_scene(hs, dev).geom
-        before = (anyhit.launch_anyhit.launches, closest_hit.launch_closest_hit.launches)
+        before = (tracing.totals["launch.anyhit"], tracing.totals["launch.closest_hit"])
         out[str(dev)] = [x.cpu() for x in trace.occluded_window(
             g, o.to(dev), d.to(dev), t_near.to(dev), live=live.to(dev))]
-        after = (anyhit.launch_anyhit.launches, closest_hit.launch_closest_hit.launches)
+        after = (tracing.totals["launch.anyhit"], tracing.totals["launch.closest_hit"])
         assert (after[0] - before[0], after[1] - before[1]) == ((1, 0) if dev == cuda else (0, 0))
     (near, far), (rnear, rfar) = out[str(cuda)], out["cpu"]
     assert float((near == rnear).float().mean()) >= 0.999
@@ -382,15 +426,15 @@ def test_differentiable_sppm_on_cuda(cuda, tmp_path):
                         fovy_deg=40.0, width=16, height=16, device=cuda)
     ke = scene.materials.ke.clone().requires_grad_(True)
     scn = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, ke=ke))
-    before = (anyhit.launch_anyhit.launches, anyhit.launch_anyhit_pipe.launches,
-              closest_hit.launch_closest_hit.launches)
+    before = (tracing.totals["launch.anyhit"], tracing.totals["launch.anyhit_pipe"],
+              tracing.totals["launch.closest_hit"])
     img = sppm.render_sppm_differentiable(scn, cam, 16, 16, n_photons=512, num_pass=2,
                                           max_bounce=4, eye_bounce=6, seed=3)
     (grad,) = torch.autograd.grad(img.mean(), ke)
     torch.cuda.synchronize()
     b3, b4, b1 = (after - b for after, b in zip(
-        (anyhit.launch_anyhit.launches, anyhit.launch_anyhit_pipe.launches,
-         closest_hit.launch_closest_hit.launches), before))
+        (tracing.totals["launch.anyhit"], tracing.totals["launch.anyhit_pipe"],
+         tracing.totals["launch.closest_hit"]), before))
     assert b3 == 2 and b4 == 0 and b1 > 0, (b3, b4, b1)
     assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all()) and float(img.mean()) > 0
     light = scene.materials.ke.amax(dim=-1) > 0
@@ -424,14 +468,14 @@ def test_render_image_distributed_nccl_world_of_one(cuda, tmp_path):
         assert pdist.init_distributed(backend="nccl", timeout=60)
         mesh = shard.make_mesh()
         assert mesh.size == 1 and mesh.group is not None
-        before = shard.collectives["all_gather"]
+        before = tracing.totals["collective.all_gather"]
         with torch.no_grad():
             got = shard.render_image_distributed(
                 scene, cam, 64, 64, mesh, generator=torch.Generator(device=cuda).manual_seed(3),
                 **kw)
             want = render_image(scene, cam, 64, 64,
                                 generator=torch.Generator(device=cuda).manual_seed(3), **kw)
-        assert shard.collectives["all_gather"] == before + 1
+        assert tracing.totals["collective.all_gather"] == before + 1
         assert torch.equal(got, want) and float(want.mean()) > 0
     finally:
         if dist.is_initialized():

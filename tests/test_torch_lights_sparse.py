@@ -28,6 +28,7 @@ from gpu_pathtracer_tpu.models.scene import build_scene as jbuild_scene
 from gpu_pathtracer_tpu.ops import lights as jlights
 from gpu_pathtracer_tpu.render import integrator as jint
 from gpu_pathtracer_tpu.utils import obj_io, testscenes
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.constants import LIGHT_TREE_DENSE_MAX
 from gpu_pathtracer_tpu_torch.models import convert
 from gpu_pathtracer_tpu_torch.models.camera import Camera
@@ -98,9 +99,9 @@ def test_collect_hit_leaves_equals_jax_and_is_a_superset():
     e, r = 64, 128
     jlt, lt = _random_trees(7, e)
     origin, _, direction = _points(8, r)
-    lights.host_syncs = 0
+    tracing.reset("loop_exit")
     cand, ok, dropped = lights.collect_hit_leaves(lt, _t(origin), _t(direction), max_k=64)
-    assert 0 < lights.host_syncs <= 4 * e // lights.COLLECT_SYNC_STEPS + 1
+    assert 0 < tracing.totals["loop_exit"] <= 4 * e // lights.COLLECT_SYNC_STEPS + 1
     jcand, jok, jdropped = jlights.collect_hit_leaves(jlt, origin, direction, max_k=64)
     np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
     np.testing.assert_array_equal(np.where(ok.numpy(), cand.numpy(), -1),
@@ -322,12 +323,12 @@ def test_panel_render_region_means_match_jax(panel):
     jimg = np.asarray(jint.render_image(
         jscene, JCamera.create(**CAM, width=w, height=h), jax.random.key(0), width=w, height=h,
         sample_size=spp, level=level, hittable_pdf_weight=0.5))
-    lights.host_syncs = 0
+    tracing.reset("loop_exit")
     with torch.no_grad():
         img = integrator.render_image(
             scene, Camera.create(**CAM, width=w, height=h), w, h, sample_size=spp, level=level,
             hittable_pdf_weight=0.5, generator=torch.Generator().manual_seed(3)).numpy()
-    assert lights.host_syncs >= spp * level
+    assert tracing.totals["loop_exit"] >= spp * level
     assert np.isfinite(img).all() and (img >= 0).all()
     port = img.reshape(h // 4, 4, w // 4, 4, 3).mean(axis=(1, 3, 4))
     jref = jimg.reshape(h // 4, 4, w // 4, 4, 3).mean(axis=(1, 3, 4))

@@ -48,7 +48,7 @@ import torch
 
 import chip_smoke
 import torch_parity
-from gpu_pathtracer_tpu_torch import optim
+from gpu_pathtracer_tpu_torch import optim, tracing
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
 from gpu_pathtracer_tpu_torch.parallel import shard, sppm_shard
@@ -77,7 +77,7 @@ sys.path.insert(0, %(tests)r)
 import numpy as np
 import torch
 torch.set_num_threads(1)
-from gpu_pathtracer_tpu_torch import optim, renderer
+from gpu_pathtracer_tpu_torch import optim, renderer, tracing
 from gpu_pathtracer_tpu_torch.parallel import dist as pdist, shard, sppm_shard
 from gpu_pathtracer_tpu_torch.render import sppm
 from gpu_pathtracer_tpu_torch.utils import config
@@ -144,7 +144,7 @@ step("sppm loss step")
 out["sppm_loss"], out["sppm_grad"] = float(loss), grads["ke"].numpy()
 if mesh.rank == 0:
     np.savez(os.environ["MP_OUT"], **out)
-step(f"rank {mesh.rank} ok, collectives {dict(shard.collectives)}")
+step(f"rank {mesh.rank} ok, collectives {tracing.counts('collective.')}")
 '''
 
 PT_KW = dict(sample_size=SPP, level=LEVEL, hittable_pdf_weight=WEIGHT)
@@ -441,12 +441,12 @@ def test_mesh_of_one_process():
     is issued, and every gather and reduction returns its input."""
     mesh = shard.make_mesh(device="cpu")
     assert (mesh.group, mesh.rank, mesh.size) == (None, 0, 1)
-    before = sum(shard.collectives.values())
+    before = sum(tracing.counts("collective.").values())
     x = torch.arange(6.0).reshape(3, 2)
     assert mesh.all_gather(x) is x and mesh.all_reduce(x, "max") is x
     assert mesh.columns(10) == slice(0, 10) and shard.Mesh(None, 1, 3, "cpu").bounds(10) == [
         (0, 3), (3, 6), (6, 10)]
-    assert sum(shard.collectives.values()) == before
+    assert sum(tracing.counts("collective.").values()) == before
     from gpu_pathtracer_tpu_torch.parallel import dist as pdist
     assert pdist.host_local_slice(8, mesh) == slice(0, 8)
 

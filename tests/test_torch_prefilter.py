@@ -32,6 +32,7 @@ import torch
 import torch_parity
 from gpu_pathtracer_tpu.ops import intersect as jintersect
 from gpu_pathtracer_tpu.ops import pallas_trace
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.models import convert
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
 from gpu_pathtracer_tpu_torch.ops import closest_hit, intersect, trace
@@ -112,7 +113,7 @@ def test_mxu_plain_matches_pallas_mxu_kernel(soup):
     t, slot, hit = closest_hit.closest_hit_tiles(
         soup["tiles"], soup["aabb"], _t(soup["o"]), _t(soup["d"]), _t(soup["t_max"]), big=True,
         edge=(soup["edge_tiles"], soup["wsum"]))
-    assert closest_hit.launch_closest_hit_mxu.launches == 0  # CPU: plain version only
+    assert tracing.totals["launch.closest_hit_mxu"] == 0  # CPU: plain version only
     jt, jslot, jhit = np.asarray(jt), np.asarray(jslot), np.asarray(jhit)
     np.testing.assert_array_equal(hit.numpy(), jhit)
     assert not jhit[::5].any() and 0.2 < jhit.mean() < 0.9

@@ -36,6 +36,7 @@ from gpu_pathtracer_tpu.ops import sampling as jsampling
 from gpu_pathtracer_tpu.render import splat as jsplat
 from gpu_pathtracer_tpu.render import sppm as jsppm
 from gpu_pathtracer_tpu.utils.config import RenderConfig as JRenderConfig
+from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.models import convert
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
@@ -283,11 +284,11 @@ def test_photon_pass_box_matches_jax():
     jp = jsppm.photon_pass(jscene, key, n_photons=PHOTONS, max_bounce=PHOTON_BOUNCE)
     uni = torch_parity.as_tensors(
         torch_parity.photon_uniforms_from_key(key, PHOTONS, PHOTON_BOUNCE))
-    before = sppm.host_syncs
+    before = tracing.totals["loop_exit"]
     tp = sppm.photon_pass(scene, PHOTONS, max_bounce=PHOTON_BOUNCE, uniforms=uni)
     _check_photons(jp, tp)
     assert tp.on_surface[tp.valid].all()  # a closed diffuse box has no medium
-    assert 0 < sppm.host_syncs - before <= 4 * PHOTON_BOUNCE + 33
+    assert 0 < tracing.totals["loop_exit"] - before <= 4 * PHOTON_BOUNCE + 33
     # the generator form draws its own numbers: same shape of result
     own = sppm.photon_pass(scene, PHOTONS, max_bounce=PHOTON_BOUNCE,
                            generator=torch.Generator().manual_seed(1))

@@ -29,7 +29,7 @@ from gpu_pathtracer_tpu.models.scene import build_scene as jbuild_scene
 from gpu_pathtracer_tpu.render import integrator as jint
 from gpu_pathtracer_tpu.render import sss as jsss
 from gpu_pathtracer_tpu.utils import obj_io, testscenes
-from gpu_pathtracer_tpu_torch import renderer
+from gpu_pathtracer_tpu_torch import renderer, tracing
 from gpu_pathtracer_tpu_torch.models import convert
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import SSSPoints
@@ -180,10 +180,10 @@ def test_gathers_match_jax_and_each_other():
     np.testing.assert_allclose(
         grid, np.asarray(jsss.gather_sss_grid(jpts, *query, k_per_cell=64)), rtol=1e-5, atol=1e-7)
     # the size dispatch gathers for the enabled rays only, with the same values
-    sss.host_syncs = 0
+    tracing.reset("loop_exit")
     np.testing.assert_allclose(sss.gather_sss_auto(pts, *tq).numpy(), dense, rtol=1e-6, atol=1e-8)
     none = sss.gather_sss_auto(pts, *tq[:4], torch.zeros(128, dtype=torch.bool))
-    assert sss.host_syncs == 2 and float(none.abs().sum()) == 0.0
+    assert tracing.totals["loop_exit"] == 2 and float(none.abs().sum()) == 0.0
 
 
 def test_gather_auto_takes_the_grid_above_dense_max(monkeypatch):

@@ -5,11 +5,12 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the CUDA device, and the card's name and power limit from nvidia-smi;
-  2. the five kernels (closest hit and windowed any hit, each with plain
+  2. the six kernels (closest hit and windowed any hit, each with plain
      loads and with a TMA ring, and the ring-buffered closest hit with the
-     tensor-core edge prefilter; all five walk the tile order in 8-ray
-     groups) built with nvcc from the checkout's sources (one nvcc per
-     source, started together), with their ptxas lines;
+     tensor-core edge prefilter, all five walking the tile order in 8-ray
+     groups; and the dense light tree's NEE/MIS step) built with nvcc from
+     the checkout's sources (one nvcc per source, started together), with
+     their ptxas lines;
   3. the plain-load kernel (`closest_hit`, the group walk: 8-ray groups,
      8 threads a ray) against its plain PyTorch version on the card, and its
      per-group counts against the group walk's plain version: a random
@@ -183,20 +184,28 @@ Phases (any failure exits non-zero; nothing is caught):
      small size (64x64, spp 2, level 4; 16,384 photons; the SPPM legs at
      64x64 with 8,192 photons, the differentiable one at 32x32 with 1,024; one
      timed call a leg): exit 0, a line for each of its eight legs, each leg's
-     launches those of its path (forward, backward and glass + DoF on
-     `closest_hit` alone and the mesh on `closest_hit_pipe` alone, each by
-     its count; the SPPM legs and the differentiable step on `closest_hit`
-     and `anyhit`), the final line `bench.py`'s with its `detail` keys,
-     `backend` cuda, the card's name and power limit;
+     launches those of its path (forward and glass + DoF on `closest_hit`
+     and `nee_dense`, the mesh on `closest_hit_pipe` and `nee_dense`, the
+     backward pass on `closest_hit` alone, each by its count; the SPPM legs
+     and the differentiable step on `closest_hit` and `anyhit`), the final
+     line `bench.py`'s with its `detail` keys, `backend` cuda, the card's
+     name and power limit;
  23. the scaling harness: `python3 bench_scaling_torch.py` as a child process at
      its defaults (256x256, spp 4, level 4) twice, (a) one rank a GPU over NCCL
      and (b) `--virtual 4`, 1, 2 and 4 gloo ranks sharing the card: exit 0,
      `bench_scaling.py`'s line with the port's keys, the sweep's sizes, every
      image the one-rank image bit for bit, `backend` cuda and the collective
      backend of each, the card's name and power limit, and each member's
-     launches in the timed call 16 `closest_hit` and no other kernel.  A
-     virtual sweep on one card measures the sharding machinery and the host,
-     not scaling across GPUs.
+     launches in the timed call 16 `closest_hit`, 16 `nee_dense` and no
+     other kernel.  A virtual sweep on one card measures the sharding
+     machinery and the host, not scaling across GPUs;
+ 24. the dense light tree's NEE/MIS kernel (`nee_dense`) at the
+     `cornell.forward` cell's shapes (1920x1080 = 2,073,600 rays, 2
+     emitters) on the steps that `trace_paths` hands it at bounce 0 and 3:
+     its outputs against its plain version's (bit-equal share, largest
+     relative difference, picks), its time over 20 launches, the plain
+     version's, aten's cumsum over the (R, 2) pdf table (what it replaced),
+     the bound from the bytes these inputs need, and one launch a step.
 To keep the run short some references run at a smaller depth than the main
 paths: the Cornell SPPM render makes 2 of the bench's passes and its CPU
 reference is 48x48, the render forced onto `closest_hit` and the mesh's CPU
@@ -229,6 +238,7 @@ GATHER_CHUNK = 16384  # pixels per chunk of the grid gather: one any-hit query i
 CORNELL_CAM = dict(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0), fovy_deg=40.0)
 MESH_CAM = dict(eye=(0.5, 0.8, 2.2), center=(0.5, 0.45, 0.5), up=(0, 1, 0), fovy_deg=45.0)
 WAVE_RAYS = 65536  # one wavefront of the main paths
+NEE_FRAME = (1920, 1080)  # the cornell.forward cell's frame, one wavefront (phase 24)
 MESH_SUBDIV, MESH_TRIS = 7, 327684  # the large-mesh configuration
 MESH_CPU_SUBDIV = 5  # the mesh that the CPU plain path renders as the reference
 TOL_RTOL = 1e-6  # t where slots agree: same float32 ops, no FMA on either side
@@ -1511,10 +1521,11 @@ def textured_mesh(dev, card: str, stats: dict, pipe_err: dict) -> dict:
     img, seconds, launches = render(scene)
     log(f"textured mesh main path: {w}x{h} spp {spp} level {level}, map_Kd + map_Bump + sky: "
         f"render {seconds:.3f}s, {rays / seconds:.0f} rays/s; launches {launches} (expected "
-        f"{expected} closest_hit_pipe); card: {card}")
-    check(launches["closest_hit_pipe"] == expected
-          and sum(launches.values()) == launches["closest_hit_pipe"],
-          f"textured mesh: launches {launches}, expected {expected} closest_hit_pipe alone")
+        f"{expected} closest_hit_pipe and nee_dense each); card: {card}")
+    check(launches["closest_hit_pipe"] == launches["nee_dense"] == expected
+          and sum(launches.values()) == 2 * expected,
+          f"textured mesh: launches {launches}, expected {expected} closest_hit_pipe and "
+          f"{expected} nee_dense")
     check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 1e-3,
           "textured mesh image not finite or black")
     rec.update(seconds=seconds, rays_per_s=rays / seconds, launches=launches)
@@ -1738,9 +1749,11 @@ def glass_dof(dev, card: str, stats: dict) -> dict:
     log(f"glass + DoF main path: {w}x{h}, sample_size {GLASS['spp']} x dof_sample_size "
         f"{GLASS['dof']}, level {level}, aperture {GLASS['aperture']}, focus {GLASS['focus_dist']}: "
         f"{seconds:.3f}s end to end, rays_per_sec_fwd_glass_dof {rays / seconds:.1f}; launches "
-        f"{launches} (expected {expected} closest_hit); card: {card}")
-    check(launches["closest_hit"] == expected and sum(launches.values()) == expected,
-          f"glass + DoF: launches {launches}, expected {expected} closest_hit alone")
+        f"{launches} (expected {expected} closest_hit and nee_dense each); card: {card}")
+    check(launches["closest_hit"] == launches["nee_dense"] == expected
+          and sum(launches.values()) == 2 * expected,
+          f"glass + DoF: launches {launches}, expected {expected} closest_hit and {expected} "
+          "nee_dense")
     check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 0,
           "glass + DoF image not finite or black")
     rec = dict(seconds=seconds, rays_per_sec_fwd_glass_dof=rays / seconds, launches=launches)
@@ -2457,14 +2470,15 @@ def bench_on_card(card: str) -> dict:
     small, reps = BENCH_SMALL, BENCH_SMALL["BENCH_REPEATS"]
     chunks = -(-small["BENCH_SIZE"] ** 2 // WAVE_RAYS)
     per_sample = chunks * small["BENCH_LEVEL"] * reps
-    only = {  # the launches of each leg that depend on no data: the one kernel, a count
-        "forward": ("closest_hit", per_sample * small["BENCH_SPP"]),
-        "backward": ("closest_hit", 2 * per_sample * max(1, small["BENCH_SPP"] // 4)),
-        "glass_dof": ("closest_hit", per_sample * max(1, small["BENCH_SPP"] // 2) * 2),
-        "mesh": ("closest_hit_pipe", per_sample * small["BENCH_SPP"]),
+    only = {  # the launches of each leg that depend on no data: its kernels, a count
+        "forward": (("closest_hit", "nee_dense"), per_sample * small["BENCH_SPP"]),
+        "backward": (("closest_hit",), 2 * per_sample * max(1, small["BENCH_SPP"] // 4)),
+        "glass_dof": (("closest_hit", "nee_dense"),
+                      per_sample * max(1, small["BENCH_SPP"] // 2) * 2),
+        "mesh": (("closest_hit_pipe", "nee_dense"), per_sample * small["BENCH_SPP"]),
     }
-    for leg, (kernel, n) in only.items():
-        want = {k: n if k == kernel else 0 for k in launches[leg]}
+    for leg, (kernels, n) in only.items():
+        want = {k: n if k in kernels else 0 for k in launches[leg]}
         check(launches[leg] == want, f"bench leg {leg}: launches {launches[leg]}, expected {want}")
     box_kernels = ("closest_hit", "anyhit")  # the SPPM box: below PALLAS_MAX
     for leg in ("sppm_cornell", "sppm_fog", "diff_sppm"):
@@ -2499,8 +2513,8 @@ def scaling_on_card(card: str) -> dict:
     SCALING_VIRTUAL` (gloo ranks sharing `cuda:0`).  Each must exit 0 and
     print `bench_scaling.py`'s line with the port's keys, sweep N over the
     sizes of its rank count with every image the one-rank image bit for bit,
-    and each member must launch `closest_hit` the path's count in the timed
-    call and no other kernel.  Returns each child's seconds, line and
+    and each member must launch `closest_hit` and `nee_dense` the path's
+    count in the timed call and no other kernel.  Returns each child's seconds, line and
     launches."""
     from gpu_pathtracer_tpu_torch import tracing
     import os
@@ -2545,13 +2559,97 @@ def scaling_on_card(card: str) -> dict:
               f"{detail['collective_backend']}, virtual {detail['virtual_mesh']}")
         check(detail["device"] == torch.cuda.get_device_name(0) and detail["power_limit"] == card,
               f"bench_scaling_torch.py ran on {detail['device']}, {detail['power_limit']}")
-        want = {k: per_member if k == "closest_hit" else 0 for k in tracing.KERNELS}
+        want = {k: per_member if k in ("closest_hit", "nee_dense") else 0
+                for k in tracing.KERNELS}
         for e in sweep:
             check(len(e["member_launches"]) == e["n"]
                   and all(m == want for m in e["member_launches"]),
                   f"bench_scaling_torch.py ({part}) N={e['n']}: members' launches "
                   f"{e['member_launches']}, expected {want} each")
         rec[part] = dict(seconds=seconds, value=final["value"], unit=final["unit"], sweep=sweep)
+    return rec
+
+
+def nee_on_card(dev, scene, card: str) -> dict:
+    """Phase 24: the dense light tree's NEE/MIS kernel at the `cornell.forward`
+    cell's shapes: a 1920x1080 frame as one wavefront, sample 1, level 4 on
+    phase 3's Cornell box (2 emitters), with `lights.nee_dense` recording
+    the steps that `trace_paths` hands it.  At bounce 0 and 3: the kernel
+    against `nee_dense_reference` (the share of rays whose outputs are
+    bit-equal, the largest relative difference, picks inferred from the
+    next direction), its time over 20 launches, the plain version's, aten's
+    cumsum over the (R, 2) pdf table that the plain version runs, and the
+    bound from the bytes the launch needs: every ray reads the lobe's
+    direction and filter and its do_nee flag and writes 28 B; a ray with NEE
+    also reads its origin, normal, perfect direction, incoming direction,
+    exponent, three flags and four uniforms (71 B), and one whose reflected
+    or refracted lobe takes the light its k (12 B).  Returns the phase's
+    record."""
+    import torch
+
+    from gpu_pathtracer_tpu_torch import tracing
+    from gpu_pathtracer_tpu_torch.models.camera import Camera
+    from gpu_pathtracer_tpu_torch.ops import lights as lights_mod
+    from gpu_pathtracer_tpu_torch.render.integrator import render_image
+
+    (w, h), level = NEE_FRAME, 4
+    lt = scene.light_tree
+    steps, real = [], lights_mod.nee_dense
+
+    def recording(*args):
+        steps.append(args)
+        return real(*args)
+
+    cam = Camera.create(**CORNELL_CAM, width=w, height=h, device=dev)
+    lights_mod.nee_dense = recording
+    tracing.reset("launch.")
+    try:
+        with torch.no_grad():
+            render_image(scene, cam, w, h, sample_size=1, level=level,
+                         hittable_pdf_weight=MAIN["weight"], ray_chunk=w * h,
+                         generator=torch.Generator(device=dev).manual_seed(24))
+    finally:
+        lights_mod.nee_dense = real
+    torch.cuda.synchronize()
+    launched = tracing.totals["launch.nee_dense"]
+    check(len(steps) == level and launched == level,
+          f"nee_dense: {len(steps)} steps recorded, {launched} launches, expected {level}")
+    rec = {"emitters": lt.num_lights, "rays": w * h, "launches_a_step": launched / level}
+    for bounce in (0, 3):
+        _, ref, normal, coming, weight, u, do_nee = steps[bounce]
+        args = (lt, ref, normal, coming, weight, u, do_nee)
+        with torch.no_grad():
+            got = lights_mod.launch_nee_dense(*args)
+            want = lights_mod.nee_dense_reference(*args)
+            same = torch.ones_like(do_nee)
+            worst = 0.0
+            for a, b in zip(got, want):
+                eq = a.view(torch.int32) == b.view(torch.int32)
+                same &= eq.all(dim=-1) if eq.dim() > 1 else eq
+                both = torch.isfinite(a) & torch.isfinite(b)
+                rel = (a - b).abs() / b.abs().clamp(min=1e-30)
+                worst = max(worst, float(rel[both].max()))
+                check(bool((torch.isfinite(a) == torch.isfinite(b)).all()),
+                      f"nee_dense bounce {bounce}: finite where the plain version is not")
+            took = do_nee & (u[0] < torch.where(torch.isinf(ref.n), 0.0, weight))
+            refilter = took & (ref.reflected | ref.refracted)
+            nbytes = (w * h * 53 + int(do_nee.sum()) * 71 + int(refilter.sum()) * 12)
+            bound = nbytes / PEAK_BYTES * 1e3
+            ms = cuda_ms(lambda: lights_mod.launch_nee_dense(*args), 20)
+            plain_ms = cuda_ms(lambda: lights_mod.nee_dense_reference(*args), 20)
+            table = torch.rand((w * h, lt.num_lights), device=dev)
+            cumsum_ms = cuda_ms(lambda: torch.cumsum(table, dim=-1), 20)
+        share = float(same.float().mean())
+        log(f"nee_dense, Cornell bounce {bounce}, {w * h} rays ({float(do_nee.float().mean()):.3f} "
+            f"with NEE, {float(took.float().mean()):.3f} taking the light): kernel {ms:.4f} ms, "
+            f"bound {bound:.4f} ms (bytes, {nbytes} B), plain version {plain_ms:.3f} ms, aten "
+            f"cumsum over the (R, {lt.num_lights}) table {cumsum_ms:.3f} ms; outputs bit-equal on "
+            f"{share:.7f} of the rays, largest relative difference {worst:.3e}; card: {card}")
+        check(share >= 0.99999 and worst <= 1e-5,
+              f"nee_dense bounce {bounce}: bit-equal on {share:.7f}, largest rel diff {worst:.3e}")
+        rec[f"bounce_{bounce}"] = dict(ms=ms, bound_ms=bound, bound_by="bytes", plain_ms=plain_ms,
+                                       library_ms=cumsum_ms, bit_equal_share=share,
+                                       max_rel_diff=worst, nee_share=float(do_nee.float().mean()))
     return rec
 
 
@@ -3439,6 +3537,11 @@ def main() -> int:
                             for part, r in scaling.items()}
                         for k in tracing.KERNELS}
 
+    phases.start(24)
+    # ---- 24. the NEE/MIS kernel at the benchmark cell's shapes -------------------------------
+    nee = nee_on_card(dev, scene, card)
+    log(f"phase 24 record: {json.dumps(nee)}")
+
     phases.report()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     record = {"kernels": [
@@ -3580,6 +3683,22 @@ def main() -> int:
                 "ms", "pipe_ms", "plain_ms", "bound_ms", "bound_by", "culled_share",
                 "culled_share_per_pair", "culled_share_group_union", "culled_share_warp_union",
                 "most_scanned", "scan_share_slowest")},
+        },
+        {
+            "name": "nee_dense",
+            "route": "cuda",
+            "scale_out_launches": scale_launches["nee_dense"],
+            "card_paths_launches": paths_launches["nee_dense"],
+            "bench_launches": bench_launches["nee_dense"],
+            "scaling_launches": scaling_launches["nee_dense"],
+            "source": "gpu_pathtracer_tpu_torch/csrc/nee_dense.cu",
+            "replaces": None,  # no TPU kernel: the step's ~460 torch launches
+            "launches": nee["launches_a_step"],
+            "max_abs_err": 1.0 - nee["bounce_3"]["bit_equal_share"],  # share of rays not bit-equal
+            **{k: nee["bounce_3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms")},
+            "shape": "2,073,600 rays x 2 emitters, Cornell bounce 3 (the cornell.forward cell)",
+            "bounce_0": nee["bounce_0"],
         },
     ]}
     print(json.dumps(record), flush=True)

@@ -18,10 +18,17 @@ The collect walk is data-dependent (a ray is done when it leaves the tree):
 it asks the device every COLLECT_SYNC_STEPS steps whether any ray is still
 walking, bounded by 4 E steps as in the reference package; each question
 is a `loop_exit` of the port's tracer (`tracing`).
+
+`nee_mis` is the integrator's NEE/MIS step in either regime, in torch ops.
+In the dense regime with at most NEE_DENSE_MAX_LIGHTS emitters and no
+gradient asked for, the integrator takes `nee_dense` instead: one launch of
+`csrc/nee_dense.cu` a wavefront step on the card (counter
+`launch.nee_dense`), `nee_dense_reference` elsewhere.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -35,11 +42,15 @@ from gpu_pathtracer_tpu_torch.constants import (
     SMALL_EPS,
 )
 from gpu_pathtracer_tpu_torch.ops import bvh as bvh_mod
-from gpu_pathtracer_tpu_torch.ops import intersect, linalg
+from gpu_pathtracer_tpu_torch.ops import intersect, linalg, sampling
 
 
 # steps of the collect walk between two `.any()` questions to the device
 COLLECT_SYNC_STEPS = 8
+# most emitters `nee_dense` takes: the kernel keeps 3E-1 floats a ray in
+# shared memory (csrc/nee_dense.cu, kMaxLights), up to 58 KB a block at 32
+NEE_DENSE_MAX_LIGHTS = 32
+_NEE_ARG_SLOTS = 43  # 8-byte fields of the kernel's argument block (`Args`)
 
 
 @dataclasses.dataclass
@@ -473,3 +484,152 @@ def hittable_pdf_sum(lt: LightTree, origin, direction, pivot, node_pdf=None) -> 
         hit, (t * t) / torch.clamp(cos * lt.area[None, :], min=1e-20), 0.0
     )
     return torch.sum(node_pdf * geom, dim=-1)
+
+
+def nee_mis(lt: LightTree, ref, normal, coming_dir, hittable_pdf_weight: float,
+            u: torch.Tensor, u_descent: torch.Tensor | None = None):
+    """change_ref_ray: with probability w redirect the sampled ray at a
+    light-tree-sampled emitter point, then weight with the mixture pdf.
+    `ref` is the lobe's `materials.ReflectionRecord`; `u` is (4, R):
+    u_accept, the light-pick uniform, u1, u2; `u_descent` (descent steps, R)
+    feeds the sparse regime's pick instead of u[1].  Returns (new_dir,
+    new_filter, factor, mis_dropped): mis_dropped is the (R,) count of
+    emitter leaves the sparse pdf sum dropped past MAX_POTENTIAL_TARGETS (0
+    in the dense regime, which sums over all)."""
+    pivot = torch.where(ref.diffuse[..., None], normal, ref.perfect_dir)
+    w = torch.where(torch.isinf(ref.n), 0.0, hittable_pdf_weight)
+    take_light = u[0] < w
+
+    # dense regime: one (R, E) pdf table serves the pick and the mixture pdf;
+    # sparse regime: stochastic descent + bounded walks, O(R log E)
+    if lt.dense:
+        node_pdf = leaf_node_pdfs(lt, ref.origin, pivot)
+        leaf = pick_light_dense(lt, node_pdf, u[1])
+    else:
+        leaf = pick_light(lt, ref.origin, pivot, uniforms=u_descent)
+    target = sample_point_on_light(lt, leaf, u[2], u[3])
+    light_dir = linalg.normalize(target - ref.origin, SMALL_EPS)
+
+    new_dir = torch.where(take_light[..., None], light_dir, ref.dir)
+    refilter = take_light & (ref.reflected | ref.refracted)
+    filt_l = sampling.phong_filter(ref.k, ref.n, pivot, new_dir)
+    new_filter = torch.where(refilter[..., None], filt_l, ref.filter)
+
+    if lt.dense:
+        hittable = hittable_pdf_sum(lt, ref.origin, new_dir, pivot, node_pdf=node_pdf)
+        mis_dropped = torch.zeros(ref.pdf.shape, dtype=torch.int32, device=ref.pdf.device)
+    else:
+        hittable, mis_dropped = hittable_pdf_sum_sparse(
+            lt, ref.origin, new_dir, pivot, with_stats=True)
+    samp_diff = sampling.diffuse_sampling_pdf(normal, new_dir)
+    samp_spec = sampling.specular_sampling_pdf(
+        coming_dir, new_dir, normal, ref.perfect_dir, ref.n, ref.refracted
+    )
+    samp = torch.where(ref.diffuse, samp_diff, samp_spec)
+    pdf = w * hittable + (1.0 - w) * samp
+
+    scat = sampling.scattering_pdf(normal, new_dir, ref.diffuse, coming_dir, ref.refracted)
+    factor = scat / math.pi / torch.where(pdf != 0, pdf, 1.0)
+    factor = torch.where(pdf != 0, factor, 0.0)
+    return new_dir, new_filter, factor, mis_dropped
+
+
+def nee_dense_reference(lt: LightTree, ref, normal, coming_dir, hittable_pdf_weight: float,
+                        u: torch.Tensor, do_nee: torch.Tensor):
+    """The plain version of `csrc/nee_dense.cu` (any device): `nee_mis` on a
+    dense light tree, then the integrator's selects.  Returns (next_dir,
+    filter, factor): where `do_nee`, nee_mis's (new_dir, new_filter,
+    factor); elsewhere the lobe's (ref.dir, ref.filter) and 1."""
+    new_dir, new_filter, factor, _ = nee_mis(lt, ref, normal, coming_dir, hittable_pdf_weight, u)
+    return (torch.where(do_nee[..., None], new_dir, ref.dir),
+            torch.where(do_nee[..., None], new_filter, ref.filter),
+            torch.where(do_nee, factor, 1.0))
+
+
+def nee_dense(lt: LightTree, ref, normal, coming_dir, hittable_pdf_weight: float,
+              u: torch.Tensor, do_nee: torch.Tensor):
+    """The dense light tree's NEE/MIS step with the integrator's `do_nee`
+    selects: one launch of `csrc/nee_dense.cu` for CUDA tensors
+    (`launch_nee_dense`), `nee_dense_reference` for others.  Not
+    differentiable on the card; the integrator calls it only where no
+    gradient is asked for."""
+    if ref.origin.device.type == "cuda":
+        return launch_nee_dense(lt, ref, normal, coming_dir, hittable_pdf_weight, u, do_nee)
+    return nee_dense_reference(lt, ref, normal, coming_dir, hittable_pdf_weight, u, do_nee)
+
+
+def nee_tables(lt: LightTree):
+    """The light tree's tables as `csrc/nee_dense.cu` reads them: node (2E-1,
+    12) float32 [box centre, energy, leaf centroid, leaf average normal],
+    leaf (E, 20) float32 [vertices, vertex normals, area, tol] and ints
+    (2E-1 + E * depth,) int32 [the siblings, each leaf's root-to-leaf path
+    in ascending node id padded with 2E-1].  Built on the tree's device
+    without a host synchronisation, once a tree (kept on it)."""
+    tables = lt.__dict__.get("_nee_tables")
+    if tables is None:
+        e = lt.num_lights
+        n_nodes = 2 * e - 1
+        centers = 0.5 * (lt.tree.aabb_min + lt.tree.aabb_max)
+        node = torch.cat([centers, lt.node_energy, lt.node_centroid, lt.node_avg_normal], dim=1)
+        leaf = torch.cat([lt.tri_p.reshape(e, 9), lt.tri_n.reshape(e, 9), lt.area[:, None],
+                          lt.tol[:, None]], dim=1)
+        ids = torch.arange(n_nodes, dtype=torch.int32, device=lt.anc.device)
+        paths = torch.where(lt.anc.T > 0, ids, n_nodes).sort(dim=1).values[:, :lt.depth]
+        ints = torch.cat([lt.sib.to(torch.int32), paths.reshape(-1)])
+        tables = lt._nee_tables = tuple(
+            t.detach().to(dtype).contiguous()
+            for t, dtype in ((node, torch.float32), (leaf, torch.float32), (ints, torch.int32)))
+    return tables
+
+
+def launch_nee_dense(lt: LightTree, ref, normal, coming_dir, hittable_pdf_weight: float,
+                     u: torch.Tensor, do_nee: torch.Tensor):
+    """Launch `csrc/nee_dense.cu` on the current stream: `nee_dense_reference`'s
+    (next_dir (R, 3), filter (R, 3), factor (R,)) float32 from the inputs read
+    in place (float32 vectors (R, 3), ref.n (R,), bool flags (R,), u (4, R),
+    any strides).  A launch the card took counts as `launch.nee_dense`."""
+    from gpu_pathtracer_tpu_torch.ops import _build
+
+    r = ref.origin.shape[0]
+    dev = ref.origin.device
+    e = lt.num_lights
+    if not lt.dense or e > NEE_DENSE_MAX_LIGHTS:
+        raise ValueError(f"nee_dense takes a dense light tree of at most {NEE_DENSE_MAX_LIGHTS} "
+                         f"emitters, got {e} (dense {lt.dense})")
+    vectors = (ref.origin, ref.dir, ref.k, ref.filter, ref.perfect_dir, normal, coming_dir)
+    flags = (ref.diffuse, ref.reflected, ref.refracted, do_nee)
+    if (any(t.dtype != torch.float32 or t.shape != (r, 3) for t in vectors)
+            or any(t.dtype != torch.bool or t.shape != (r,) for t in flags)
+            or ref.n.dtype != torch.float32 or ref.n.shape != (r,)
+            or u.dtype != torch.float32 or u.shape != (4, r)):
+        raise ValueError("nee_dense takes float32 (R, 3) vectors, a float32 (R,) exponent, "
+                         "bool (R,) flags and float32 (4, R) uniforms")
+    node, leaf, ints = nee_tables(lt)
+    out_dir = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    out_filter = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    out_factor = torch.empty((r,), dtype=torch.float32, device=dev)
+    args = []
+    for t in vectors + (u,):
+        args += (t.data_ptr(), *t.stride())
+    for t in (ref.n,) + flags:
+        args += (t.data_ptr(), t.stride(0))
+    args += (node.data_ptr(), leaf.data_ptr(), ints.data_ptr(), out_dir.data_ptr(),
+             out_filter.data_ptr(), out_factor.data_ptr(), r, e, lt.depth)
+    fn = _nee_entry(_build.load("nee_dense"))
+    with torch.cuda.device(dev):
+        err = fn((ctypes.c_int64 * _NEE_ARG_SLOTS)(*args), hittable_pdf_weight,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nee_dense kernel launch failed: cudaError {err}")
+    tracing.count("launch.nee_dense")
+    return out_dir, out_filter, out_factor
+
+
+def _nee_entry(lib):
+    """The C entry point `gpt_nee_dense(args, weight, stream)` with its
+    signature set; it returns a cudaError_t."""
+    fn = lib.gpt_nee_dense
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn

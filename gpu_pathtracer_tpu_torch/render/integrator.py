@@ -24,7 +24,7 @@ and `shading.accumulate`.
 
 from __future__ import annotations
 
-import math
+import dataclasses
 
 import torch
 
@@ -32,7 +32,7 @@ from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.constants import MATERIAL_STACK_SIZE, SMALL_EPS
 from gpu_pathtracer_tpu_torch.models.scene import Scene
 from gpu_pathtracer_tpu_torch.ops import lights as lights_mod
-from gpu_pathtracer_tpu_torch.ops import linalg, materials, sampling, texture, trace
+from gpu_pathtracer_tpu_torch.ops import linalg, materials, texture, trace
 
 # rows of the per-bounce uniforms
 U_BSDF = slice(0, 4)  # u_choice, u_pick, u_lobe1, u_lobe2
@@ -75,52 +75,17 @@ def _sky_color(scene: Scene, direction):
                               scene.sky_emission)
 
 
-def _nee_mis(scene: Scene, ref: materials.ReflectionRecord, normal, coming_dir,
-             hittable_pdf_weight: float, u: torch.Tensor, u_descent: torch.Tensor | None = None):
-    """change_ref_ray: with probability w redirect the sampled ray at a
-    light-tree-sampled emitter point, then weight with the mixture pdf.
-    `u` is (4, R): u_accept, the light-pick uniform, u1, u2; `u_descent`
-    (descent steps, R) feeds the sparse regime's pick instead of u[1].
-    Returns (new_dir, new_filter, factor, mis_dropped): mis_dropped is the
-    (R,) count of emitter leaves the sparse pdf sum dropped past
-    MAX_POTENTIAL_TARGETS (0 in the dense regime, which sums over all)."""
-    lt = scene.light_tree
-    pivot = torch.where(ref.diffuse[..., None], normal, ref.perfect_dir)
-    w = torch.where(torch.isinf(ref.n), 0.0, hittable_pdf_weight)
-    take_light = u[0] < w
-
-    # dense regime: one (R, E) pdf table serves the pick and the mixture pdf;
-    # sparse regime: stochastic descent + bounded walks, O(R log E)
-    if lt.dense:
-        node_pdf = lights_mod.leaf_node_pdfs(lt, ref.origin, pivot)
-        leaf = lights_mod.pick_light_dense(lt, node_pdf, u[1])
-    else:
-        leaf = lights_mod.pick_light(lt, ref.origin, pivot, uniforms=u_descent)
-    target = lights_mod.sample_point_on_light(lt, leaf, u[2], u[3])
-    light_dir = linalg.normalize(target - ref.origin, SMALL_EPS)
-
-    new_dir = torch.where(take_light[..., None], light_dir, ref.dir)
-    refilter = take_light & (ref.reflected | ref.refracted)
-    filt_l = sampling.phong_filter(ref.k, ref.n, pivot, new_dir)
-    new_filter = torch.where(refilter[..., None], filt_l, ref.filter)
-
-    if lt.dense:
-        hittable = lights_mod.hittable_pdf_sum(lt, ref.origin, new_dir, pivot, node_pdf=node_pdf)
-        mis_dropped = torch.zeros(ref.pdf.shape, dtype=torch.int32, device=ref.pdf.device)
-    else:
-        hittable, mis_dropped = lights_mod.hittable_pdf_sum_sparse(
-            lt, ref.origin, new_dir, pivot, with_stats=True)
-    samp_diff = sampling.diffuse_sampling_pdf(normal, new_dir)
-    samp_spec = sampling.specular_sampling_pdf(
-        coming_dir, new_dir, normal, ref.perfect_dir, ref.n, ref.refracted
-    )
-    samp = torch.where(ref.diffuse, samp_diff, samp_spec)
-    pdf = w * hittable + (1.0 - w) * samp
-
-    scat = sampling.scattering_pdf(normal, new_dir, ref.diffuse, coming_dir, ref.refracted)
-    factor = scat / math.pi / torch.where(pdf != 0, pdf, 1.0)
-    factor = torch.where(pdf != 0, factor, 0.0)
-    return new_dir, new_filter, factor, mis_dropped
+def _requires_grad(*objs) -> bool:
+    """Whether a tensor among `objs`, or in their dataclass fields (a
+    `Scene`, a `ReflectionRecord`), requires grad."""
+    for obj in objs:
+        if isinstance(obj, torch.Tensor):
+            if obj.requires_grad:
+                return True
+        elif dataclasses.is_dataclass(obj):
+            if _requires_grad(*(getattr(obj, f.name) for f in dataclasses.fields(obj))):
+                return True
+    return False
 
 
 def trace_paths(
@@ -139,8 +104,8 @@ def trace_paths(
     """Radiance (R, 3) for a batch of rays, one wavefront step per bounce.
 
     Per bounce each ray uses eight uniforms: rows 0-3 go to `sample_bsdf`,
-    rows 4-7 to `_nee_mis` (u_accept, light pick, u1, u2).  They come from
-    `uniforms` (level, 8, R) when given, else from `generator`.  In the
+    rows 4-7 to `lights.nee_mis` (u_accept, light pick, u1, u2).  They come
+    from `uniforms` (level, 8, R) when given, else from `generator`.  In the
     sparse light-tree regime the pick is a descent with one uniform per step:
     `pick_uniforms` (level, `lights.descent_steps`, R), else drawn from
     `generator` after the eight.
@@ -166,6 +131,12 @@ def trace_paths(
     sss_color = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     sss_done = torch.zeros((r,), dtype=torch.bool, device=dev)
     cap_mis = torch.zeros((), dtype=torch.int64, device=dev)
+    # the NEE/MIS kernel takes a dense tree of few emitters where no gradient
+    # is asked for (it has no backward; a scene tensor that requires grad keeps
+    # both passes of the path replay on the torch ops)
+    nee_kernel = (lt is not None and lt.dense
+                  and lt.num_lights <= lights_mod.NEE_DENSE_MAX_LIGHTS
+                  and not _requires_grad(scene))
 
     for i in range(level):
         with tracing.span("integrator.step", bounce=i):
@@ -193,13 +164,18 @@ def trace_paths(
                     do_nee = hit & ~ref.false_hit
                     if not sss_first_pass:
                         do_nee = do_nee & ~ref.sss
-                    new_dir, new_filter, nee_factor, mis_dropped = _nee_mis(
-                        scene, ref, normal, d, hittable_pdf_weight, u[U_ACCEPT:], u_descent
-                    )
-                    next_dir = torch.where(do_nee[..., None], new_dir, ref.dir)
-                    filt = torch.where(do_nee[..., None], new_filter, ref.filter)
-                    factor = torch.where(do_nee, nee_factor, 1.0)
-                    cap_mis = cap_mis + torch.sum(torch.where(do_nee, mis_dropped, 0))
+                    if nee_kernel and not (torch.is_grad_enabled()
+                                           and _requires_grad(ref, normal, d, u)):
+                        next_dir, filt, factor = lights_mod.nee_dense(
+                            lt, ref, normal, d, hittable_pdf_weight, u[U_ACCEPT:], do_nee)
+                    else:
+                        new_dir, new_filter, nee_factor, mis_dropped = lights_mod.nee_mis(
+                            lt, ref, normal, d, hittable_pdf_weight, u[U_ACCEPT:], u_descent
+                        )
+                        next_dir = torch.where(do_nee[..., None], new_dir, ref.dir)
+                        filt = torch.where(do_nee[..., None], new_filter, ref.filter)
+                        factor = torch.where(do_nee, nee_factor, 1.0)
+                        cap_mis = cap_mis + torch.sum(torch.where(do_nee, mis_dropped, 0))
                 else:
                     next_dir, filt = ref.dir, ref.filter
                     factor = torch.ones((r,), dtype=torch.float32, device=dev)

@@ -39,7 +39,8 @@ neither).  Spans opened outside a frame reach the profiler only.
 on or off (the integer add that the counters they replace made), and, inside
 a frame, add to the innermost open span:
 
-    launch.<kernel>       a launch of one of the five tile kernels (`KERNELS`)
+    launch.<kernel>       a launch of one of the port's kernels (`KERNELS`: the
+                          five tile kernels and the NEE/MIS kernel `nee_dense`)
     loop_exit             a data-dependent loop exit or compaction of the
                           program (a `.any()` or a count read on the host)
     collective.<op>       a collective through `parallel.shard.Mesh`
@@ -65,7 +66,8 @@ RING_FRAMES = 64  # frames kept
 SPANS = ("render.frame", "integrator.sample", "integrator.step", "dispatch.closest_hit",
          "kernel.closest_hit", "shading.surface", "shading.nee", "shading.accumulate",
          "dispatch.anyhit", "kernel.anyhit")
-KERNELS = ("closest_hit", "closest_hit_pipe", "closest_hit_mxu", "anyhit", "anyhit_pipe")
+KERNELS = ("closest_hit", "closest_hit_pipe", "closest_hit_mxu", "anyhit", "anyhit_pipe",
+           "nee_dense")
 # the message of torch's synchronisation check (c10/cuda, sync debug mode "warn")
 SYNC_MESSAGE = "called a synchronizing CUDA operation"
 
@@ -282,7 +284,7 @@ class Tracer:
         return {k[len(prefix):]: v for k, v in self.totals.items() if k.startswith(prefix) and v}
 
     def launches(self) -> dict:
-        """Every tile kernel's launches so far, by kernel."""
+        """Every kernel's launches so far, by kernel."""
         return {k: self.totals[f"launch.{k}"] for k in KERNELS}
 
     def reset(self, prefix: str = "") -> None:

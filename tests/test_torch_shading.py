@@ -25,7 +25,6 @@ from gpu_pathtracer_tpu.ops import materials as jmat
 from gpu_pathtracer_tpu.render import integrator as jint
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.ops import lights, materials
-from gpu_pathtracer_tpu_torch.render import integrator
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -195,7 +194,7 @@ def test_light_tree_and_dense_pdfs_match_jax(many_lights):
 
 
 def test_nee_mis_matches_jax(cornell):
-    """_nee_mis on Cornell hit points with the same BSDF and NEE uniforms."""
+    """nee_mis on Cornell hit points with the same BSDF and NEE uniforms."""
     _, jscene, scene = cornell
     mat_id, point, v_in, normal, uv, ids, length = _bsdf_inputs(jscene, 8)
     bkey, nkey = jax.random.key(21), jax.random.key(23)
@@ -203,8 +202,8 @@ def test_nee_mis_matches_jax(cornell):
     ref = materials.sample_bsdf(scene.materials, _t(mat_id), _t(point), _t(v_in), _t(normal),
                                 _t(uv), _t(ids), _t(length), _t(_uniforms(bkey, len(mat_id))))
     jout = jint._nee_mis(jscene, jref, normal, v_in, 0.5, nkey)
-    out = integrator._nee_mis(scene, ref, _t(normal), _t(v_in), 0.5,
-                              _t(_uniforms(nkey, len(mat_id), pick_shape=(len(mat_id), 1))))
+    out = lights.nee_mis(scene.light_tree, ref, _t(normal), _t(v_in), 0.5,
+                         _t(_uniforms(nkey, len(mat_id), pick_shape=(len(mat_id), 1))))
     for a, b, name in zip(out, jout[:3], ("new_dir", "new_filter", "factor")):
         np.testing.assert_allclose(_np(a), np.asarray(b), err_msg=name, rtol=1e-4, atol=1e-6)
     assert (_np(out[2]) > 0).mean() > 0.3

@@ -5,10 +5,11 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the CUDA device, and the card's name and power limit from nvidia-smi;
-  2. the six kernels (closest hit and windowed any hit, each with plain
+  2. the seven kernels (closest hit and windowed any hit, each with plain
      loads and with a TMA ring, and the ring-buffered closest hit with the
      tensor-core edge prefilter, all five walking the tile order in 8-ray
-     groups; and the dense light tree's NEE/MIS step) built with nvcc from
+     groups; the dense light tree's NEE/MIS step; and the wavefront step's
+     surface shading) built with nvcc from
      the checkout's sources (one nvcc per source, started together), with
      their ptxas lines;
   3. the plain-load kernel (`closest_hit`, the group walk: 8-ray groups,
@@ -184,8 +185,9 @@ Phases (any failure exits non-zero; nothing is caught):
      small size (64x64, spp 2, level 4; 16,384 photons; the SPPM legs at
      64x64 with 8,192 photons, the differentiable one at 32x32 with 1,024; one
      timed call a leg): exit 0, a line for each of its eight legs, each leg's
-     launches those of its path (forward and glass + DoF on `closest_hit`
-     and `nee_dense`, the mesh on `closest_hit_pipe` and `nee_dense`, the
+     launches those of its path (forward and glass + DoF on `closest_hit`,
+     `nee_dense` and `shade_surface`, the mesh on `closest_hit_pipe`,
+     `nee_dense` and `shade_surface`, the
      backward pass on `closest_hit` alone, each by its count; the SPPM legs
      and the differentiable step on `closest_hit` and `anyhit`), the final
      line `bench.py`'s with its `detail` keys, `backend` cuda, the card's
@@ -196,8 +198,8 @@ Phases (any failure exits non-zero; nothing is caught):
      `bench_scaling.py`'s line with the port's keys, the sweep's sizes, every
      image the one-rank image bit for bit, `backend` cuda and the collective
      backend of each, the card's name and power limit, and each member's
-     launches in the timed call 16 `closest_hit`, 16 `nee_dense` and no
-     other kernel.  A virtual sweep on one card measures the sharding
+     launches in the timed call 16 `closest_hit`, 16 `nee_dense`, 16
+     `shade_surface` and no other kernel.  A virtual sweep on one card measures the sharding
      machinery and the host, not scaling across GPUs;
  24. the dense light tree's NEE/MIS kernel (`nee_dense`) at the
      `cornell.forward` cell's shapes (1920x1080 = 2,073,600 rays, 2
@@ -205,6 +207,12 @@ Phases (any failure exits non-zero; nothing is caught):
      its outputs against its plain version's (bit-equal share, largest
      relative difference, picks), its time over 20 launches, the plain
      version's, aten's cumsum over the (R, 2) pdf table (what it replaced),
+     the bound from the bytes these inputs need, and one launch a step;
+ 25. the surface shading kernel (`shade_surface`) at the same shapes on the
+     steps that `trace_paths` hands it at bounce 0 and 3: its outputs against
+     its plain version's (`interpolate_hit` + `sample_bsdf`: the bit-equal
+     share, the share whose flags and material ids agree, the largest
+     relative difference), its time over 20 launches, the plain version's,
      the bound from the bytes these inputs need, and one launch a step.
 To keep the run short some references run at a smaller depth than the main
 paths: the Cornell SPPM render makes 2 of the bench's passes and its CPU
@@ -238,7 +246,7 @@ GATHER_CHUNK = 16384  # pixels per chunk of the grid gather: one any-hit query i
 CORNELL_CAM = dict(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0), fovy_deg=40.0)
 MESH_CAM = dict(eye=(0.5, 0.8, 2.2), center=(0.5, 0.45, 0.5), up=(0, 1, 0), fovy_deg=45.0)
 WAVE_RAYS = 65536  # one wavefront of the main paths
-NEE_FRAME = (1920, 1080)  # the cornell.forward cell's frame, one wavefront (phase 24)
+NEE_FRAME = (1920, 1080)  # the cornell.forward cell's frame, one wavefront (phases 24-25)
 MESH_SUBDIV, MESH_TRIS = 7, 327684  # the large-mesh configuration
 MESH_CPU_SUBDIV = 5  # the mesh that the CPU plain path renders as the reference
 TOL_RTOL = 1e-6  # t where slots agree: same float32 ops, no FMA on either side
@@ -1521,11 +1529,11 @@ def textured_mesh(dev, card: str, stats: dict, pipe_err: dict) -> dict:
     img, seconds, launches = render(scene)
     log(f"textured mesh main path: {w}x{h} spp {spp} level {level}, map_Kd + map_Bump + sky: "
         f"render {seconds:.3f}s, {rays / seconds:.0f} rays/s; launches {launches} (expected "
-        f"{expected} closest_hit_pipe and nee_dense each); card: {card}")
-    check(launches["closest_hit_pipe"] == launches["nee_dense"] == expected
-          and sum(launches.values()) == 2 * expected,
-          f"textured mesh: launches {launches}, expected {expected} closest_hit_pipe and "
-          f"{expected} nee_dense")
+        f"{expected} closest_hit_pipe, nee_dense and shade_surface each); card: {card}")
+    check(launches["closest_hit_pipe"] == launches["nee_dense"] == launches["shade_surface"]
+          == expected and sum(launches.values()) == 3 * expected,
+          f"textured mesh: launches {launches}, expected {expected} closest_hit_pipe, "
+          f"nee_dense and shade_surface each")
     check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 1e-3,
           "textured mesh image not finite or black")
     rec.update(seconds=seconds, rays_per_s=rays / seconds, launches=launches)
@@ -1749,11 +1757,12 @@ def glass_dof(dev, card: str, stats: dict) -> dict:
     log(f"glass + DoF main path: {w}x{h}, sample_size {GLASS['spp']} x dof_sample_size "
         f"{GLASS['dof']}, level {level}, aperture {GLASS['aperture']}, focus {GLASS['focus_dist']}: "
         f"{seconds:.3f}s end to end, rays_per_sec_fwd_glass_dof {rays / seconds:.1f}; launches "
-        f"{launches} (expected {expected} closest_hit and nee_dense each); card: {card}")
-    check(launches["closest_hit"] == launches["nee_dense"] == expected
-          and sum(launches.values()) == 2 * expected,
-          f"glass + DoF: launches {launches}, expected {expected} closest_hit and {expected} "
-          "nee_dense")
+        f"{launches} (expected {expected} closest_hit, nee_dense and shade_surface each); "
+        f"card: {card}")
+    check(launches["closest_hit"] == launches["nee_dense"] == launches["shade_surface"]
+          == expected and sum(launches.values()) == 3 * expected,
+          f"glass + DoF: launches {launches}, expected {expected} closest_hit, nee_dense and "
+          "shade_surface each")
     check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 0,
           "glass + DoF image not finite or black")
     rec = dict(seconds=seconds, rays_per_sec_fwd_glass_dof=rays / seconds, launches=launches)
@@ -2207,8 +2216,9 @@ def mis_overflow(dev, card: str) -> dict:
     check(drop1_card == drop1_cpu,
           f"mis_targets_dropped {drop1_card} on the card, {drop1_cpu} on the CPU")
     check(share1 >= 0.99, f"MIS overflow, same uniforms: {share1:.4f} of the rays agree")
-    check(launches["closest_hit"] == 1 and sum(launches.values()) == 1,
-          f"MIS overflow: launches {launches}, expected 1 closest_hit")
+    check(launches["closest_hit"] == launches["shade_surface"] == 1
+          and sum(launches.values()) == 2,
+          f"MIS overflow: launches {launches}, expected 1 closest_hit and 1 shade_surface")
 
     # all bounces: a stab turns on the last ulp of a ray that meets a leaf
     # box's boundary: a ray that starts on a sheet (a hit on an emitter) stabs
@@ -2471,11 +2481,12 @@ def bench_on_card(card: str) -> dict:
     chunks = -(-small["BENCH_SIZE"] ** 2 // WAVE_RAYS)
     per_sample = chunks * small["BENCH_LEVEL"] * reps
     only = {  # the launches of each leg that depend on no data: its kernels, a count
-        "forward": (("closest_hit", "nee_dense"), per_sample * small["BENCH_SPP"]),
+        "forward": (("closest_hit", "nee_dense", "shade_surface"), per_sample * small["BENCH_SPP"]),
         "backward": (("closest_hit",), 2 * per_sample * max(1, small["BENCH_SPP"] // 4)),
-        "glass_dof": (("closest_hit", "nee_dense"),
+        "glass_dof": (("closest_hit", "nee_dense", "shade_surface"),
                       per_sample * max(1, small["BENCH_SPP"] // 2) * 2),
-        "mesh": (("closest_hit_pipe", "nee_dense"), per_sample * small["BENCH_SPP"]),
+        "mesh": (("closest_hit_pipe", "nee_dense", "shade_surface"),
+                 per_sample * small["BENCH_SPP"]),
     }
     for leg, (kernels, n) in only.items():
         want = {k: n if k in kernels else 0 for k in launches[leg]}
@@ -2559,7 +2570,7 @@ def scaling_on_card(card: str) -> dict:
               f"{detail['collective_backend']}, virtual {detail['virtual_mesh']}")
         check(detail["device"] == torch.cuda.get_device_name(0) and detail["power_limit"] == card,
               f"bench_scaling_torch.py ran on {detail['device']}, {detail['power_limit']}")
-        want = {k: per_member if k in ("closest_hit", "nee_dense") else 0
+        want = {k: per_member if k in ("closest_hit", "nee_dense", "shade_surface") else 0
                 for k in tracing.KERNELS}
         for e in sweep:
             check(len(e["member_launches"]) == e["n"]
@@ -2650,6 +2661,103 @@ def nee_on_card(dev, scene, card: str) -> dict:
         rec[f"bounce_{bounce}"] = dict(ms=ms, bound_ms=bound, bound_by="bytes", plain_ms=plain_ms,
                                        library_ms=cumsum_ms, bit_equal_share=share,
                                        max_rel_diff=worst, nee_share=float(do_nee.float().mean()))
+    return rec
+
+
+SHADE_FLOATS = ("point", "uv", "normal", "dir", "k", "filter", "filter_2", "perfect_dir", "pdf",
+                "n")
+SHADE_DISCRETE = ("mat_id", "next_mat", "diffuse", "reflected", "refracted", "false_hit",
+                  "entering", "bent", "sss")
+
+
+def shade_fields(out) -> dict:
+    """`shade_surface`'s (point, uv, normal, mat_id, ref) as one dict."""
+    point, uv, normal, mat_id, ref = out
+    return dict({f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)},
+                point=point, uv=uv, normal=normal, mat_id=mat_id)
+
+
+def surface_on_card(dev, scene, card: str) -> dict:
+    """Phase 25: the surface shading kernel at the `cornell.forward` cell's
+    shapes: a 1920x1080 frame as one wavefront, sample 1, level 4 on phase
+    3's Cornell box, with `integrator.shade_surface` recording the steps
+    that `trace_paths` hands it.  At bounce 0 and 3: the kernel against
+    `shade_surface_reference` (the share of rays whose every output is
+    bit-equal, the share whose flags and material ids agree, and on those
+    the largest relative difference of a float field), its time over 20
+    launches, the plain version's, and the bound from the bytes the launch
+    needs: every ray reads its slot, barycentrics, direction, stack length
+    and four uniforms (48 B) and its stack's live entries, and writes 115 B
+    (point, uv, shading normal, material id, the record's six vectors, pdf,
+    exponent, next material and seven flags); the attr rows and the material
+    tables are read once.  Returns the phase's record."""
+    import torch
+
+    from gpu_pathtracer_tpu_torch import tracing
+    from gpu_pathtracer_tpu_torch.models.camera import Camera
+    from gpu_pathtracer_tpu_torch.render import integrator as integ
+
+    (w, h), level = NEE_FRAME, 4
+    steps, real = [], integ.shade_surface
+
+    def recording(*args):
+        steps.append(args)
+        return real(*args)
+
+    cam = Camera.create(**CORNELL_CAM, width=w, height=h, device=dev)
+    integ.shade_surface = recording
+    tracing.reset("launch.")
+    try:
+        with torch.no_grad():
+            integ.render_image(scene, cam, w, h, sample_size=1, level=level,
+                               hittable_pdf_weight=MAIN["weight"], ray_chunk=w * h,
+                               generator=torch.Generator(device=dev).manual_seed(25))
+    finally:
+        integ.shade_surface = real
+    torch.cuda.synchronize()
+    launched = tracing.totals["launch.shade_surface"]
+    check(len(steps) == level and launched == level,
+          f"shade_surface: {len(steps)} steps recorded, {launched} launches, expected {level}")
+    rec = {"rays": w * h, "launches_a_step": launched / level}
+    for bounce in (0, 3):
+        args = steps[bounce]
+        g, table, stack_ids, stack_len = args[0], args[1], args[5], args[6]
+        with torch.no_grad():
+            got = shade_fields(integ.launch_shade_surface(*args))
+            want = shade_fields(integ.shade_surface_reference(*args))
+            same = torch.ones_like(stack_len, dtype=torch.bool)
+            for key in SHADE_DISCRETE:
+                same &= got[key] == want[key]
+            bits, close, worst = same.clone(), True, 0.0
+            for key in SHADE_FLOATS:
+                a, b = got[key], want[key]
+                eq = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+                bits &= eq.all(dim=-1) if eq.dim() > 1 else eq
+                a, b = a[same], b[same]
+                close &= bool(torch.isclose(a, b, rtol=1e-5, atol=1e-6, equal_nan=True).all())
+                big = torch.isfinite(a) & torch.isfinite(b) & (b.abs() >= 1e-6)
+                if bool(big.any()):
+                    worst = max(worst, float(((a - b).abs() / b.abs())[big].max()))
+            mats = 4 * (table.kd.shape[0] * 24 + g.attr.numel())
+            live = int(torch.clamp(stack_len, max=stack_ids.shape[-1]).sum())
+            nbytes = w * h * (48 + 115) + 4 * live + mats
+            bound = nbytes / PEAK_BYTES * 1e3
+            ms = cuda_ms(lambda: integ.launch_shade_surface(*args), 20)
+            plain_ms = cuda_ms(lambda: integ.shade_surface_reference(*args), 20)
+        agree, bit_share = float(same.float().mean()), float(bits.float().mean())
+        log(f"shade_surface, Cornell bounce {bounce}, {w * h} rays "
+            f"({float(want['false_hit'].float().mean()):.3f} false hits, "
+            f"{float(want['diffuse'].float().mean()):.3f} diffuse, "
+            f"{float(want['refracted'].float().mean()):.3f} refracted): kernel {ms:.4f} ms, bound "
+            f"{bound:.4f} ms (bytes, {nbytes} B), plain version {plain_ms:.3f} ms; flags and ids "
+            f"agree on {agree:.7f} of the rays, every output bit-equal on {bit_share:.7f}, largest "
+            f"relative difference {worst:.3e}; card: {card}")
+        check(agree >= 0.99999 and close,
+              f"shade_surface bounce {bounce}: flags agree on {agree:.7f}, floats within rtol "
+              f"1e-5: {close} (largest rel diff {worst:.3e})")
+        rec[f"bounce_{bounce}"] = dict(ms=ms, bound_ms=bound, bound_by="bytes", bytes=nbytes,
+                                       plain_ms=plain_ms, flags_agree_share=agree,
+                                       bit_equal_share=bit_share, max_rel_diff=worst)
     return rec
 
 
@@ -3542,6 +3650,11 @@ def main() -> int:
     nee = nee_on_card(dev, scene, card)
     log(f"phase 24 record: {json.dumps(nee)}")
 
+    phases.start(25)
+    # ---- 25. the surface shading kernel at the benchmark cell's shapes ----------------------
+    surface = surface_on_card(dev, scene, card)
+    log(f"phase 25 record: {json.dumps(surface)}")
+
     phases.report()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     record = {"kernels": [
@@ -3699,6 +3812,22 @@ def main() -> int:
                                                "library_ms")},
             "shape": "2,073,600 rays x 2 emitters, Cornell bounce 3 (the cornell.forward cell)",
             "bounce_0": nee["bounce_0"],
+        },
+        {
+            "name": "shade_surface",
+            "route": "cuda",
+            "scale_out_launches": scale_launches["shade_surface"],
+            "card_paths_launches": paths_launches["shade_surface"],
+            "bench_launches": bench_launches["shade_surface"],
+            "scaling_launches": scaling_launches["shade_surface"],
+            "source": "gpu_pathtracer_tpu_torch/csrc/shade_surface.cu",
+            "replaces": None,  # no TPU kernel: the step's ~780 torch launches
+            "launches": surface["launches_a_step"],
+            "max_abs_err": 1.0 - surface["bounce_3"]["bit_equal_share"],  # rays not bit-equal
+            **{k: surface["bounce_3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,  # no single PyTorch call computes the step
+            "shape": "2,073,600 rays, Cornell bounce 3 (the cornell.forward cell)",
+            "bounce_0": surface["bounce_0"],
         },
     ]}
     print(json.dumps(record), flush=True)

@@ -55,23 +55,16 @@
 
 #include <cstring>
 
+#include "shading_math.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxLights = 32;  // lights.NEE_DENSE_MAX_LIGHTS
 constexpr int kNodeCols = 12;
 constexpr int kLeafCols = 20;
-constexpr double kPi = 3.141592653589793;  // math.pi
-constexpr double kMaxPhongNs = 1.0e6;      // constants.MAX_PHONG_N_S
-constexpr float kSmallEps = 1e-5f;         // constants.SMALL_EPS
-constexpr float kEps2 = (float)(1e-5 * 1e-5);
-constexpr float kTiny = 1e-12f;  // linalg._TINY
 constexpr float kSplit = 4097.0f;  // intersect._SPLIT
-constexpr float kInvPi = 1.0f / (float)kPi;
-constexpr float kInv2Pi = 1.0f / (float)(2.0 * kPi);
 constexpr float kMirrorPdf = (float)(kMaxPhongNs / (2.0 * kPi));
-constexpr float kMirrorFilter = (float)(kMaxPhongNs / 2.0);
-constexpr float kMaxNs = (float)kMaxPhongNs;
 
 // The argument block: every field 8 bytes, filled by the wrapper as one
 // int64 array.  Strides are in elements.
@@ -99,67 +92,6 @@ struct Args {
 };
 constexpr int kArgSlots = sizeof(Args) / 8;
 static_assert(kArgSlots == 43, "lights._NEE_ARG_SLOTS");
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 load3(const float* p, const long long* s, long long i) {
-  const float* q = p + i * s[0];
-  return {q[0], q[s[1]], q[2 * s[1]]};
-}
-
-__device__ __forceinline__ void store3(float* p, long long i, V3 v) {
-  p[3 * i] = v.x;
-  p[3 * i + 1] = v.y;
-  p[3 * i + 2] = v.z;
-}
-
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ V3 mul(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
-__device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
-__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
-__device__ __forceinline__ V3 pick3(bool c, V3 a, V3 b) { return c ? a : b; }
-
-// torch.sum over a contiguous last axis of 3 (aten's block-x reduction: two
-// lanes, lane 0 holding x0 + x2)
-__device__ __forceinline__ float sum_last(V3 a) { return (a.x + a.z) + a.y; }
-// linalg.dot
-__device__ __forceinline__ float dot(V3 a, V3 b) { return sum_last(mul(a, b)); }
-
-// torch.clamp(x, min=lo) and clamp(x, lo, hi): NaN passes through
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-  return isnan(x) ? x : fmaxf(x, lo);
-}
-__device__ __forceinline__ float clamp2(float x, float lo, float hi) {
-  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
-}
-
-// linalg.normalize(v, SMALL_EPS)
-__device__ __forceinline__ V3 normalize_eps(V3 v) {
-  const float n2 = sum_last(mul(v, v));
-  const float inv = n2 > kEps2 ? 1.0f / sqrtf(clamp_min(n2, kEps2)) : 0.0f;
-  return scale(v, inv);
-}
-
-// linalg.safe_pow
-__device__ __forceinline__ float safe_pow(float base, float e) {
-  const float out = powf(clamp_min(base, kTiny), e);
-  const float at_zero = e == 0.0f ? 1.0f : 0.0f;
-  return base > kTiny ? out : at_zero;
-}
-
-// sampling.n_s_too_large
-__device__ __forceinline__ bool mirror_lobe(float n) {
-  return fabsf(n - kMaxNs) < kSmallEps || n >= kMaxNs;
-}
-
-__device__ __forceinline__ bool same_side(float d1, float d2) {
-  return (d1 >= 0.0f && d2 >= 0.0f) || (d1 <= 0.0f && d2 <= 0.0f);
-}
-__device__ __forceinline__ bool opposite_side(float d1, float d2) {
-  return (d1 >= 0.0f && d2 <= 0.0f) || (d1 <= 0.0f && d2 >= 0.0f);
-}
 
 // lights._dense_importance of one node
 __device__ __forceinline__ float importance(const float* nd, bool is_leaf, V3 p, V3 pivot) {

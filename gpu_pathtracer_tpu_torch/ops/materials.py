@@ -143,6 +143,36 @@ class MaterialTable:
         return torch.where((mat_id < 0)[..., None], 1.0, k)
 
 
+def surface_tables(table: MaterialTable):
+    """The material table and its atlas as `csrc/shade_surface.cu` reads them:
+    mat_f (M, 16) float32 [kd, ks, tf, n_s, n_i, t_r, bm, path_length, 0, 0],
+    mat_i (M, 8) int32 [priority, tex_slot (5), 0, 0], and the atlas's rgb,
+    offsets, heights and widths, contiguous.  Built on the table's device
+    without a host synchronisation and kept on the table until one of the
+    tensors they come from is replaced or updated in place."""
+    sources = (table.kd, table.ks, table.tf, table.n_s, table.n_i, table.t_r, table.bm,
+               table.path_length, table.priority, table.tex_slot, table.atlas.rgb,
+               table.atlas.offsets, table.atlas.heights, table.atlas.widths)
+    cached = table.__dict__.get("_surface_tables")
+    if cached is not None and all(t is s and t._version == v
+                                  for t, (s, v) in zip(sources, cached[0])):
+        return cached[1]
+    m = table.kd.shape[0]
+    dev = table.kd.device
+    cols = [table.kd, table.ks, table.tf] + [
+        t[:, None] for t in (table.n_s, table.n_i, table.t_r, table.bm, table.path_length)]
+    mat_f = torch.cat(cols + [torch.zeros((m, 2), dtype=torch.float32, device=dev)], dim=1)
+    mat_i = torch.cat([table.priority[:, None], table.tex_slot,
+                       torch.zeros((m, 2), dtype=torch.int32, device=dev)], dim=1)
+    atlas = table.atlas
+    tables = tuple(t.detach().to(dtype).contiguous() for t, dtype in (
+        (mat_f, torch.float32), (mat_i, torch.int32), (atlas.rgb, torch.float32),
+        (atlas.offsets, torch.int32), (atlas.heights, torch.int32),
+        (atlas.widths, torch.int32)))
+    table._surface_tables = (tuple((t, t._version) for t in sources), tables)
+    return tables
+
+
 # ---------------------------------------------------------------------------
 # Nested-dielectric id stack
 # ---------------------------------------------------------------------------

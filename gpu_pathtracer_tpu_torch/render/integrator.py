@@ -16,6 +16,11 @@ Shading stays in differentiable torch ops (only the closest-hit query is
 not differentiable); callers that only render wrap the call in
 `torch.no_grad()`.
 
+Where no gradient is asked for, the step's surface shading (hit
+interpolation and BSDF sample) is `shade_surface`: one launch of
+`csrc/shade_surface.cu` a wavefront step on the card (counter
+`launch.shade_surface`), `shade_surface_reference` elsewhere.
+
 A `render_image` call is a frame of the port's tracer (`tracing`): spans
 `integrator.sample` for each chunk-sample and `integrator.step` for each
 bounce, tiled by `dispatch.closest_hit`, `shading.surface`, `shading.nee`
@@ -24,6 +29,7 @@ and `shading.accumulate`.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -68,6 +74,90 @@ def interpolate_hit(g, table, slot, bary):
     )
     normal = torch.where(has_bump[..., None], n_bumped, n)
     return point, uv, normal, mat_id
+
+
+_SHADE_ARG_SLOTS = 37  # 8-byte fields of the kernel's argument block (`Args`)
+
+
+def shade_surface_reference(g, table, slot, bary, d, stack_ids, stack_len, u):
+    """The plain version of `csrc/shade_surface.cu` (any device):
+    `interpolate_hit`, then `materials.sample_bsdf` with the step's four
+    BSDF uniforms `u` (4, R).  Returns (point, uv, normal, mat_id, ref)."""
+    point, uv, normal, mat_id = interpolate_hit(g, table, slot, bary)
+    ref = materials.sample_bsdf(table, mat_id, point, d, normal, uv, stack_ids, stack_len, u)
+    return point, uv, normal, mat_id, ref
+
+
+def shade_surface(g, table, slot, bary, d, stack_ids, stack_len, u):
+    """The wavefront step's surface shading: one launch of
+    `csrc/shade_surface.cu` for CUDA tensors (`launch_shade_surface`),
+    `shade_surface_reference` for others.  Not differentiable on the card;
+    `trace_paths` calls it only where no gradient is asked for."""
+    if bary.device.type == "cuda":
+        return launch_shade_surface(g, table, slot, bary, d, stack_ids, stack_len, u)
+    return shade_surface_reference(g, table, slot, bary, d, stack_ids, stack_len, u)
+
+
+def launch_shade_surface(g, table, slot, bary, d, stack_ids, stack_len, u):
+    """Launch `csrc/shade_surface.cu` on the current stream:
+    `shade_surface_reference`'s (point, uv, normal, mat_id, ref) from the
+    inputs read in place (slot (R,) int32, bary and d (R, 3) float32, the
+    stack (R, S) and its length (R,) int32, u (4, R) float32, any strides);
+    every output is a contiguous float32, int32 or bool tensor.  A launch the
+    card took counts as `launch.shade_surface`."""
+    from gpu_pathtracer_tpu_torch.ops import _build
+
+    r = slot.shape[0]
+    dev = bary.device
+    f32, i32 = torch.float32, torch.int32
+    inputs = ((slot, i32, (r,)), (bary, f32, (r, 3)), (d, f32, (r, 3)),
+              (stack_ids, i32, (r, stack_ids.shape[-1])), (stack_len, i32, (r,)),
+              (u, f32, (4, r)), (g.attr, f32, (g.attr.shape[0], 26)),
+              (g.tangent, f32, (g.attr.shape[0], 3, 3)))
+    if (any(t.dtype != dtype or tuple(t.shape) != shape or t.device != dev
+            for t, dtype, shape in inputs) or stack_ids.shape[-1] < 1):
+        raise ValueError("shade_surface takes slot (R,) int32, bary and d (R, 3) float32, a "
+                         "stack (R, S >= 1) and its length (R,) int32, u (4, R) float32, and "
+                         "a geometry of (T, 26) attr rows and (T, 3, 3) tangents, on one device")
+    mat_f, mat_i, rgb, offsets, heights, widths = materials.surface_tables(table)
+    textured = rgb.shape[0] > 1
+    vec = torch.empty((7, r, 3), dtype=f32, device=dev)
+    uv = torch.empty((r, 2), dtype=f32, device=dev)
+    scalar = torch.empty((2, r), dtype=f32, device=dev)
+    ints = torch.empty((2, r), dtype=i32, device=dev)
+    flags = torch.empty((7, r), dtype=torch.bool, device=dev)
+    args = [slot.data_ptr(), slot.stride(0)]
+    for t in (bary, d, stack_ids):
+        args += (t.data_ptr(), *t.stride())
+    args += (stack_len.data_ptr(), stack_len.stride(0), u.data_ptr(), *u.stride(),
+             g.attr.data_ptr(), *g.attr.stride(), g.tangent.data_ptr(), *g.tangent.stride())
+    args += (mat_f.data_ptr(), mat_i.data_ptr(), rgb.data_ptr(), offsets.data_ptr(),
+             heights.data_ptr(), widths.data_ptr(), vec.data_ptr(), uv.data_ptr(),
+             scalar.data_ptr(), ints.data_ptr(), flags.data_ptr(), r, stack_ids.shape[-1],
+             int(textured))
+    fn = _shade_entry(_build.load("shade_surface"))
+    with torch.cuda.device(dev):
+        err = fn((ctypes.c_int64 * _SHADE_ARG_SLOTS)(*args),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"shade_surface kernel launch failed: cudaError {err}")
+    tracing.count("launch.shade_surface")
+    point = vec[0]
+    ref = materials.ReflectionRecord(
+        origin=point, dir=vec[2], k=vec[3], filter=vec[4], filter_2=vec[5], perfect_dir=vec[6],
+        pdf=scalar[0], n=scalar[1], diffuse=flags[0], reflected=flags[1], refracted=flags[2],
+        false_hit=flags[3], entering=flags[4], bent=flags[5], sss=flags[6], next_mat=ints[1])
+    return point, uv, vec[1], ints[0], ref
+
+
+def _shade_entry(lib):
+    """The C entry point `gpt_shade_surface(args, stream)` with its signature
+    set; it returns a cudaError_t."""
+    fn = lib.gpt_shade_surface
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _sky_color(scene: Scene, direction):
@@ -131,12 +221,13 @@ def trace_paths(
     sss_color = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     sss_done = torch.zeros((r,), dtype=torch.bool, device=dev)
     cap_mis = torch.zeros((), dtype=torch.int64, device=dev)
-    # the NEE/MIS kernel takes a dense tree of few emitters where no gradient
-    # is asked for (it has no backward; a scene tensor that requires grad keeps
-    # both passes of the path replay on the torch ops)
-    nee_kernel = (lt is not None and lt.dense
-                  and lt.num_lights <= lights_mod.NEE_DENSE_MAX_LIGHTS
-                  and not _requires_grad(scene))
+    # the surface and NEE/MIS kernels take a step where no gradient is asked
+    # for (they have no backward; a scene tensor that requires grad keeps both
+    # passes of the path replay on the torch ops), the NEE/MIS kernel a dense
+    # tree of few emitters
+    kernels = not _requires_grad(scene)
+    nee_kernel = (kernels and lt is not None and lt.dense
+                  and lt.num_lights <= lights_mod.NEE_DENSE_MAX_LIGHTS)
 
     for i in range(level):
         with tracing.span("integrator.step", bounce=i):
@@ -154,10 +245,11 @@ def trace_paths(
 
             with tracing.span("shading.surface"):
                 hit = hit & live
-                point, uv, normal, mat_id = interpolate_hit(g, scene.materials, slot, bary)
-                ref = materials.sample_bsdf(
-                    scene.materials, mat_id, point, d, normal, uv, stack_ids, stack_len, u[U_BSDF]
-                )
+                shade = (shade_surface if kernels and not (torch.is_grad_enabled()
+                                                           and _requires_grad(bary, d, u))
+                         else shade_surface_reference)
+                point, uv, normal, mat_id, ref = shade(
+                    g, scene.materials, slot, bary, d, stack_ids, stack_len, u[U_BSDF])
 
             with tracing.span("shading.nee"):
                 if lt is not None:

@@ -40,7 +40,8 @@ on or off (the integer add that the counters they replace made), and, inside
 a frame, add to the innermost open span:
 
     launch.<kernel>       a launch of one of the port's kernels (`KERNELS`: the
-                          five tile kernels and the NEE/MIS kernel `nee_dense`)
+                          five tile kernels, the NEE/MIS kernel `nee_dense` and
+                          the surface shading kernel `shade_surface`)
     loop_exit             a data-dependent loop exit or compaction of the
                           program (a `.any()` or a count read on the host)
     collective.<op>       a collective through `parallel.shard.Mesh`
@@ -67,7 +68,7 @@ SPANS = ("render.frame", "integrator.sample", "integrator.step", "dispatch.close
          "kernel.closest_hit", "shading.surface", "shading.nee", "shading.accumulate",
          "dispatch.anyhit", "kernel.anyhit")
 KERNELS = ("closest_hit", "closest_hit_pipe", "closest_hit_mxu", "anyhit", "anyhit_pipe",
-           "nee_dense")
+           "nee_dense", "shade_surface")
 # the message of torch's synchronisation check (c10/cuda, sync debug mode "warn")
 SYNC_MESSAGE = "called a synchronizing CUDA operation"
 

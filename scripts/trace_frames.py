@@ -21,7 +21,9 @@ Run from the root of a checkout with one CUDA card.  Builds the cell as
 3. renders one more frame under a profile with CPU activity too, where the
    spans are host annotations, and names each of the device's idle gaps
    after the innermost span open at its middle (`idle_by_span`; the CPU
-   activity slows the host, so the gaps are longer than untraced);
+   activity slows the host, so the gaps are longer than untraced), and each
+   of the host's kernel launches after the innermost span open at its start
+   (`launches`);
 4. for each recorded frame (`gpu_pathtracer_tpu_torch.tracing`): the device
    time of `render.frame`, of its `integrator.step` spans, of each step's four
    children and of `kernel.closest_hit`, the coverage shares, and the
@@ -82,11 +84,43 @@ def profiled_frame(loop) -> dict:
 
 def idle_by_span(loop) -> dict:
     """One frame under a CPU + CUDA profile: the device's idle seconds by the
-    innermost tracer span open on the host at the middle of each gap."""
+    innermost tracer span open on the host at the middle of each gap, and
+    the host's kernel launches by the innermost span open at each launch."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         loop.unit()
     events = list(prof.profiler.kineto_results.events())
-    return {"busy_s": devtrace.reduce_events(events).busy_s, "idle_s": span_gaps(events)}
+    return {"busy_s": devtrace.reduce_events(events).busy_s, "idle_s": span_gaps(events),
+            "launches": span_launches(events)}
+
+
+def _innermost(spans, t, state):
+    """The name of the innermost span open at time t (spans sorted by start;
+    `state` [next index, open spans] carries over increasing t)."""
+    while state[0] < len(spans) and spans[state[0]][0] <= t:
+        state[1].append(spans[state[0]])
+        state[0] += 1
+    state[1] = [sp for sp in state[1] if sp[1] > t]
+    return max(state[1])[2] if state[1] else "(no span)"
+
+
+def span_launches(events) -> dict:
+    """The host's kernel launches (`cudaLaunchKernel` or `cuLaunchKernel` calls), by
+    the innermost span of the step tree open at each launch's start."""
+    from torch.autograd import DeviceType
+
+    launches, spans = [], []
+    for ev in events:
+        if ev.device_type() == DeviceType.CUDA:
+            continue
+        if ev.name() in SPANS:
+            spans.append((ev.start_ns(), ev.start_ns() + ev.duration_ns(), ev.name()))
+        elif ev.name().startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launches.append(ev.start_ns())
+    spans.sort()
+    counts, state = collections.Counter(), [0, []]
+    for t in sorted(launches):
+        counts[_innermost(spans, t, state)] += 1
+    return dict(counts)
 
 
 def span_gaps(events) -> dict:
@@ -105,16 +139,11 @@ def span_gaps(events) -> dict:
             spans.append((start, end, ev.name()))
     busy.sort()
     spans.sort()
-    idle, open_spans, i = collections.Counter(), [], 0
+    idle, state = collections.Counter(), [0, []]
     cursor = busy[0][0] if busy else 0
     for start, end in busy:
         if start > cursor:
-            mid = (start + cursor) // 2
-            while i < len(spans) and spans[i][0] <= mid:
-                open_spans.append(spans[i])
-                i += 1
-            open_spans = [sp for sp in open_spans if sp[1] > mid]
-            idle[max(open_spans)[2] if open_spans else "(no span)"] += (start - cursor) * 1e-9
+            idle[_innermost(spans, (start + cursor) // 2, state)] += (start - cursor) * 1e-9
         cursor = max(cursor, end)
     return dict(idle)
 

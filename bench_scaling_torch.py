@@ -171,7 +171,7 @@ def main(argv=None) -> int:
         (out / "scene").mkdir()
         testscenes.make_cornell_box(out / "scene", spheres=True, sphere_subdiv=2)
         if dev.type == "cuda":
-            _build.build_many(list(tracing.KERNELS))  # once, before V ranks would build them at once
+            _build.build_many(list(_build.KERNELS))  # once, before V ranks would build them at once
         env = dict(os.environ, OMP_NUM_THREADS="1") if dev.type == "cpu" else None
         rank_argv = [sys.executable, pathlib.Path(__file__).resolve(), "--out", out]
         if args.device:

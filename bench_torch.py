@@ -66,6 +66,7 @@ from gpu_pathtracer_tpu_torch import optim, tracing
 from gpu_pathtracer_tpu_torch.device import nvidia_smi, resolve_device
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
+from gpu_pathtracer_tpu_torch.ops import _build
 from gpu_pathtracer_tpu_torch.render import sppm
 from gpu_pathtracer_tpu_torch.render.integrator import render_image, render_image_value_and_grad
 from gpu_pathtracer_tpu_torch.utils import testscenes
@@ -98,7 +99,7 @@ def _time_leg(name: str, call, dev: torch.device, repeats: int):
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    seconds, launches = [], {k: [] for k in tracing.KERNELS}
+    seconds, launches = [], {k: [] for k in _build.KERNELS}
     for i in range(1, max(1, repeats) + 1):
         before = tracing.launches()
         t0 = time.perf_counter()

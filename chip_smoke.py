@@ -2527,7 +2527,7 @@ def scaling_on_card(card: str) -> dict:
     and each member must launch `closest_hit` and `nee_dense` the path's
     count in the timed call and no other kernel.  Returns each child's seconds, line and
     launches."""
-    from gpu_pathtracer_tpu_torch import tracing
+    from gpu_pathtracer_tpu_torch.ops import _build
     import os
 
     import torch
@@ -2571,7 +2571,7 @@ def scaling_on_card(card: str) -> dict:
         check(detail["device"] == torch.cuda.get_device_name(0) and detail["power_limit"] == card,
               f"bench_scaling_torch.py ran on {detail['device']}, {detail['power_limit']}")
         want = {k: per_member if k in ("closest_hit", "nee_dense", "shade_surface") else 0
-                for k in tracing.KERNELS}
+                for k in _build.KERNELS}
         for e in sweep:
             check(len(e["member_launches"]) == e["n"]
                   and all(m == want for m in e["member_launches"]),
@@ -2664,24 +2664,11 @@ def nee_on_card(dev, scene, card: str) -> dict:
     return rec
 
 
-SHADE_FLOATS = ("point", "uv", "normal", "dir", "k", "filter", "filter_2", "perfect_dir", "pdf",
-                "n")
-SHADE_DISCRETE = ("mat_id", "next_mat", "diffuse", "reflected", "refracted", "false_hit",
-                  "entering", "bent", "sss")
-
-
-def shade_fields(out) -> dict:
-    """`shade_surface`'s (point, uv, normal, mat_id, ref) as one dict."""
-    point, uv, normal, mat_id, ref = out
-    return dict({f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)},
-                point=point, uv=uv, normal=normal, mat_id=mat_id)
-
-
 def surface_on_card(dev, scene, card: str) -> dict:
     """Phase 25: the surface shading kernel at the `cornell.forward` cell's
     shapes: a 1920x1080 frame as one wavefront, sample 1, level 4 on phase
-    3's Cornell box, with `integrator.shade_surface` recording the steps
-    that `trace_paths` hands it.  At bounce 0 and 3: the kernel against
+    3's Cornell box, with `surface.shade_surface` recording the steps that
+    `trace_paths` hands it.  At bounce 0 and 3: the kernel against
     `shade_surface_reference` (the share of rays whose every output is
     bit-equal, the share whose flags and material ids agree, and on those
     the largest relative difference of a float field), its time over 20
@@ -2695,25 +2682,26 @@ def surface_on_card(dev, scene, card: str) -> dict:
 
     from gpu_pathtracer_tpu_torch import tracing
     from gpu_pathtracer_tpu_torch.models.camera import Camera
-    from gpu_pathtracer_tpu_torch.render import integrator as integ
+    from gpu_pathtracer_tpu_torch.ops import surface
+    from gpu_pathtracer_tpu_torch.render.integrator import render_image
 
     (w, h), level = NEE_FRAME, 4
-    steps, real = [], integ.shade_surface
+    steps, real = [], surface.shade_surface
 
     def recording(*args):
         steps.append(args)
         return real(*args)
 
     cam = Camera.create(**CORNELL_CAM, width=w, height=h, device=dev)
-    integ.shade_surface = recording
+    surface.shade_surface = recording
     tracing.reset("launch.")
     try:
         with torch.no_grad():
-            integ.render_image(scene, cam, w, h, sample_size=1, level=level,
-                               hittable_pdf_weight=MAIN["weight"], ray_chunk=w * h,
-                               generator=torch.Generator(device=dev).manual_seed(25))
+            render_image(scene, cam, w, h, sample_size=1, level=level,
+                         hittable_pdf_weight=MAIN["weight"], ray_chunk=w * h,
+                         generator=torch.Generator(device=dev).manual_seed(25))
     finally:
-        integ.shade_surface = real
+        surface.shade_surface = real
     torch.cuda.synchronize()
     launched = tracing.totals["launch.shade_surface"]
     check(len(steps) == level and launched == level,
@@ -2723,13 +2711,13 @@ def surface_on_card(dev, scene, card: str) -> dict:
         args = steps[bounce]
         g, table, stack_ids, stack_len = args[0], args[1], args[5], args[6]
         with torch.no_grad():
-            got = shade_fields(integ.launch_shade_surface(*args))
-            want = shade_fields(integ.shade_surface_reference(*args))
+            got = surface.shade_fields(surface.launch_shade_surface(*args))
+            want = surface.shade_fields(surface.shade_surface_reference(*args))
             same = torch.ones_like(stack_len, dtype=torch.bool)
-            for key in SHADE_DISCRETE:
+            for key in surface.SHADE_DISCRETE:
                 same &= got[key] == want[key]
             bits, close, worst = same.clone(), True, 0.0
-            for key in SHADE_FLOATS:
+            for key in surface.SHADE_FLOATS:
                 a, b = got[key], want[key]
                 eq = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
                 bits &= eq.all(dim=-1) if eq.dim() > 1 else eq
@@ -2742,8 +2730,8 @@ def surface_on_card(dev, scene, card: str) -> dict:
             live = int(torch.clamp(stack_len, max=stack_ids.shape[-1]).sum())
             nbytes = w * h * (48 + 115) + 4 * live + mats
             bound = nbytes / PEAK_BYTES * 1e3
-            ms = cuda_ms(lambda: integ.launch_shade_surface(*args), 20)
-            plain_ms = cuda_ms(lambda: integ.shade_surface_reference(*args), 20)
+            ms = cuda_ms(lambda: surface.launch_shade_surface(*args), 20)
+            plain_ms = cuda_ms(lambda: surface.shade_surface_reference(*args), 20)
         agree, bit_share = float(same.float().mean()), float(bits.float().mean())
         log(f"shade_surface, Cornell bounce {bounce}, {w * h} rays "
             f"({float(want['false_hit'].float().mean()):.3f} false hits, "
@@ -2969,10 +2957,10 @@ def main() -> int:
     phases.start(2)
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build_many(tracing.KERNELS)
+    libs = _build.build_many(_build.KERNELS)
     log(f"built {', '.join(str(p.relative_to(HERE)) for p in libs)} in "
         f"{time.perf_counter() - t0:.2f}s (all compilers started together)")
-    for name, lib_path in zip(tracing.KERNELS, libs):
+    for name, lib_path in zip(_build.KERNELS, libs):
         _build.load(name)
         for line in (lib_path.parent / "nvcc.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -3643,7 +3631,7 @@ def main() -> int:
     log(f"phase 23 record: {json.dumps(scaling)}")
     scaling_launches = {k: {part: [[m[k] for m in e["member_launches"]] for e in r["sweep"]]
                             for part, r in scaling.items()}
-                        for k in tracing.KERNELS}
+                        for k in _build.KERNELS}
 
     phases.start(24)
     # ---- 24. the NEE/MIS kernel at the benchmark cell's shapes -------------------------------

@@ -1,26 +1,34 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch (`launch`, the one caller) the port's CUDA kernels.
 
-Each `csrc/<name>.cu` exposes a plain C entry point and is compiled with
+Each `csrc/<name>.cu` (`KERNELS`) exposes a plain C entry point
+`gpt_<name>(..., stream)` that returns a cudaError_t, and is compiled with
 `nvcc` into a shared library that `ctypes` loads (no PyTorch headers, so a
 build takes seconds).  The library lands in
 `build/torch_kernels/<content-hash>/lib<name>.so` inside the checkout, keyed
 by a hash of the source, of every header of `csrc/` it includes (directly or
 through another header) and of the flags, so a changed source or header
 rebuilds and an unchanged one is reused.  A missing `nvcc` or a failed build
-raises: there is no fallback.
+raises: there is no fallback.  Importing this module imports nothing of the
+package (the tracer imports it); `launch` reaches the tracer when it runs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import operator
 import os
 import pathlib
 import re
 import shutil
 import subprocess
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+# the port's kernels, one a source: counter `launch.<name>` of the tracer
+KERNELS = tuple(sorted(path.stem for path in CSRC.glob("*.cu")))
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 # sm_90a (Hopper); no contraction of a*b+c into FMA and no fast math, so the
@@ -107,13 +115,62 @@ def build_many(names) -> list[pathlib.Path]:
     return libs
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile csrc/<name>.cu unless its build exists; returns the library."""
-    return build_many([name])[0]
-
-
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu's library, once per process."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
+        _loaded[name] = ctypes.CDLL(str(build_many([name])[0]))
     return _loaded[name]
+
+
+PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def bind(lib: ctypes.CDLL, name: str, signature):
+    """`gpt_<name>` of `lib` (`load(name)` or a build of other sources) with
+    its parameters `signature` and the stream, set once a library."""
+    fn = getattr(lib, f"gpt_{name}")
+    if fn.argtypes is None:
+        fn.argtypes = [*signature, PTR]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, signature, device: torch.device, *args) -> None:
+    """Launch `bind`'s entry point of csrc/<name>.cu with `args` on `device`'s
+    current stream; raise on an error, count a launch as `launch.<name>`."""
+    from gpu_pathtracer_tpu_torch import tracing
+
+    fn = bind(load(name), name, signature)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    tracing.count(f"launch.{name}")
+
+
+def arg_block(fields, slots: int):
+    """The int64 argument block (a kernel's `Args`) of `fields`, a tensor as
+    its pointer and strides: exactly `slots` in all."""
+    flat = []
+    for f in fields:
+        flat += (f.data_ptr(), *f.stride()) if isinstance(f, torch.Tensor) else (f,)
+    if len(flat) != slots:
+        raise ValueError(f"the argument block has {slots} slots, got {len(flat)} fields")
+    return (ctypes.c_int64 * slots)(*flat)
+
+
+def derived(sources):
+    """Keep `tables(owner)`, a kernel's tables, on `owner` until one of the
+    tensors `sources(owner)` is replaced or updated in place (a decorator)."""
+    def wrap(tables):
+        @functools.wraps(tables)
+        def kept(owner):
+            now = sources(owner)
+            versions = [t._version for t in now]
+            held = owner.__dict__.get(f"_{tables.__name__}")
+            if held is None or held[0] != versions or not all(map(operator.is_, now, held[1])):
+                held = (versions, now, tables(owner))
+                setattr(owner, f"_{tables.__name__}", held)
+            return held[2]
+        return kept
+    return wrap

@@ -34,11 +34,10 @@ rays (one sort row per 128 rays at the 65,536-ray wavefront).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from gpu_pathtracer_tpu_torch import tracing
+from gpu_pathtracer_tpu_torch.ops import _build
 
 TILE = 128  # triangles per tile (kernel maximum: 1024)
 RAY_BLOCK = 128  # rays per row of the tile order
@@ -190,18 +189,13 @@ def _check(name, x, dtype, shape, device):
 def launch_group_walk(kernel: str, max_tile: int, out_dtypes, rays, tiles, tile_aabb, order,
                       counts: bool, cycles: bool, extra=(), n_counts: int = 3):
     """Check the inputs (`max_tile` is the kernel's kMaxTile), launch
-    `csrc/<kernel>.cu` on the current stream and return its two per-ray
-    outputs (of `out_dtypes`), then with `counts` the (R_pad / GROUP_RAYS,
-    `n_counts`) int32 counts per group and with `cycles` the (R_pad /
-    GROUP_RAYS, 2) int64 cycles per group.  Every tile kernel, closest-hit
-    or any-hit, walks in groups (`csrc/closest_hit_common.cuh`) and has this
-    one C signature; `extra` are further input tensors (checked by the
-    caller) whose pointers follow `order`'s.  The launch alone is the
-    tracer's span `kernel.anyhit` for the any-hit kernels and
-    `kernel.closest_hit` for the others, and a launch the card took counts
-    as `launch.<kernel>`."""
-    from gpu_pathtracer_tpu_torch.ops import _build
-
+    `csrc/<kernel>.cu` and return its two per-ray outputs (of `out_dtypes`),
+    then with `counts` the (R_pad / GROUP_RAYS, `n_counts`) int32 counts and
+    with `cycles` the (R_pad / GROUP_RAYS, 2) int64 cycles per group.  Every
+    tile kernel walks in groups (`csrc/closest_hit_common.cuh`) behind this
+    one C signature; `extra` are further inputs (checked by the caller)
+    after `order`.  The launch alone is the span `kernel.anyhit` (any-hit
+    kernels) or `kernel.closest_hit`."""
     dev = rays.device
     if dev.type != "cuda":
         raise ValueError(f"the {kernel} kernel needs CUDA tensors, got {dev}")
@@ -220,38 +214,18 @@ def launch_group_walk(kernel: str, max_tile: int, out_dtypes, rays, tiles, tile_
         raise ValueError("the group walk reads tile boxes as 16-byte vectors: tile_aabb must be "
                          "16-byte aligned")
 
-    fn = bind_tile_entry(_build.load(kernel), kernel, len(extra))
     out_a = torch.empty((n_rays,), dtype=out_dtypes[0], device=dev)
     out_b = torch.empty((n_rays,), dtype=out_dtypes[1], device=dev)
     groups = n_rays // GROUP_RAYS
     out_counts = torch.empty((groups, n_counts), dtype=torch.int32, device=dev) if counts else None
     out_cycles = torch.empty((groups, 2), dtype=torch.int64, device=dev) if cycles else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with tracing.span("kernel.anyhit" if kernel.startswith("anyhit") else "kernel.closest_hit"):
-            err = fn(rays.data_ptr(), tiles.data_ptr(), tile_aabb.data_ptr(), order.data_ptr(),
-                     *(x.data_ptr() for x in extra), out_a.data_ptr(), out_b.data_ptr(),
-                     out_counts.data_ptr() if counts else None,
-                     out_cycles.data_ptr() if cycles else None, n_rays, n_tiles, tile, stream)
-            if err == 0:
-                tracing.count(f"launch.{kernel}")
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
+    with tracing.span("kernel.anyhit" if kernel.startswith("anyhit") else "kernel.closest_hit"):
+        _build.launch(kernel, (_build.PTR,) * (8 + len(extra)) + (_build.INT,) * 3, dev,
+                      rays.data_ptr(), tiles.data_ptr(), tile_aabb.data_ptr(), order.data_ptr(),
+                      *(x.data_ptr() for x in extra), out_a.data_ptr(), out_b.data_ptr(),
+                      out_counts.data_ptr() if counts else None,
+                      out_cycles.data_ptr() if cycles else None, n_rays, n_tiles, tile)
     return (out_a, out_b) + ((out_counts,) if counts else ()) + ((out_cycles,) if cycles else ())
-
-
-def bind_tile_entry(lib, kernel: str, n_extra: int = 0, cycles: bool = True):
-    """The C entry point `gpt_<kernel>` of a loaded tile-kernel library with
-    its signature set: rays, tiles, tile boxes, order, `n_extra` further
-    inputs, the two per-ray outputs, counts and cycles as pointers, then
-    n_rays, n_tiles, tile and the stream; it returns a cudaError_t.
-    `cycles=False` binds an older kernel's entry point without the cycles
-    pointer (the 128-ray block walks)."""
-    fn = getattr(lib, f"gpt_{kernel}")
-    fn.argtypes = ([ctypes.c_void_p] * (7 + n_extra + cycles) + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def check_async_tiles(tiles) -> None:

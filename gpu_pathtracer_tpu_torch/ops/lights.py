@@ -19,16 +19,13 @@ it asks the device every COLLECT_SYNC_STEPS steps whether any ray is still
 walking, bounded by 4 E steps as in the reference package; each question
 is a `loop_exit` of the port's tracer (`tracing`).
 
-`nee_mis` is the integrator's NEE/MIS step in either regime, in torch ops.
-In the dense regime with at most NEE_DENSE_MAX_LIGHTS emitters and no
-gradient asked for, the integrator takes `nee_dense` instead: one launch of
-`csrc/nee_dense.cu` a wavefront step on the card (counter
-`launch.nee_dense`), `nee_dense_reference` elsewhere.
+`nee` is the integrator's NEE/MIS stage: `nee_mis` in torch ops, or
+`nee_dense` (one launch of `csrc/nee_dense.cu` on the card, counter
+`launch.nee_dense`) on a dense tree of at most NEE_DENSE_MAX_LIGHTS emitters.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import math
 
@@ -41,8 +38,8 @@ from gpu_pathtracer_tpu_torch.constants import (
     MAX_POTENTIAL_TARGETS,
     SMALL_EPS,
 )
+from gpu_pathtracer_tpu_torch.ops import _build, intersect, linalg, route, sampling
 from gpu_pathtracer_tpu_torch.ops import bvh as bvh_mod
-from gpu_pathtracer_tpu_torch.ops import intersect, linalg, sampling
 
 
 # steps of the collect walk between two `.any()` questions to the device
@@ -534,52 +531,61 @@ def nee_mis(lt: LightTree, ref, normal, coming_dir, hittable_pdf_weight: float,
     return new_dir, new_filter, factor, mis_dropped
 
 
-def nee_dense_reference(lt: LightTree, ref, normal, coming_dir, hittable_pdf_weight: float,
-                        u: torch.Tensor, do_nee: torch.Tensor):
-    """The plain version of `csrc/nee_dense.cu` (any device): `nee_mis` on a
-    dense light tree, then the integrator's selects.  Returns (next_dir,
-    filter, factor): where `do_nee`, nee_mis's (new_dir, new_filter,
-    factor); elsewhere the lobe's (ref.dir, ref.filter) and 1."""
-    new_dir, new_filter, factor, _ = nee_mis(lt, ref, normal, coming_dir, hittable_pdf_weight, u)
+def nee(lt: LightTree, ref, normal, coming_dir, hittable_pdf_weight: float, u: torch.Tensor,
+        u_descent, do_nee: torch.Tensor, kernels: bool):
+    """`nee_dense` where the caller allows `kernels`, it takes the tree and
+    `route.records_nothing`, else `nee_mis` and the `do_nee` selects; with
+    the 0-d count of leaves `nee_mis` dropped on the `do_nee` rays (or None)."""
+    if (kernels and lt.dense and lt.num_lights <= NEE_DENSE_MAX_LIGHTS
+            and route.records_nothing(ref, normal, coming_dir, u)):
+        return (*nee_dense(lt, ref, normal, coming_dir, hittable_pdf_weight, u, do_nee), None)
+    new_dir, new_filter, factor, mis_dropped = nee_mis(
+        lt, ref, normal, coming_dir, hittable_pdf_weight, u, u_descent)
     return (torch.where(do_nee[..., None], new_dir, ref.dir),
             torch.where(do_nee[..., None], new_filter, ref.filter),
-            torch.where(do_nee, factor, 1.0))
+            torch.where(do_nee, factor, 1.0),
+            torch.sum(torch.where(do_nee, mis_dropped, 0)))
+
+
+def nee_dense_reference(lt: LightTree, ref, normal, coming_dir, hittable_pdf_weight: float,
+                        u: torch.Tensor, do_nee: torch.Tensor):
+    """The plain version of `csrc/nee_dense.cu` (any device), `nee`'s torch
+    path on a dense light tree: (next_dir, filter, factor), where `do_nee`
+    nee_mis's (new_dir, new_filter, factor), elsewhere (ref.dir, ref.filter, 1)."""
+    return nee(lt, ref, normal, coming_dir, hittable_pdf_weight, u, None, do_nee, False)[:3]
 
 
 def nee_dense(lt: LightTree, ref, normal, coming_dir, hittable_pdf_weight: float,
               u: torch.Tensor, do_nee: torch.Tensor):
-    """The dense light tree's NEE/MIS step with the integrator's `do_nee`
-    selects: one launch of `csrc/nee_dense.cu` for CUDA tensors
-    (`launch_nee_dense`), `nee_dense_reference` for others.  Not
-    differentiable on the card; the integrator calls it only where no
-    gradient is asked for."""
+    """The dense light tree's NEE/MIS step with the `do_nee` selects:
+    `launch_nee_dense` for CUDA tensors (not differentiable),
+    `nee_dense_reference` for others."""
     if ref.origin.device.type == "cuda":
         return launch_nee_dense(lt, ref, normal, coming_dir, hittable_pdf_weight, u, do_nee)
     return nee_dense_reference(lt, ref, normal, coming_dir, hittable_pdf_weight, u, do_nee)
 
 
+@_build.derived(lambda lt: (lt.tree.aabb_min, lt.tree.aabb_max, lt.node_energy, lt.anc, lt.sib,
+                            lt.node_centroid, lt.node_avg_normal, lt.tri_p, lt.tri_n, lt.area,
+                            lt.tol))
 def nee_tables(lt: LightTree):
     """The light tree's tables as `csrc/nee_dense.cu` reads them: node (2E-1,
     12) float32 [box centre, energy, leaf centroid, leaf average normal],
     leaf (E, 20) float32 [vertices, vertex normals, area, tol] and ints
     (2E-1 + E * depth,) int32 [the siblings, each leaf's root-to-leaf path
     in ascending node id padded with 2E-1].  Built on the tree's device
-    without a host synchronisation, once a tree (kept on it)."""
-    tables = lt.__dict__.get("_nee_tables")
-    if tables is None:
-        e = lt.num_lights
-        n_nodes = 2 * e - 1
-        centers = 0.5 * (lt.tree.aabb_min + lt.tree.aabb_max)
-        node = torch.cat([centers, lt.node_energy, lt.node_centroid, lt.node_avg_normal], dim=1)
-        leaf = torch.cat([lt.tri_p.reshape(e, 9), lt.tri_n.reshape(e, 9), lt.area[:, None],
-                          lt.tol[:, None]], dim=1)
-        ids = torch.arange(n_nodes, dtype=torch.int32, device=lt.anc.device)
-        paths = torch.where(lt.anc.T > 0, ids, n_nodes).sort(dim=1).values[:, :lt.depth]
-        ints = torch.cat([lt.sib.to(torch.int32), paths.reshape(-1)])
-        tables = lt._nee_tables = tuple(
-            t.detach().to(dtype).contiguous()
-            for t, dtype in ((node, torch.float32), (leaf, torch.float32), (ints, torch.int32)))
-    return tables
+    without a host synchronisation, kept on it while its sources stand."""
+    e = lt.num_lights
+    n_nodes = 2 * e - 1
+    centers = 0.5 * (lt.tree.aabb_min + lt.tree.aabb_max)
+    node = torch.cat([centers, lt.node_energy, lt.node_centroid, lt.node_avg_normal], dim=1)
+    leaf = torch.cat([lt.tri_p.reshape(e, 9), lt.tri_n.reshape(e, 9), lt.area[:, None],
+                      lt.tol[:, None]], dim=1)
+    ids = torch.arange(n_nodes, dtype=torch.int32, device=lt.anc.device)
+    paths = torch.where(lt.anc.T > 0, ids, n_nodes).sort(dim=1).values[:, :lt.depth]
+    ints = torch.cat([lt.sib.to(torch.int32), paths.reshape(-1)])
+    return tuple(t.detach().to(dtype).contiguous() for t, dtype in (
+        (node, torch.float32), (leaf, torch.float32), (ints, torch.int32)))
 
 
 def launch_nee_dense(lt: LightTree, ref, normal, coming_dir, hittable_pdf_weight: float,
@@ -588,8 +594,6 @@ def launch_nee_dense(lt: LightTree, ref, normal, coming_dir, hittable_pdf_weight
     (next_dir (R, 3), filter (R, 3), factor (R,)) float32 from the inputs read
     in place (float32 vectors (R, 3), ref.n (R,), bool flags (R,), u (4, R),
     any strides).  A launch the card took counts as `launch.nee_dense`."""
-    from gpu_pathtracer_tpu_torch.ops import _build
-
     r = ref.origin.shape[0]
     dev = ref.origin.device
     e = lt.num_lights
@@ -604,32 +608,12 @@ def launch_nee_dense(lt: LightTree, ref, normal, coming_dir, hittable_pdf_weight
             or u.dtype != torch.float32 or u.shape != (4, r)):
         raise ValueError("nee_dense takes float32 (R, 3) vectors, a float32 (R,) exponent, "
                          "bool (R,) flags and float32 (4, R) uniforms")
-    node, leaf, ints = nee_tables(lt)
     out_dir = torch.empty((r, 3), dtype=torch.float32, device=dev)
     out_filter = torch.empty((r, 3), dtype=torch.float32, device=dev)
     out_factor = torch.empty((r,), dtype=torch.float32, device=dev)
-    args = []
-    for t in vectors + (u,):
-        args += (t.data_ptr(), *t.stride())
-    for t in (ref.n,) + flags:
-        args += (t.data_ptr(), t.stride(0))
-    args += (node.data_ptr(), leaf.data_ptr(), ints.data_ptr(), out_dir.data_ptr(),
-             out_filter.data_ptr(), out_factor.data_ptr(), r, e, lt.depth)
-    fn = _nee_entry(_build.load("nee_dense"))
-    with torch.cuda.device(dev):
-        err = fn((ctypes.c_int64 * _NEE_ARG_SLOTS)(*args), hittable_pdf_weight,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"nee_dense kernel launch failed: cudaError {err}")
-    tracing.count("launch.nee_dense")
+    block = _build.arg_block(
+        (*vectors, u, ref.n, *flags,
+         *(t.data_ptr() for t in (*nee_tables(lt), out_dir, out_filter, out_factor)),
+         r, e, lt.depth), _NEE_ARG_SLOTS)
+    _build.launch("nee_dense", (_build.PTR, _build.FLOAT), dev, block, hittable_pdf_weight)
     return out_dir, out_filter, out_factor
-
-
-def _nee_entry(lib):
-    """The C entry point `gpt_nee_dense(args, weight, stream)` with its
-    signature set; it returns a cudaError_t."""
-    fn = lib.gpt_nee_dense
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn

@@ -16,10 +16,9 @@ Shading stays in differentiable torch ops (only the closest-hit query is
 not differentiable); callers that only render wrap the call in
 `torch.no_grad()`.
 
-Where no gradient is asked for, the step's surface shading (hit
-interpolation and BSDF sample) is `shade_surface`: one launch of
-`csrc/shade_surface.cu` a wavefront step on the card (counter
-`launch.shade_surface`), `shade_surface_reference` elsewhere.
+A step makes one call a stage: `trace.closest_hit`, `surface.shade`,
+`lights.nee`, the accumulate step; the middle two take the port's kernels
+where no gradient is asked for (`ops.route`) and no scene tensor requires it.
 
 A `render_image` call is a frame of the port's tracer (`tracing`): spans
 `integrator.sample` for each chunk-sample and `integrator.step` for each
@@ -29,16 +28,13 @@ and `shading.accumulate`.
 
 from __future__ import annotations
 
-import ctypes
-import dataclasses
-
 import torch
 
 from gpu_pathtracer_tpu_torch import tracing
-from gpu_pathtracer_tpu_torch.constants import MATERIAL_STACK_SIZE, SMALL_EPS
+from gpu_pathtracer_tpu_torch.constants import MATERIAL_STACK_SIZE
 from gpu_pathtracer_tpu_torch.models.scene import Scene
 from gpu_pathtracer_tpu_torch.ops import lights as lights_mod
-from gpu_pathtracer_tpu_torch.ops import linalg, materials, texture, trace
+from gpu_pathtracer_tpu_torch.ops import linalg, materials, route, surface, texture, trace
 
 # rows of the per-bounce uniforms
 U_BSDF = slice(0, 4)  # u_choice, u_pick, u_lobe1, u_lobe2
@@ -46,136 +42,9 @@ U_ACCEPT, U_PICK, U_LIGHT1, U_LIGHT2 = 4, 5, 6, 7
 N_UNIFORMS = 8
 
 
-def interpolate_hit(g, table, slot, bary):
-    """Barycentric position / uv and the shading normal with tangent-frame
-    bump perturbation, from one packed attr-row gather."""
-    s = torch.clamp(slot, min=0).long()
-    b = bary[..., None]  # (R, 3, 1)
-    rows = g.attr[s]  # (R, 26)
-    point = torch.sum(b * rows[:, 0:9].reshape(-1, 3, 3), dim=-2)
-    n = linalg.normalize(torch.sum(b * rows[:, 9:18].reshape(-1, 3, 3), dim=-2), SMALL_EPS)
-    uv = torch.sum(b * rows[:, 18:24].reshape(-1, 3, 2), dim=-2)
-    mat_id = rows[:, 25].to(torch.int32)  # exact for < 2^24 materials
-
-    if table.atlas.rgb.shape[0] <= 1:  # no images anywhere -> no bump maps
-        return point, uv, n, mat_id
-
-    bump = table.bump_vector(mat_id, uv)
-    tangent = torch.sum(b * g.tangent[s], dim=-2)
-    tan_ok = torch.all(torch.isfinite(tangent), dim=-1)
-    tangent = torch.where(tan_ok[..., None], tangent, 1.0)
-    ux, vy, _ = linalg.onb_from_z_tangent(n, linalg.normalize(tangent, SMALL_EPS))
-    ux0, vy0, _ = linalg.onb_from_z(n)
-    u_axis = torch.where(tan_ok[..., None], ux, ux0)
-    v_axis = torch.where(tan_ok[..., None], vy, vy0)
-    has_bump = linalg.length(bump) > 0.0
-    n_bumped = linalg.normalize(
-        n + bump[..., 0:1] * u_axis + bump[..., 1:2] * v_axis, SMALL_EPS
-    )
-    normal = torch.where(has_bump[..., None], n_bumped, n)
-    return point, uv, normal, mat_id
-
-
-_SHADE_ARG_SLOTS = 37  # 8-byte fields of the kernel's argument block (`Args`)
-
-
-def shade_surface_reference(g, table, slot, bary, d, stack_ids, stack_len, u):
-    """The plain version of `csrc/shade_surface.cu` (any device):
-    `interpolate_hit`, then `materials.sample_bsdf` with the step's four
-    BSDF uniforms `u` (4, R).  Returns (point, uv, normal, mat_id, ref)."""
-    point, uv, normal, mat_id = interpolate_hit(g, table, slot, bary)
-    ref = materials.sample_bsdf(table, mat_id, point, d, normal, uv, stack_ids, stack_len, u)
-    return point, uv, normal, mat_id, ref
-
-
-def shade_surface(g, table, slot, bary, d, stack_ids, stack_len, u):
-    """The wavefront step's surface shading: one launch of
-    `csrc/shade_surface.cu` for CUDA tensors (`launch_shade_surface`),
-    `shade_surface_reference` for others.  Not differentiable on the card;
-    `trace_paths` calls it only where no gradient is asked for."""
-    if bary.device.type == "cuda":
-        return launch_shade_surface(g, table, slot, bary, d, stack_ids, stack_len, u)
-    return shade_surface_reference(g, table, slot, bary, d, stack_ids, stack_len, u)
-
-
-def launch_shade_surface(g, table, slot, bary, d, stack_ids, stack_len, u):
-    """Launch `csrc/shade_surface.cu` on the current stream:
-    `shade_surface_reference`'s (point, uv, normal, mat_id, ref) from the
-    inputs read in place (slot (R,) int32, bary and d (R, 3) float32, the
-    stack (R, S) and its length (R,) int32, u (4, R) float32, any strides);
-    every output is a contiguous float32, int32 or bool tensor.  A launch the
-    card took counts as `launch.shade_surface`."""
-    from gpu_pathtracer_tpu_torch.ops import _build
-
-    r = slot.shape[0]
-    dev = bary.device
-    f32, i32 = torch.float32, torch.int32
-    inputs = ((slot, i32, (r,)), (bary, f32, (r, 3)), (d, f32, (r, 3)),
-              (stack_ids, i32, (r, stack_ids.shape[-1])), (stack_len, i32, (r,)),
-              (u, f32, (4, r)), (g.attr, f32, (g.attr.shape[0], 26)),
-              (g.tangent, f32, (g.attr.shape[0], 3, 3)))
-    if (any(t.dtype != dtype or tuple(t.shape) != shape or t.device != dev
-            for t, dtype, shape in inputs) or stack_ids.shape[-1] < 1):
-        raise ValueError("shade_surface takes slot (R,) int32, bary and d (R, 3) float32, a "
-                         "stack (R, S >= 1) and its length (R,) int32, u (4, R) float32, and "
-                         "a geometry of (T, 26) attr rows and (T, 3, 3) tangents, on one device")
-    mat_f, mat_i, rgb, offsets, heights, widths = materials.surface_tables(table)
-    textured = rgb.shape[0] > 1
-    vec = torch.empty((7, r, 3), dtype=f32, device=dev)
-    uv = torch.empty((r, 2), dtype=f32, device=dev)
-    scalar = torch.empty((2, r), dtype=f32, device=dev)
-    ints = torch.empty((2, r), dtype=i32, device=dev)
-    flags = torch.empty((7, r), dtype=torch.bool, device=dev)
-    args = [slot.data_ptr(), slot.stride(0)]
-    for t in (bary, d, stack_ids):
-        args += (t.data_ptr(), *t.stride())
-    args += (stack_len.data_ptr(), stack_len.stride(0), u.data_ptr(), *u.stride(),
-             g.attr.data_ptr(), *g.attr.stride(), g.tangent.data_ptr(), *g.tangent.stride())
-    args += (mat_f.data_ptr(), mat_i.data_ptr(), rgb.data_ptr(), offsets.data_ptr(),
-             heights.data_ptr(), widths.data_ptr(), vec.data_ptr(), uv.data_ptr(),
-             scalar.data_ptr(), ints.data_ptr(), flags.data_ptr(), r, stack_ids.shape[-1],
-             int(textured))
-    fn = _shade_entry(_build.load("shade_surface"))
-    with torch.cuda.device(dev):
-        err = fn((ctypes.c_int64 * _SHADE_ARG_SLOTS)(*args),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"shade_surface kernel launch failed: cudaError {err}")
-    tracing.count("launch.shade_surface")
-    point = vec[0]
-    ref = materials.ReflectionRecord(
-        origin=point, dir=vec[2], k=vec[3], filter=vec[4], filter_2=vec[5], perfect_dir=vec[6],
-        pdf=scalar[0], n=scalar[1], diffuse=flags[0], reflected=flags[1], refracted=flags[2],
-        false_hit=flags[3], entering=flags[4], bent=flags[5], sss=flags[6], next_mat=ints[1])
-    return point, uv, vec[1], ints[0], ref
-
-
-def _shade_entry(lib):
-    """The C entry point `gpt_shade_surface(args, stream)` with its signature
-    set; it returns a cudaError_t."""
-    fn = lib.gpt_shade_surface
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _sky_color(scene: Scene, direction):
     return texture.lookup_sky(scene.sky_rgb, scene.sky_h, scene.sky_w, direction,
                               scene.sky_emission)
-
-
-def _requires_grad(*objs) -> bool:
-    """Whether a tensor among `objs`, or in their dataclass fields (a
-    `Scene`, a `ReflectionRecord`), requires grad."""
-    for obj in objs:
-        if isinstance(obj, torch.Tensor):
-            if obj.requires_grad:
-                return True
-        elif dataclasses.is_dataclass(obj):
-            if _requires_grad(*(getattr(obj, f.name) for f in dataclasses.fields(obj))):
-                return True
-    return False
 
 
 def trace_paths(
@@ -221,13 +90,8 @@ def trace_paths(
     sss_color = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     sss_done = torch.zeros((r,), dtype=torch.bool, device=dev)
     cap_mis = torch.zeros((), dtype=torch.int64, device=dev)
-    # the surface and NEE/MIS kernels take a step where no gradient is asked
-    # for (they have no backward; a scene tensor that requires grad keeps both
-    # passes of the path replay on the torch ops), the NEE/MIS kernel a dense
-    # tree of few emitters
-    kernels = not _requires_grad(scene)
-    nee_kernel = (kernels and lt is not None and lt.dense
-                  and lt.num_lights <= lights_mod.NEE_DENSE_MAX_LIGHTS)
+    # a scene tensor that requires grad keeps both passes of the path replay on torch ops
+    kernels = not route.requires_grad(scene)
 
     for i in range(level):
         with tracing.span("integrator.step", bounce=i):
@@ -245,29 +109,19 @@ def trace_paths(
 
             with tracing.span("shading.surface"):
                 hit = hit & live
-                shade = (shade_surface if kernels and not (torch.is_grad_enabled()
-                                                           and _requires_grad(bary, d, u))
-                         else shade_surface_reference)
-                point, uv, normal, mat_id, ref = shade(
-                    g, scene.materials, slot, bary, d, stack_ids, stack_len, u[U_BSDF])
+                point, uv, normal, mat_id, ref = surface.shade(
+                    g, scene.materials, slot, bary, d, stack_ids, stack_len, u[U_BSDF], kernels)
 
             with tracing.span("shading.nee"):
                 if lt is not None:
                     do_nee = hit & ~ref.false_hit
                     if not sss_first_pass:
                         do_nee = do_nee & ~ref.sss
-                    if nee_kernel and not (torch.is_grad_enabled()
-                                           and _requires_grad(ref, normal, d, u)):
-                        next_dir, filt, factor = lights_mod.nee_dense(
-                            lt, ref, normal, d, hittable_pdf_weight, u[U_ACCEPT:], do_nee)
-                    else:
-                        new_dir, new_filter, nee_factor, mis_dropped = lights_mod.nee_mis(
-                            lt, ref, normal, d, hittable_pdf_weight, u[U_ACCEPT:], u_descent
-                        )
-                        next_dir = torch.where(do_nee[..., None], new_dir, ref.dir)
-                        filt = torch.where(do_nee[..., None], new_filter, ref.filter)
-                        factor = torch.where(do_nee, nee_factor, 1.0)
-                        cap_mis = cap_mis + torch.sum(torch.where(do_nee, mis_dropped, 0))
+                    next_dir, filt, factor, mis_dropped = lights_mod.nee(
+                        lt, ref, normal, d, hittable_pdf_weight, u[U_ACCEPT:], u_descent, do_nee,
+                        kernels)
+                    if mis_dropped is not None:
+                        cap_mis = cap_mis + mis_dropped
                 else:
                     next_dir, filt = ref.dir, ref.filter
                     factor = torch.ones((r,), dtype=torch.float32, device=dev)

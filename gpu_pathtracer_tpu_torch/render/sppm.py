@@ -62,7 +62,7 @@ from gpu_pathtracer_tpu_torch.models.scene import Scene
 from gpu_pathtracer_tpu_torch.ops import bounding_sphere, hashgrid
 from gpu_pathtracer_tpu_torch.ops import lights as lights_mod
 from gpu_pathtracer_tpu_torch.ops import linalg, materials, sampling, trace
-from gpu_pathtracer_tpu_torch.render.integrator import interpolate_hit
+from gpu_pathtracer_tpu_torch.ops.surface import interpolate_hit
 
 # eye-pass straggler compaction starts at this batch width (0 disables)
 EYE_COMPACT_MIN = 65536

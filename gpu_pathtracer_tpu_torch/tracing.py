@@ -39,9 +39,8 @@ neither).  Spans opened outside a frame reach the profiler only.
 on or off (the integer add that the counters they replace made), and, inside
 a frame, add to the innermost open span:
 
-    launch.<kernel>       a launch of one of the port's kernels (`KERNELS`: the
-                          five tile kernels, the NEE/MIS kernel `nee_dense` and
-                          the surface shading kernel `shade_surface`)
+    launch.<kernel>       a launch of one of the port's kernels
+                          (`ops._build.KERNELS`, one a `csrc/*.cu`)
     loop_exit             a data-dependent loop exit or compaction of the
                           program (a `.any()` or a count read on the host)
     collective.<op>       a collective through `parallel.shard.Mesh`
@@ -61,14 +60,14 @@ import warnings
 
 import torch
 
+from gpu_pathtracer_tpu_torch.ops._build import KERNELS
+
 RING_FRAMES = 64  # frames kept
 # every span the port opens; under a profile with CPU activity each one also
 # marks the device's timeline, where it is no work
 SPANS = ("render.frame", "integrator.sample", "integrator.step", "dispatch.closest_hit",
          "kernel.closest_hit", "shading.surface", "shading.nee", "shading.accumulate",
          "dispatch.anyhit", "kernel.anyhit")
-KERNELS = ("closest_hit", "closest_hit_pipe", "closest_hit_mxu", "anyhit", "anyhit_pipe",
-           "nee_dense", "shade_surface")
 # the message of torch's synchronisation check (c10/cuda, sync debug mode "warn")
 SYNC_MESSAGE = "called a synchronizing CUDA operation"
 

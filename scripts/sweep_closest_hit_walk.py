@@ -120,13 +120,15 @@ class Kernel:
     bytes a ray (near, far) where the closest-hit ones write (t, slot)."""
 
     def __init__(self, lib, kernel: str, unit: int, walks_groups: bool):
-        from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+        from gpu_pathtracer_tpu_torch.ops import _build
 
         self.mxu = kernel == "closest_hit_mxu"
         self.window = kernel in WINDOW
         self.live_list = self.window and walks_groups
         n_extra = 2 if self.mxu else (1 if self.live_list else 0)
-        self.fn = ch.bind_tile_entry(lib, kernel, n_extra, cycles=walks_groups)
+        # rays, tiles, tile boxes, order, the inputs, the outputs, counts, cycles; ints
+        self.fn = _build.bind(lib, kernel, (_build.PTR,) * (7 + n_extra + walks_groups)
+                              + (_build.INT,) * 3)
         self.unit, self.has_cycles = unit, walks_groups
 
     def __call__(self, rays, g, order, counts=False, cycles=False):

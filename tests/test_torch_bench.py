@@ -23,7 +23,7 @@ import torch
 
 import bench_torch
 import chip_smoke
-from gpu_pathtracer_tpu_torch import tracing
+from gpu_pathtracer_tpu_torch.ops import _build
 
 torch.set_num_threads(1)
 
@@ -108,7 +108,7 @@ def test_cpu_run_prints_a_line_per_leg(cornell_run):
         assert len(leg["seconds"]) == 1 and leg["median_s"] == leg["seconds"][0] > 0
         assert leg["peak_gb"] is None  # no device memory on the CPU
         # the plain versions on the CPU: no kernel launched
-        assert leg["launches"] == {k: [0] for k in tracing.KERNELS}
+        assert leg["launches"] == {k: [0] for k in _build.KERNELS}
         mine = {k: v for k, v in leg.items()
                 if k not in ("leg", "seconds", "median_s", "peak_gb", "launches")}
         assert mine and all(detail[k] == v for k, v in mine.items()), leg

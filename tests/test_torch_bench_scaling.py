@@ -27,7 +27,8 @@ import torch
 import bench_scaling_torch
 import bench_torch
 import chip_smoke
-from gpu_pathtracer_tpu_torch import device, tracing
+from gpu_pathtracer_tpu_torch import device
+from gpu_pathtracer_tpu_torch.ops import _build
 from gpu_pathtracer_tpu_torch.parallel import launch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -109,7 +110,7 @@ def test_virtual_sweep_is_bit_for_bit(virtual_run):
         assert rec["bit_for_bit"] is True
         assert len(rec["member_seconds"]) == n
         assert all(0 < t <= rec["seconds"] + 1e-4 for t in rec["member_seconds"])
-        assert rec["member_launches"] == [{k: 0 for k in tracing.KERNELS}] * n
+        assert rec["member_launches"] == [{k: 0 for k in _build.KERNELS}] * n
         assert rec["member_collectives"] == [{"all_gather": 1}] * n
         assert rec["member_peak_gb"] == [None] * n
 

@@ -94,6 +94,48 @@ def test_package_imports_no_jax():
     assert not offenders, offenders
 
 
+def _port_modules(repo):
+    pkg = repo / "gpu_pathtracer_tpu_torch"
+    return {str(f.relative_to(pkg)): ast.parse(f.read_text()) for f in sorted(pkg.rglob("*.py"))}
+
+
+def test_render_layer_has_no_kernel_abi():
+    """No module under gpu_pathtracer_tpu_torch/render/ imports ctypes or
+    `ops._build`: the kernels' calling convention stays in ops/ (AST scan)."""
+    modules = _port_modules(pathlib.Path(__file__).resolve().parents[1])
+    render = {name: tree for name, tree in modules.items() if name.startswith("render/")}
+    assert {"render/integrator.py", "render/sppm.py"} <= render.keys()
+    offenders = []
+    for name, tree in render.items():
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                found = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                found = [f"{node.module}.{a.name}" for a in node.names] + [node.module or ""]
+            else:
+                continue
+            offenders += [f"{name}: {n}" for n in found
+                          if n.split(".")[0] == "ctypes" or n.endswith("ops._build")]
+    assert not offenders, offenders
+
+
+def test_only_the_build_module_binds_native_code():
+    """Outside ops/_build.py no module of the port sets `argtypes` or opens a
+    `ctypes.CDLL`, apart from utils/native.py (the host parser's binding, a
+    copy of the JAX package's module) (AST scan)."""
+    modules = _port_modules(pathlib.Path(__file__).resolve().parents[1])
+    binders = set()
+    for name, tree in modules.items():
+        for node in ast.walk(tree):
+            sets_argtypes = isinstance(node, ast.Attribute) and node.attr == "argtypes" and (
+                isinstance(node.ctx, ast.Store))
+            opens = isinstance(node, ast.Call) and (
+                getattr(node.func, "attr", None) == "CDLL" or getattr(node.func, "id", None) == "CDLL")
+            if sets_argtypes or opens:
+                binders.add(name)
+    assert binders == {"ops/_build.py", "utils/native.py"}, binders
+
+
 @pytest.mark.parametrize("n,r", [(50, 64), (700, 256), (1300, 512)])
 def test_plain_matches_pallas(n, r):
     tris, tol, valid, o, d = _soup(n + r, n, r)
@@ -225,6 +267,17 @@ def test_build_hash_covers_included_headers(monkeypatch, tmp_path):
     for name in ("closest_hit_pipe", "closest_hit_mxu", "anyhit_pipe"):
         assert sorted(p.name for p in _build.sources(name)) == sorted(
             [f"{name}.cu", "closest_hit_common.cuh", "tile_ring.cuh"])
+
+
+def test_arg_block_refuses_a_field_list_of_the_wrong_length():
+    """The int64 argument block of an N1/N2-style entry point holds exactly
+    the kernel's slots: a short list would hand the kernel zeros for
+    pointers, a long one fields it never reads."""
+    block = _build.arg_block([1, 2, -3], 3)
+    assert list(block) == [1, 2, -3]
+    for fields in ([1, 2], [1, 2, 3, 4]):
+        with pytest.raises(ValueError, match="3 slots"):
+            _build.arg_block(fields, 3)
 
 
 def test_launch_refuses_cpu_tensors():

@@ -1,5 +1,5 @@
-"""The dense light tree's NEE/MIS kernel (`csrc/nee_dense.cu`) and the
-integrator's rule for taking it.
+"""The dense light tree's NEE/MIS kernel (`csrc/nee_dense.cu`) and the NEE/MIS
+stage's rule for taking it (`lights.nee`).
 
 This file imports no JAX.  The card's tests are marked `cuda` and skip
 without an NVIDIA GPU:
@@ -21,7 +21,9 @@ The CPU tests check the routing: one `launch.nee_dense` a wavefront step
 for a dense scene rendered without gradients, none for the sparse regime,
 a gradient render or rays that require grad (the kernel's launcher is
 stood in for by a counting spy, since a CPU tensor takes the plain
-version), and the plain path equal to the torch path bit for bit.
+version), and the plain path equal to the torch path bit for bit.  One
+more checks that the kernels' derived tables follow in-place writes to the
+tensors they come from.
 """
 
 import dataclasses
@@ -32,7 +34,7 @@ import torch
 from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
-from gpu_pathtracer_tpu_torch.ops import linalg, lights
+from gpu_pathtracer_tpu_torch.ops import linalg, lights, materials
 from gpu_pathtracer_tpu_torch.render import integrator
 from gpu_pathtracer_tpu_torch.render.integrator import render_image, render_image_value_and_grad
 from gpu_pathtracer_tpu_torch.utils import obj_io, testscenes
@@ -73,8 +75,8 @@ def _render(scene, side, spp, level, dev, seed=1):
 
 
 def _spy(monkeypatch, record=None):
-    """Stand in for the integrator's call of `lights.nee_dense`: count it as
-    the launch it makes on the card, keep its arguments, run the real one."""
+    """Stand in for the NEE/MIS stage's call of `lights.nee_dense`: count it
+    as the launch it makes on the card, keep its arguments, run the real one."""
     real = lights.nee_dense
 
     def spy(*args):
@@ -280,3 +282,24 @@ def test_an_all_zero_pdf_row_picks_leaf_0(cornell):
     pdf = torch.zeros((5, lt.num_lights))
     pick = lights.pick_light_dense(lt, pdf, torch.tensor([0.0, 0.3, 0.5, 0.9, 1.0]))
     assert pick.tolist() == [0] * 5
+
+
+def test_kernel_tables_follow_in_place_writes(tmp_path):
+    """`lights.nee_tables` and `materials.surface_tables` are kept on the
+    tree and the table, and rebuilt when a tensor they come from is updated
+    in place: the light tree's energies, and `n_s`, where the benchmark
+    plants its fault."""
+    scene = _scene(tmp_path, _cornell, CPU)
+    lt, table = scene.light_tree, scene.materials
+    node = lights.nee_tables(lt)[0]
+    assert lights.nee_tables(lt)[0] is node
+    with torch.no_grad():
+        lt.node_energy[0] *= 2.0
+    rebuilt = lights.nee_tables(lt)[0]
+    assert rebuilt is not node
+    _assert_same(rebuilt[0, 3:6], lt.node_energy[0])
+    mat_f = materials.surface_tables(table)[0]
+    assert materials.surface_tables(table)[0] is mat_f
+    with torch.no_grad():
+        table.n_s[1] = 123.0
+    assert float(materials.surface_tables(table)[0][1, 9]) == 123.0

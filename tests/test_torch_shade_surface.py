@@ -1,12 +1,12 @@
-"""The surface shading kernel (`csrc/shade_surface.cu`) and the integrator's
-rule for taking it.
+"""The surface shading kernel (`csrc/shade_surface.cu`) and the surface
+stage's rule for taking it (`surface.shade`).
 
 This file imports no JAX.  The card's tests are marked `cuda` and skip
 without an NVIDIA GPU:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_shade_surface.py -q
 
-They hold the kernel to its plain version, `integrator.shade_surface_reference`
+They hold the kernel to its plain version, `surface.shade_surface_reference`
 (`interpolate_hit`, then `sample_bsdf`), on the inputs that `trace_paths`
 hands it (recorded through the integrator's call) and on edited inputs for
 the edges: total internal reflection, false hits, kd = ks = 0, the mirror
@@ -38,7 +38,7 @@ import chip_smoke
 from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.models.camera import Camera
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
-from gpu_pathtracer_tpu_torch.ops import materials
+from gpu_pathtracer_tpu_torch.ops import materials, surface
 from gpu_pathtracer_tpu_torch.render import integrator, sppm
 from gpu_pathtracer_tpu_torch.render.integrator import render_image, render_image_value_and_grad
 from gpu_pathtracer_tpu_torch.utils import config, obj_io, testscenes
@@ -94,9 +94,9 @@ def _render(scene, cam_kw, side, spp, level, dev, seed=1):
 
 
 def _spy(monkeypatch, record=None):
-    """Stand in for the integrator's call of `shade_surface`: count it as
+    """Stand in for the surface stage's call of `shade_surface`: count it as
     the launch it makes on the card, keep its arguments, run the real one."""
-    real = integrator.shade_surface
+    real = surface.shade_surface
 
     def spy(*args):
         tracing.count("launch.shade_surface")
@@ -104,12 +104,12 @@ def _spy(monkeypatch, record=None):
             record.append(args)
         return real(*args)
 
-    monkeypatch.setattr(integrator, "shade_surface", spy)
+    monkeypatch.setattr(surface, "shade_surface", spy)
 
 
 def _torch_ops(g, table, slot, bary, d, stack_ids, stack_len, u):
     """`interpolate_hit`, then `sample_bsdf`: the step's torch ops."""
-    point, uv, normal, mat_id = integrator.interpolate_hit(g, table, slot, bary)
+    point, uv, normal, mat_id = surface.interpolate_hit(g, table, slot, bary)
     ref = materials.sample_bsdf(table, mat_id, point, d, normal, uv, stack_ids, stack_len, u)
     return point, uv, normal, mat_id, ref
 
@@ -221,8 +221,8 @@ def test_the_plain_path_is_the_torch_path_bit_for_bit(name, tmp_path, monkeypatc
     scene, steps = _recorded_steps(tmp_path, name, CPU, monkeypatch)
     seen = {k: False for k in ("false_hit", "refracted", "sss", "reflected")}
     for args in steps:
-        got = chip_smoke.shade_fields(integrator.shade_surface(*args))
-        want = chip_smoke.shade_fields(_torch_ops(*args))
+        got = surface.shade_fields(surface.shade_surface(*args))
+        want = surface.shade_fields(_torch_ops(*args))
         assert got.keys() == want.keys()
         for key in want:
             _assert_same(got[key], want[key])
@@ -250,18 +250,18 @@ def _assert_kernel_matches_plain(args):
     share of rays on which every output is bit-equal."""
     before = tracing.totals["launch.shade_surface"]
     with torch.no_grad():
-        got = chip_smoke.shade_fields(integrator.launch_shade_surface(*args))
-        want = chip_smoke.shade_fields(integrator.shade_surface_reference(*args))
+        got = surface.shade_fields(surface.launch_shade_surface(*args))
+        want = surface.shade_fields(surface.shade_surface_reference(*args))
     torch.cuda.synchronize()
     assert tracing.totals["launch.shade_surface"] == before + 1
     r = want["mat_id"].shape[0]
     same = torch.ones(r, dtype=torch.bool, device=want["mat_id"].device)
-    for key in chip_smoke.SHADE_DISCRETE:
+    for key in surface.SHADE_DISCRETE:
         same &= got[key] == want[key]
     assert float(same.float().mean()) >= 0.99999, {
-        key: int((got[key] != want[key]).sum()) for key in chip_smoke.SHADE_DISCRETE}
+        key: int((got[key] != want[key]).sum()) for key in surface.SHADE_DISCRETE}
     bits = same.clone()
-    for key in chip_smoke.SHADE_FLOATS:
+    for key in surface.SHADE_FLOATS:
         a, b = got[key], want[key]
         torch.testing.assert_close(a[same], b[same], rtol=1e-5, atol=1e-6, equal_nan=True,
                                    msg=lambda m, key=key: f"{key}: {m}")
@@ -296,7 +296,7 @@ def test_kernel_edge_cases(cuda, tmp_path, monkeypatch):
     g, table, slot, bary, d, stack_ids, stack_len, u = steps[1]
     r = slot.shape[0]
     third = torch.arange(r, device=cuda) % 3
-    _, _, normal, mat_id, _ = integrator.shade_surface_reference(*steps[1])
+    _, _, normal, mat_id, _ = surface.shade_surface_reference(*steps[1])
     glass = (table.t_r[mat_id.long()] > 0) & (mat_id >= 0)
     assert bool(glass.any())
 
@@ -356,7 +356,7 @@ def test_render_with_and_without_the_kernel(cuda, tmp_path, monkeypatch):
     tracing.reset("launch.")
     with_kernel = _render(scene, CAM, (128, 128), spp, level, cuda)
     assert tracing.totals["launch.shade_surface"] == spp * level
-    monkeypatch.setattr(integrator, "shade_surface", integrator.shade_surface_reference)
+    monkeypatch.setattr(surface, "shade_surface", surface.shade_surface_reference)
     without = _render(scene, CAM, (128, 128), spp, level, cuda)
     assert tracing.totals["launch.shade_surface"] == spp * level
     close = torch.isclose(with_kernel, without, rtol=1e-4, atol=0.0).all(dim=-1)

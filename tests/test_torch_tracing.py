@@ -14,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from gpu_pathtracer_tpu_torch import tracing
 from gpu_pathtracer_tpu_torch.models.camera import Camera
+from gpu_pathtracer_tpu_torch.ops import _build
 from gpu_pathtracer_tpu_torch.models.scene import build_scene
 from gpu_pathtracer_tpu_torch.render.integrator import render_image
 from gpu_pathtracer_tpu_torch.utils import obj_io, testscenes
@@ -117,7 +118,7 @@ def test_counters_go_to_the_innermost_open_span():
     assert frame.root.counters == {"loop_exit": 2}
     assert (frame.counter("launch.closest_hit"), frame.counter("loop_exit")) == (1, 2)
     assert tr.totals == {"launch.closest_hit": 2, "host_sync": 1, "loop_exit": 2}
-    assert tr.launches() == {k: 2 if k == "closest_hit" else 0 for k in tracing.KERNELS}
+    assert tr.launches() == {k: 2 if k == "closest_hit" else 0 for k in _build.KERNELS}
     tr.reset("launch.")
     assert tr.counts("") == {"host_sync": 1, "loop_exit": 2}
 

@@ -213,7 +213,16 @@ Phases (any failure exits non-zero; nothing is caught):
      its plain version's (`interpolate_hit` + `sample_bsdf`: the bit-equal
      share, the share whose flags and material ids agree, the largest
      relative difference), its time over 20 launches, the plain version's,
-     the bound from the bytes these inputs need, and one launch a step.
+     the bound from the bytes these inputs need, and one launch a step;
+ 26. the closest-hit query's dispatch kernels (`query_key`, `query_pack`,
+     `query_finish`) at the same shapes on the queries that `trace_paths`
+     makes at bounce 0 and 3: the query's outputs (t, slot, bary, hit), the
+     permutation and the packed rows against its plain version's bit for
+     bit, the time of each kernel and of the sort over 20 launches, of the
+     dispatch (key, sort, pack, finish: the tile kernel and its tile order
+     excluded), of the whole query, of the plain version and of its int64
+     sort, the bound from the bytes the launches move, and one launch of
+     each a step.
 To keep the run short some references run at a smaller depth than the main
 paths: the Cornell SPPM render makes 2 of the bench's passes and its CPU
 reference is 48x48, the render forced onto `closest_hit` and the mesh's CPU
@@ -370,6 +379,19 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+QUERY_KERNELS = ("query_key", "query_pack", "query_finish")
+
+
+def query_kernels(rays: int) -> tuple:
+    """The closest-hit query's own kernels that a wavefront step of `rays`
+    rays launches (`trace.launch_query`: the key kernel only where the batch
+    sorts), on a scene of at least `trace.RAY_SORT_MIN_TILES` tiles, as every
+    scene whose launches a phase counts is."""
+    from gpu_pathtracer_tpu_torch.ops import trace
+
+    return QUERY_KERNELS if rays >= trace.RAY_SORT_MIN else QUERY_KERNELS[1:]
 
 
 def agreement(name, t, slot, rt, rslot, stats):
@@ -775,7 +797,7 @@ class RecordedClosest:
     def __enter__(self):
         import torch
 
-        def spy(g, origin, direction, t_max=float("inf"), live=None):
+        def spy(g, origin, direction, t_max=float("inf"), live=None, kernels=True):
             r = origin.shape[0]
             alive = torch.ones(r, dtype=torch.bool, device=origin.device) if live is None else live
             n = int(alive.sum())
@@ -785,7 +807,7 @@ class RecordedClosest:
                 self.fullest[key] = wave
             if 0 < n < self.sparsest.get(key, (None,) * 4 + (r + 1,))[4]:
                 self.sparsest[key] = wave
-            return self.inner(g, origin, direction, t_max, live)
+            return self.inner(g, origin, direction, t_max, live, kernels)
 
         self.trace.closest_hit = spy
         return self
@@ -1527,13 +1549,14 @@ def textured_mesh(dev, card: str, stats: dict, pipe_err: dict) -> dict:
         return out.cpu().numpy(), time.perf_counter() - t0, tracing.launches()
 
     img, seconds, launches = render(scene)
+    kernels = ("closest_hit_pipe", "nee_dense", "shade_surface") + query_kernels(
+        min(w * h, WAVE_RAYS))
     log(f"textured mesh main path: {w}x{h} spp {spp} level {level}, map_Kd + map_Bump + sky: "
         f"render {seconds:.3f}s, {rays / seconds:.0f} rays/s; launches {launches} (expected "
-        f"{expected} closest_hit_pipe, nee_dense and shade_surface each); card: {card}")
-    check(launches["closest_hit_pipe"] == launches["nee_dense"] == launches["shade_surface"]
-          == expected and sum(launches.values()) == 3 * expected,
-          f"textured mesh: launches {launches}, expected {expected} closest_hit_pipe, "
-          f"nee_dense and shade_surface each")
+        f"{expected} of each of {kernels}); card: {card}")
+    check(all(launches[k] == expected for k in kernels)
+          and sum(launches.values()) == len(kernels) * expected,
+          f"textured mesh: launches {launches}, expected {expected} of each of {kernels}")
     check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 1e-3,
           "textured mesh image not finite or black")
     rec.update(seconds=seconds, rays_per_s=rays / seconds, launches=launches)
@@ -1754,15 +1777,14 @@ def glass_dof(dev, card: str, stats: dict) -> dict:
     launches = tracing.launches()
     expected = -(-w * h // WAVE_RAYS) * GLASS["spp"] * GLASS["dof"] * level
     rays = w * h * GLASS["spp"] * GLASS["dof"] * level
+    kernels = ("closest_hit", "nee_dense", "shade_surface") + query_kernels(min(w * h, WAVE_RAYS))
     log(f"glass + DoF main path: {w}x{h}, sample_size {GLASS['spp']} x dof_sample_size "
         f"{GLASS['dof']}, level {level}, aperture {GLASS['aperture']}, focus {GLASS['focus_dist']}: "
         f"{seconds:.3f}s end to end, rays_per_sec_fwd_glass_dof {rays / seconds:.1f}; launches "
-        f"{launches} (expected {expected} closest_hit, nee_dense and shade_surface each); "
-        f"card: {card}")
-    check(launches["closest_hit"] == launches["nee_dense"] == launches["shade_surface"]
-          == expected and sum(launches.values()) == 3 * expected,
-          f"glass + DoF: launches {launches}, expected {expected} closest_hit, nee_dense and "
-          "shade_surface each")
+        f"{launches} (expected {expected} of each of {kernels}); card: {card}")
+    check(all(launches[k] == expected for k in kernels)
+          and sum(launches.values()) == len(kernels) * expected,
+          f"glass + DoF: launches {launches}, expected {expected} of each of {kernels}")
     check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 0,
           "glass + DoF image not finite or black")
     rec = dict(seconds=seconds, rays_per_sec_fwd_glass_dof=rays / seconds, launches=launches)
@@ -2216,9 +2238,9 @@ def mis_overflow(dev, card: str) -> dict:
     check(drop1_card == drop1_cpu,
           f"mis_targets_dropped {drop1_card} on the card, {drop1_cpu} on the CPU")
     check(share1 >= 0.99, f"MIS overflow, same uniforms: {share1:.4f} of the rays agree")
-    check(launches["closest_hit"] == launches["shade_surface"] == 1
-          and sum(launches.values()) == 2,
-          f"MIS overflow: launches {launches}, expected 1 closest_hit and 1 shade_surface")
+    kernels = ("closest_hit", "shade_surface") + query_kernels(n)
+    check(all(launches[k] == 1 for k in kernels) and sum(launches.values()) == len(kernels),
+          f"MIS overflow: launches {launches}, expected 1 of each of {kernels}")
 
     # all bounces: a stab turns on the last ulp of a ray that meets a leaf
     # box's boundary: a ray that starts on a sheet (a hit on an emitter) stabs
@@ -2480,25 +2502,30 @@ def bench_on_card(card: str) -> dict:
     small, reps = BENCH_SMALL, BENCH_SMALL["BENCH_REPEATS"]
     chunks = -(-small["BENCH_SIZE"] ** 2 // WAVE_RAYS)
     per_sample = chunks * small["BENCH_LEVEL"] * reps
+    query = query_kernels(min(small["BENCH_SIZE"] ** 2, WAVE_RAYS))
     only = {  # the launches of each leg that depend on no data: its kernels, a count
-        "forward": (("closest_hit", "nee_dense", "shade_surface"), per_sample * small["BENCH_SPP"]),
+        "forward": (("closest_hit", "nee_dense", "shade_surface") + query,
+                    per_sample * small["BENCH_SPP"]),
         "backward": (("closest_hit",), 2 * per_sample * max(1, small["BENCH_SPP"] // 4)),
-        "glass_dof": (("closest_hit", "nee_dense", "shade_surface"),
+        "glass_dof": (("closest_hit", "nee_dense", "shade_surface") + query,
                       per_sample * max(1, small["BENCH_SPP"] // 2) * 2),
-        "mesh": (("closest_hit_pipe", "nee_dense", "shade_surface"),
+        "mesh": (("closest_hit_pipe", "nee_dense", "shade_surface") + query,
                  per_sample * small["BENCH_SPP"]),
     }
     for leg, (kernels, n) in only.items():
         want = {k: n if k in kernels else 0 for k in launches[leg]}
         check(launches[leg] == want, f"bench leg {leg}: launches {launches[leg]}, expected {want}")
+    # the SPPM legs' queries: their sizes vary, and the key kernel runs where one sorts
     box_kernels = ("closest_hit", "anyhit")  # the SPPM box: below PALLAS_MAX
     for leg in ("sppm_cornell", "sppm_fog", "diff_sppm"):
-        check(all(launches[leg][k] > 0 for k in box_kernels)
-              and all(n == 0 for k, n in launches[leg].items() if k not in box_kernels),
-              f"bench leg {leg}: launches {launches[leg]}")
-    check(launches["photon_pass"]["closest_hit"] > 0 and sum(launches["photon_pass"].values())
-          == launches["photon_pass"]["closest_hit"],
-          f"bench leg photon_pass: launches {launches['photon_pass']}")
+        n = launches[leg]
+        check(all(n[k] > 0 for k in box_kernels) and n["query_pack"] == n["query_finish"]
+              and all(c == 0 for k, c in n.items() if k not in box_kernels + QUERY_KERNELS),
+              f"bench leg {leg}: launches {n}")
+    n = launches["photon_pass"]
+    check(n["closest_hit"] > 0 and n["query_pack"] == n["query_finish"]
+          and all(c == 0 for k, c in n.items() if k not in ("closest_hit",) + QUERY_KERNELS),
+          f"bench leg photon_pass: launches {n}")
 
     detail = final.get("detail", {})
     check(final.get("metric") == "rays_per_sec_fwd_512" and final.get("unit") == "rays/s"
@@ -2570,9 +2597,10 @@ def scaling_on_card(card: str) -> dict:
               f"{detail['collective_backend']}, virtual {detail['virtual_mesh']}")
         check(detail["device"] == torch.cuda.get_device_name(0) and detail["power_limit"] == card,
               f"bench_scaling_torch.py ran on {detail['device']}, {detail['power_limit']}")
-        want = {k: per_member if k in ("closest_hit", "nee_dense", "shade_surface") else 0
-                for k in _build.KERNELS}
         for e in sweep:
+            kernels = ("closest_hit", "nee_dense", "shade_surface") + query_kernels(
+                min(SCALING["size"] ** 2, WAVE_RAYS) // e["n"])
+            want = {k: per_member if k in kernels else 0 for k in _build.KERNELS}
             check(len(e["member_launches"]) == e["n"]
                   and all(m == want for m in e["member_launches"]),
                   f"bench_scaling_torch.py ({part}) N={e['n']}: members' launches "
@@ -2749,6 +2777,120 @@ def surface_on_card(dev, scene, card: str) -> dict:
     return rec
 
 
+def dispatch_on_card(dev, scene, card: str) -> dict:
+    """Phase 26: the closest-hit query's dispatch kernels at the
+    `cornell.forward` cell's shapes: a 1920x1080 frame as one wavefront,
+    sample 1, level 4 on phase 3's Cornell box, with
+    `trace.closest_hit_query` recording the queries that `trace_paths` makes.
+    At bounce 0 and 3: `launch_query` against `closest_hit_reference` (the
+    share of rays whose t, slot, bary and hit are all bit-equal), the key
+    kernel's permutation against `coherence_perm`'s, the time over 20
+    launches of the key kernel, the sort of its int32 keys, the pack and
+    finish kernels, the tile walk (`block_tile_order` and the tile kernel),
+    `block_tile_order` alone, the tile walk on the rays left unsorted, the
+    whole query, the plain version and the int64 sort it makes, and the
+    bound from the bytes the dispatch moves: the key kernel reads o, d and
+    live (25 B a ray) and writes 4 B; the sort writes the int64 indices (8 B),
+    reads the keys for its histogram (4 B) and reads and writes a key and an
+    index in each of its four 8-bit passes (96 B); the pack kernel reads the
+    permutation (8 B), gathers o, d and live (25 B) and writes a 32 B row a
+    padded ray; the finish kernel reads the permutation, the tile kernel's t
+    and slot (16 B), the row's o and d of a hit (24 B) and writes t, slot,
+    hit and bary (21 B); the attr rows are read once.  Returns the phase's
+    record."""
+    import torch
+
+    from gpu_pathtracer_tpu_torch import tracing
+    from gpu_pathtracer_tpu_torch.models.camera import Camera
+    from gpu_pathtracer_tpu_torch.ops import closest_hit as ch
+    from gpu_pathtracer_tpu_torch.ops import trace
+    from gpu_pathtracer_tpu_torch.render.integrator import render_image
+
+    (w, h), level = NEE_FRAME, 4
+    queries, real = [], trace.closest_hit_query
+
+    def recording(*args):
+        queries.append(args)
+        return real(*args)
+
+    cam = Camera.create(**CORNELL_CAM, width=w, height=h, device=dev)
+    trace.closest_hit_query = recording
+    tracing.reset("launch.")
+    try:
+        with torch.no_grad():
+            render_image(scene, cam, w, h, sample_size=1, level=level,
+                         hittable_pdf_weight=MAIN["weight"], ray_chunk=w * h,
+                         generator=torch.Generator(device=dev).manual_seed(26))
+    finally:
+        trace.closest_hit_query = real
+    torch.cuda.synchronize()
+    launched = {k: tracing.totals[f"launch.{k}"] for k in QUERY_KERNELS}
+    check(len(queries) == level and launched == {k: level for k in QUERY_KERNELS},
+          f"query kernels: {len(queries)} queries recorded, launches {launched}, expected "
+          f"{level} of each")
+    rec = {"rays": w * h, "launches_a_step": {k: n / level for k, n in launched.items()}}
+    for bounce in (0, 3):
+        g, origin, direction, t_max, live = queries[bounce]
+        r = origin.shape[0]
+        big, edge = trace.pallas_big(g), trace.edge_operand(g)
+        with torch.no_grad():
+            got = trace.launch_query(g, origin, direction, t_max, live)
+            want = trace.closest_hit_reference(g, origin, direction, t_max, live)
+            same = torch.ones(r, dtype=torch.bool, device=dev)
+            for a, b in zip(got, want):
+                if a.dtype.is_floating_point:
+                    eq = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+                else:
+                    eq = a == b
+                same &= eq.all(dim=-1) if eq.dim() > 1 else eq
+            key = trace.launch_query_key(g, origin, direction, live)
+            perm = torch.sort(key, stable=True).indices
+            parked = trace.park_dead(g, origin, direction, live)
+            perm_same = torch.equal(perm, trace.coherence_perm(g, *parked, live))
+            rays = trace.launch_query_pack(g, origin, direction, t_max, live, perm)
+            t, slot = ch.launch_walk(rays, g.tiles, g.tile_aabb, big, edge)
+            hits = int(want[3].sum())
+            key64 = key.long()
+            unsorted = trace.launch_query_pack(g, origin, direction, t_max, live)
+            blocks = rays.shape[0] // ch.RAY_BLOCK
+            ms = {
+                "key": cuda_ms(lambda: trace.launch_query_key(g, origin, direction, live), 20),
+                "sort": cuda_ms(lambda: torch.sort(key, stable=True), 20),
+                "pack": cuda_ms(lambda: trace.launch_query_pack(g, origin, direction, t_max, live,
+                                                                perm), 20),
+                "finish": cuda_ms(lambda: trace.launch_query_finish(g, perm, t, slot, rays, r),
+                                  20),
+                "walk": cuda_ms(lambda: ch.launch_walk(rays, g.tiles, g.tile_aabb, big, edge), 20),
+                "tile_order": cuda_ms(lambda: ch.block_tile_order(rays, g.tile_aabb, blocks), 20),
+                "walk_unsorted": cuda_ms(lambda: ch.launch_walk(unsorted, g.tiles, g.tile_aabb, big,
+                                                                edge), 20),
+                "query": cuda_ms(lambda: trace.launch_query(g, origin, direction, t_max, live), 20),
+                "plain": cuda_ms(lambda: trace.closest_hit_reference(g, origin, direction, t_max,
+                                                                     live), 20),
+                "int64_sort": cuda_ms(lambda: torch.sort(key64, stable=True), 20),
+            }
+        dispatch_ms = ms["key"] + ms["sort"] + ms["pack"] + ms["finish"]
+        nbytes = (r * (25 + 4) + r * (8 + 4 + 96) + r * (8 + 25) + rays.shape[0] * 32
+                  + r * (8 + 16 + 21) + hits * 24 + 4 * g.attr.numel())
+        bound = nbytes / PEAK_BYTES * 1e3
+        share = float(same.float().mean())
+        log(f"query dispatch, Cornell bounce {bounce}, {r} rays ({int(live.sum())} live, {hits} "
+            f"hits): key {ms['key']:.4f} + sort {ms['sort']:.4f} + pack {ms['pack']:.4f} + finish "
+            f"{ms['finish']:.4f} = {dispatch_ms:.4f} ms, bound {bound:.4f} ms (bytes, {nbytes} B, "
+            f"{dispatch_ms / bound:.2f}x); tile walk {ms['walk']:.4f} ms (block_tile_order "
+            f"{ms['tile_order']:.4f} ms; on the unsorted rays {ms['walk_unsorted']:.4f} ms), whole query "
+            f"{ms['query']:.4f} ms, plain version {ms['plain']:.3f} ms ({ms['plain'] - ms['walk']:.3f}"
+            f" ms less the walk), its int64 sort {ms['int64_sort']:.4f} ms; bit-equal on "
+            f"{share:.7f} of the rays, permutation equal {perm_same}; card: {card}")
+        check(share == 1.0 and perm_same,
+              f"query dispatch bounce {bounce}: bit-equal on {share:.7f}, permutation {perm_same}")
+        rec[f"bounce_{bounce}"] = dict(ms=ms, dispatch_ms=dispatch_ms, bound_ms=bound,
+                                       bound_by="bytes", bytes=nbytes,
+                                       sort_share=ms["sort"] / dispatch_ms,
+                                       bit_equal_share=share, hits=hits)
+    return rec
+
+
 def wavefronts(scene, camera, n_rays: int, bounces: int, seed: int):
     """(origin, direction, live) of each closest-hit call of `trace_paths`
     for camera rays of the given view, bounce by bounce."""
@@ -2768,9 +2910,9 @@ def wavefronts(scene, camera, n_rays: int, bounces: int, seed: int):
     captured = []
     inner = trace.closest_hit
 
-    def recording(g, origin, direction, t_max=float("inf"), live=None):
+    def recording(g, origin, direction, t_max=float("inf"), live=None, kernels=True):
         captured.append((origin.clone(), direction.clone(), live.clone()))
-        return inner(g, origin, direction, t_max, live)
+        return inner(g, origin, direction, t_max, live, kernels)
 
     trace.closest_hit = recording
     try:
@@ -3642,6 +3784,11 @@ def main() -> int:
     # ---- 25. the surface shading kernel at the benchmark cell's shapes ----------------------
     surface = surface_on_card(dev, scene, card)
     log(f"phase 25 record: {json.dumps(surface)}")
+
+    phases.start(26)
+    # ---- 26. the query's dispatch kernels at the benchmark cell's shapes ---------------------
+    dispatch = dispatch_on_card(dev, scene, card)
+    log(f"phase 26 record: {json.dumps(dispatch)}")
 
     phases.report()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")

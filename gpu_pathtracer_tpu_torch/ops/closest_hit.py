@@ -637,6 +637,19 @@ def _group_walk(rays, tiles, tile_aabb, order, ring, edge=None, window=False):
 # Public entry points
 # ---------------------------------------------------------------------------
 
+def launch_walk(rays, tiles, tile_aabb, big=False, edge=None):
+    """`block_tile_order`, then one launch of the tile kernel of the route on
+    prepared rays: with `edge` the one with the edge prefilter, else with
+    `big` the ring-buffered one, else the plain-load one.  Returns (best_t,
+    slot), each (R_pad,)."""
+    order = block_tile_order(rays, tile_aabb, rays.shape[0] // RAY_BLOCK)
+    if edge is not None:
+        return launch_closest_hit_mxu(rays, tiles, edge[0], edge[1], tile_aabb, order)
+    if big:
+        return launch_closest_hit_pipe(rays, tiles, tile_aabb, order)
+    return launch_closest_hit(rays, tiles, tile_aabb, order)
+
+
 def _finish(t, slot, r):
     t, slot = t[:r], slot[:r]
     hit = slot >= 0
@@ -658,13 +671,7 @@ def closest_hit_tiles(tiles, tile_aabb, origin, direction, t_max=float("inf"), b
     with torch.no_grad():
         rays = prepare_rays(tile_aabb, origin, direction, t_max)
         if rays.device.type == "cuda":
-            order = block_tile_order(rays, tile_aabb, rays.shape[0] // RAY_BLOCK)
-            if edge is not None:
-                t, slot = launch_closest_hit_mxu(rays, tiles, edge[0], edge[1], tile_aabb, order)
-            elif big:
-                t, slot = launch_closest_hit_pipe(rays, tiles, tile_aabb, order)
-            else:
-                t, slot = launch_closest_hit(rays, tiles, tile_aabb, order)
+            t, slot = launch_walk(rays, tiles, tile_aabb, big, edge)
         elif rays.device.type == "cpu":
             with tracing.span("kernel.closest_hit"):  # the kernel's plain version
                 t, slot = _reference(rays, tiles, tile_aabb, big, edge)

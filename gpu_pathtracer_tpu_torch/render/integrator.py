@@ -17,7 +17,7 @@ not differentiable); callers that only render wrap the call in
 `torch.no_grad()`.
 
 A step makes one call a stage: `trace.closest_hit`, `surface.shade`,
-`lights.nee`, the accumulate step; the middle two take the port's kernels
+`lights.nee`, the accumulate step; the first three take the port's kernels
 where no gradient is asked for (`ops.route`) and no scene tensor requires it.
 
 A `render_image` call is a frame of the port's tracer (`tracing`): spans
@@ -105,7 +105,7 @@ def trace_paths(
                     u_descent = pick_uniforms[i].to(dev)
                 else:
                     u_descent = torch.rand((descent, r), generator=generator, device=dev)
-            _, slot, bary, hit = trace.closest_hit(g, o, d, live=live)
+            _, slot, bary, hit = trace.closest_hit(g, o, d, live=live, kernels=kernels)
 
             with tracing.span("shading.surface"):
                 hit = hit & live

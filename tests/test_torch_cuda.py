@@ -275,11 +275,11 @@ def test_closest_hit_on_cuda_matches_cpu(cuda, tmp_path):
     np.testing.assert_allclose(bary[same].numpy(), rbary[same].numpy(), rtol=1e-5, atol=1e-6)
 
 
-def test_traced_frame_on_cuda(cuda, tmp_path):
+def test_traced_frame_on_cuda(cuda, tmp_path, monkeypatch):
     """A captured `render_image` frame on the card: the image bit for bit the
     untraced one's, the step tree with device times that tile the frame, one
-    `launch.closest_hit` inside each `kernel.closest_hit`, the synchronising
-    calls counted, and the sync debug mode restored."""
+    `launch.closest_hit` inside each `kernel.closest_hit`, no synchronising
+    call (the plain query's counted), and the sync debug mode restored."""
     testscenes.make_cornell_box(tmp_path, spheres=True, sphere_subdiv=2)
     scene = build_scene(obj_io.load_scene(tmp_path, "box.obj"), cuda)
     cam = Camera.create(eye=(0.5, 0.5, 2.4), center=(0.5, 0.5, 0.0), up=(0, 1, 0),
@@ -310,7 +310,15 @@ def test_traced_frame_on_cuda(cuda, tmp_path):
     kernels = frame.named("kernel.closest_hit")
     assert len(kernels) == 8 and all(k.counters == {"launch.closest_hit": 1} for k in kernels)
     assert all(k.parent.name == "dispatch.closest_hit" and k.device_ms > 0 for k in kernels)
-    assert frame.counter("host_sync") >= 8  # park_dead's constant, a step at least
+    # the query's kernels take the budget as an argument: no step synchronises
+    assert frame.counter("host_sync") == 0
+    # its plain version does (park_dead's constant, a step at least)
+    monkeypatch.setattr(trace, "closest_hit_query", trace.closest_hit_reference)
+    tracing.clear()
+    with tracing.capture():
+        assert torch.equal(render(), off)
+    (plain,) = tracing.frames()
+    assert plain.counter("host_sync") >= 8
 
 
 def _window(rng, n_rays, cuda):
